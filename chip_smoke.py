@@ -16,10 +16,18 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
 4. the main path: keyed commit verification of a 150-validator commit
    through ``create_batch_verifier(...).verify()`` on ``cuda``, with
    planted invalid lanes whose verdicts the big-int oracle decides;
-   every kernel's launch count must rise during that verify; then one
-   warm verify under torch.profiler for the device's busy share;
+   every kernel's launch count must rise during that cold verify (the
+   field kernels build the tables), and a warm verify must launch
+   verify_keyed and sha512_padded once per slice and no field kernel;
+   then one warm verify under torch.profiler for the device's busy
+   share;
 5. the same for a 1024-validator commit (the 4-bit comb tables);
-6. a batch of more than 8192 lanes, through the MAX_LAUNCH slicing;
+6. a batch of more than 8192 lanes, through the MAX_LAUNCH slicing,
+   with a profiled warm verify too;
+   after each of phases 4-6 the fused verify_keyed kernel is held
+   against its plain version on the same batch, slice by slice: the
+   verdicts and the limbs of [8]q, exactly, on every lane; then timed
+   (CUDA events) beside its bound, with nvidia-smi's SM clock sampled;
 7. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -63,6 +71,17 @@ SQ_OPS = 26 + 325 + 26 + FOLD_RELAX_OPS    # diagonal, cross terms, doublings
 # adds.  Each 64-bit operation is two 32-bit ones (a rotate is two
 # funnel shifts, an add an add and an add-with-carry).
 SHA_BLOCK_OPS = 2 * (64 * 13 + 80 * 23 + 8)
+# The fused keyed verify (csrc/verify_keyed.cu), per lane: R's
+# decompression takes 20 products (11 in pow22523) and 255 squarings
+# (251 in pow22523), [S]B 32 mixed adds of 7 products, [k](-A) one add
+# of 8 products per window, the two point additions 9 each, and [8] three
+# doublings of 4 products and 4 squarings.  The canonical-form tests and
+# the digest reduction are left out, so the bound is a lower one.
+VK_SQUARES = 255 + 3 * 4
+
+
+def vk_products(window_bits: int) -> int:
+    return 20 + 32 * 7 + (256 // window_bits) * 8 + 2 * 9 + 3 * 4
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -76,6 +95,40 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+class SmiSampler:
+    """nvidia-smi's SM clock and power draw, sampled every 50 ms while
+    the block runs: the clock a time was taken at."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        )
+        time.sleep(0.5)  # nvidia-smi's own start-up
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.rows = []
+        for line in out.splitlines():
+            try:
+                mhz, watts = (float(x) for x in line.split(","))
+            except ValueError:
+                continue
+            self.rows.append((mhz, watts))
+
+    def summary(self) -> str:
+        if not self.rows:
+            return "SM clock not sampled"
+        mhz = sorted(r[0] for r in self.rows)
+        watts = sorted(r[1] for r in self.rows)
+        return (f"SM clock {mhz[0]:.0f}-{mhz[-1]:.0f} MHz (median "
+                f"{mhz[len(mhz) // 2]:.0f}), power {watts[len(watts) // 2]:.1f} W, "
+                f"{len(mhz)} samples")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -220,8 +273,8 @@ def check_kernels(dev) -> dict:
           f"(and equal to hashlib); device {ms * 1e3:8.2f} us/launch (plain "
           f"{pms * 1e3:9.2f} us); back-to-back {ems * 1e3:8.2f} us (plain "
           f"{epms * 1e3:9.2f} us); bound {bound_ms(nb, ops)[0] * 1e3:.4f} us")
-    print("library: no PyTorch call computes a GF(2^255-19) limb product or "
-          "SHA-512, so library_ms is null")
+    print("library: no PyTorch call computes a GF(2^255-19) limb product, "
+          "SHA-512 or a keyed Ed25519 verify, so library_ms is null")
     _build.reset_launches()
     return res
 
@@ -284,24 +337,32 @@ def run_verify(triples, dev):
     bv = create_batch_verifier(ed.Ed25519PubKey(triples[0][0]), device=dev)
     for p, m, s in triples:
         bv.add(ed.Ed25519PubKey(p), m, s)
+    t1 = time.perf_counter()
     plan = bv.plan()
+    t2 = time.perf_counter()
     ok, results = bv.execute(plan)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, bv, plan, results
+    t3 = time.perf_counter()
+    return t3 - t0, bv, plan, results, (t1 - t0, t2 - t1, t3 - t2)
 
 
 def drive(name: str, triples, expected, dev, warm_runs: int,
-          window_bits: int) -> dict:
-    """Cold verify (table build included) with launch counts, then warm
-    VerifyCommit latency over ``warm_runs`` runs."""
+          window_bits: int, cold_kernels) -> dict:
+    """Cold verify with launch counts (``cold_kernels`` must each
+    launch: the field kernels only where the run builds tables), then
+    warm VerifyCommit latency over ``warm_runs`` runs; a warm verify
+    launches verify_keyed and sha512_padded once per slice and no
+    field kernel."""
     import torch
 
     from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+    from cometbft_tpu_torch.ops import precompute as PR
 
     n = len(triples)
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    cold, bv, plan, results = run_verify(triples, dev)
+    cold, bv, plan, results, _ = run_verify(triples, dev)
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     if bv.last_tier != "keyed":
@@ -311,26 +372,31 @@ def drive(name: str, triples, expected, dev, warm_runs: int,
     if results != expected:
         bad = [i for i, (a, b) in enumerate(zip(results, expected)) if a != b]
         raise AssertionError(f"{name}: verdicts differ from the oracle at {bad[:20]}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in cold_kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name}: kernels never launched: {missing}")
-    lat = []
+    lat, phases = [], []
     for i in range(warm_runs):
         if i == 0:
             _build.reset_launches()
-        dt, bv, _, results = run_verify(triples, dev)
+        dt, bv, _, results, split = run_verify(triples, dev)
         if i == 0:
             warm_launches = dict(_build.LAUNCHES)
         if results != expected or bv.last_tier != "keyed":
             raise AssertionError(f"{name}: warm run {i} differs")
         lat.append(dt)
+        phases.append(split)
+    slices = -(-max(PR.next_pow2(n), 8) // EV.MAX_LAUNCH)
+    want = {"verify_keyed": slices, "sha512_padded": slices, "fe_mul": 0, "fe_sq": 0}
+    if warm_launches != want:
+        raise AssertionError(f"{name}: warm launches {warm_launches}, expected {want}")
     p50 = pct(lat, 50)
     out = dict(
         n=n, cold_s=cold, launches=launches, warm_launches=warm_launches,
         p50_ms=1e3 * p50, p90_ms=1e3 * pct(lat, 90), p95_ms=1e3 * pct(lat, 95),
         runs=warm_runs, sigs_per_s=n / p50, peak_mb=peak / 2**20,
         field_launches=warm_launches["fe_mul"] + warm_launches["fe_sq"],
-        invalid=sum(not v for v in expected),
+        invalid=sum(not v for v in expected), plan=plan,
     )
     print(f"{name}: {n} lanes ({out['invalid']} invalid caught), tier keyed, "
           f"window_bits {window_bits}")
@@ -338,13 +404,103 @@ def drive(name: str, triples, expected, dev, warm_runs: int,
     print(f"  warm VerifyCommit over {warm_runs} runs: p50 {out['p50_ms']:.2f} ms, "
           f"p90 {out['p90_ms']:.2f} ms, p95 {out['p95_ms']:.2f} ms; "
           f"{out['sigs_per_s']:.0f} sigs/s")
-    print(f"  launches per warm verify: {warm_launches} "
-          f"(field kernels {out['field_launches']})")
+    add_ms, plan_ms, exec_ms = (1e3 * pct([p[j] for p in phases], 50) for j in range(3))
+    print(f"  warm phases, p50: add {add_ms:.3f} ms (create_batch_verifier + add x {n}), "
+          f"plan {plan_ms:.3f} ms (key lookup, key ids), execute {exec_ms:.3f} ms "
+          "(pack, copy in, padded input, sha512_padded, verify_keyed, copy out)")
+    print(f"  launches per warm verify: {warm_launches} ({slices} slice(s); "
+          f"field kernels {out['field_launches']})")
     print(f"  peak device memory (cold run): {out['peak_mb']:.1f} MiB")
     return out
 
 
-def profile_warm(triples, dev) -> None:
+def check_fused(name: str, plan, expected, dev) -> dict:
+    """The fused verify_keyed kernel against its plain version
+    (verify_keyed_plain: the curve, scalar and comb code around the
+    fe_mul / fe_sq kernels) on the plan's packed batch, slice by slice
+    as verify_arrays_keyed cuts it: verdicts and the limbs of [8]q must
+    be equal on every lane, and the verdicts of the real lanes the
+    oracle's.  Then both timed on the first slice, beside the bound."""
+    import torch
+
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+    from cometbft_tpu_torch.ops import field as F
+    from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.ops import scalar as SC
+
+    entry, wb = plan.entry, plan.entry.window_bits
+    t0 = time.perf_counter()
+    packed, bucket = EV.pack_inputs(plan.pub, plan.sig, plan.msgs, key_ids=plan.key_ids)
+    pack_ms = 1e3 * (time.perf_counter() - t0)
+    batch = packed.shape[1]
+    if batch > EV.MAX_LAUNCH and batch % EV.MAX_LAUNCH:
+        packed = np.pad(packed, [(0, 0), (0, EV.MAX_LAUNCH - batch % EV.MAX_LAUNCH)])
+        batch = packed.shape[1]
+    buf = torch.from_numpy(packed).to(dev)
+    nblocks = EV.nblocks_for_bucket(bucket)
+    b_table = F.const(PR.b_comb8(), dev)
+    key_valid = entry.valid_device()
+    oks, slices, err = [], [], 0
+    for s in range(0, batch, EV.MAX_LAUNCH):
+        rows = buf[:, s : s + EV.MAX_LAUNCH]
+        digest = EV.keyed_digest(rows, bucket, nblocks)
+        q8 = torch.empty((4, F.NLIMBS, rows.shape[1]), dtype=F.DTYPE, device=dev)
+        ok = EV.verify_keyed_fused(rows, digest, entry.table, key_valid, b_table,
+                                   bucket, wb, out_point=q8)
+        want_ok, want_q8 = EV.verify_keyed_plain(rows, digest, entry.table, key_valid,
+                                                 b_table, bucket, wb)
+        torch.cuda.synchronize()
+        e = int((q8.long() - want_q8.long()).abs().max())
+        if e != 0 or not torch.equal(q8, want_q8) or not torch.equal(ok, want_ok):
+            bad = (ok != want_ok).nonzero().flatten().tolist()[:20]
+            raise AssertionError(f"{name}: verify_keyed differs from its plain version "
+                                 f"at slice {s}: max |dq8| {e}, verdicts differ at {bad}")
+        err = max(err, e)
+        oks.append(ok)
+        slices.append((rows, digest))
+    got = torch.cat(oks).cpu().numpy()[: len(expected)].tolist()
+    if got != list(expected):
+        raise AssertionError(f"{name}: verify_keyed verdicts differ from the oracle")
+    rows, digest = slices[0]
+    n = rows.shape[1]
+    fused = lambda: EV.verify_keyed_fused(rows, digest, entry.table, key_valid, b_table,
+                                          bucket, wb)
+    plain = lambda: EV.verify_keyed_plain(rows, digest, entry.table, key_valid, b_table,
+                                          bucket, wb)
+    # the kernel runs for a millisecond, far longer than its host enqueue
+    # (~0.05 ms), so back-to-back CUDA events time the kernel itself;
+    # torch.profiler is printed beside them
+    with SmiSampler() as smi:
+        ms = cuda_ms(fused, 200)
+        pfms = device_ms(fused, 50)
+    pms = device_ms(plain, 2)
+    # bytes: per lane S and the key id (68 of the packed rows), the
+    # digest, the verdict; and each distinct comb entry the lanes gather
+    s_idx = rows[64:96].long()
+    k = SC.reduce_digest(digest)
+    win = SC.limbs_to_windows8(k) if wb == 8 else SC.limbs_to_nibbles(k)
+    kid = torch.from_numpy(packed[100 + bucket : 104 + bucket, :n].astype(np.int64)).to(dev)
+    key = kid[0] | (kid[1] << 8) | (kid[2] << 16) | (kid[3] << 24)
+    nwin = 256 // wb
+    b_entries = int(torch.unique(s_idx + 256 * torch.arange(32, device=dev)[:, None]).numel())
+    k_entries = int(torch.unique(
+        (key[None] * (1 << wb) + win.long()) * nwin
+        + torch.arange(nwin, device=dev)[:, None]).numel())
+    nbytes = n * (68 + 64 + 1) + 3 * F.NLIMBS * 4 * b_entries + 4 * F.NLIMBS * 4 * k_entries
+    ops = n * (vk_products(wb) * MUL_OPS + VK_SQUARES * SQ_OPS)
+    bound = bound_ms(nbytes, ops)
+    print(f"verify_keyed {name}: {len(oks)} slice(s) of {n} lanes, window_bits {wb}: "
+          f"exact against its plain version (verdicts and [8]q limbs on every lane, "
+          f"= oracle); {ms * 1e3:9.2f} us/launch back-to-back at {n} lanes (CUDA "
+          f"events; torch.profiler {pfms * 1e3:9.2f} us; plain {pms * 1e3:10.2f} us "
+          f"device time); bound "
+          f"{bound[0] * 1e3:.3f} us ({bound[1]}; {b_entries} + {k_entries} comb "
+          f"entries, {nbytes} bytes); while timed: {smi.summary()}; host "
+          f"pack_inputs of the {len(expected)} lanes {pack_ms:.3f} ms")
+    return dict(err=err, ms=ms, plain_ms=pms, bound=bound, lanes=n)
+
+
+def profile_warm(name: str, triples, dev) -> None:
     """One warm verify under torch.profiler: the device's busy share
     (kernel and copy time over the wall), the kernels that take it, and
     the host operations that take the wall."""
@@ -352,13 +508,14 @@ def profile_warm(triples, dev) -> None:
 
     run_verify(triples, dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall, _, _, _ = run_verify(triples, dev)
+        wall = run_verify(triples, dev)[0]
     dev_events, host = _split_events(prof)
     dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     if dev_ms <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    print(f"profile: warm 150-validator verify, wall {wall * 1e3:.2f} ms under the "
-          f"profiler, device busy {dev_ms:.2f} ms, busy share {dev_ms / (wall * 1e3):.3f}")
+    print(f"profile: warm {name} verify, wall {wall * 1e3:.2f} ms under the "
+          f"profiler, device busy {dev_ms:.2f} ms, busy share {dev_ms / (wall * 1e3):.3f}, "
+          f"{sum(e.count for e in dev_events)} kernels and copies on the card")
     for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  device {e.self_device_time_total / 1e3:7.3f} ms  calls {e.count:5d}  "
               f"{e.key[:70]}")
@@ -387,6 +544,8 @@ def main() -> int:
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(built)} sources "
           "(nvcc in parallel)")
+    print(f"  verify_keyed: {_build.library('verify_keyed').verify_keyed_smem_bytes()} "
+          "bytes of dynamic shared memory per block")
     for b in built.values():
         print(f"  {b.name}: nvcc {b.seconds:.2f} s -> {b.path}")
         for line in b.ptxas.splitlines():
@@ -397,13 +556,17 @@ def main() -> int:
           "the arithmetic is integer)")
     kres = check_kernels(dev)
 
+    every = ("fe_mul", "fe_sq", "sha512_padded", "verify_keyed")
     commit150, exp150 = make_commit(150, b"validator", plant=True)
     main150 = drive("commit150", commit150, exp150, dev, warm_runs=100,
-                    window_bits=8)
-    profile_warm(commit150, dev)
+                    window_bits=8, cold_kernels=every)
+    profile_warm("commit150", commit150, dev)
+    vk150 = check_fused("commit150", main150["plan"], exp150, dev)
 
     commit1k, exp1k = make_commit(1024, b"validator1k", plant=True)
-    drive("commit1024", commit1k, exp1k, dev, warm_runs=20, window_bits=4)
+    main1k = drive("commit1024", commit1k, exp1k, dev, warm_runs=20, window_bits=4,
+                   cold_kernels=every)
+    check_fused("commit1024", main1k["plan"], exp1k, dev)
 
     # > 8192 lanes: the 150-validator commit repeated across heights,
     # plus invalid lanes planted at known positions in both slices
@@ -413,7 +576,11 @@ def main() -> int:
     for pos in (100, 8192, len(big) - 1):
         big[pos][1] = big[pos][1] + b"!"
         big_exp[pos] = False
-    drive("chunked", big, big_exp, dev, warm_runs=5, window_bits=8)
+    # the tables are warm from commit150: no field kernel runs here
+    chunked = drive("chunked", big, big_exp, dev, warm_runs=5, window_bits=8,
+                    cold_kernels=("sha512_padded", "verify_keyed"))
+    profile_warm("chunked", big, dev)
+    check_fused("chunked", chunked["plan"], big_exp, dev)
 
     kernels = []
     for kname, key in (("fe_mul", ("fe_mul", 256)), ("fe_sq", ("fe_sq", 256, 1)),
@@ -429,6 +596,15 @@ def main() -> int:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None,
         })
+    kernels.append({
+        "name": "verify_keyed", "route": "cuda",
+        "source": "cometbft_tpu_torch/csrc/verify_keyed.cu",
+        "replaces": "cometbft_tpu/ops/field.py:338",
+        "launches": main150["launches"]["verify_keyed"],
+        "max_abs_err": vk150["err"], "ms": vk150["ms"], "plain_ms": vk150["plain_ms"],
+        "bound_ms": vk150["bound"][0], "bound_by": vk150["bound"][1],
+        "library_ms": None,
+    })
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -23,70 +23,24 @@
 // below the cost of a launch, so the design answer is fewer launches:
 // every intermediate stays in registers (HBM sees only operands and
 // result), and the square repeats in registers: fe_sq(a, reps) computes
-// a^(2^reps) in one launch, so the 254 squarings of pow22523 take 13
-// launches, not 254.
+// a^(2^reps) in one launch, so the 251 squarings of pow22523 take 11
+// launches, not 251.
 //
-// Integer semantics: column sums and products are taken in uint32, so
-// an operand outside the documented budget (|limb| < 2^13, two chained
-// lazy adds on a multiply output) wraps exactly as the int32 tensor
-// arithmetic of the plain version does instead of being undefined
-// behaviour.  Carries are arithmetic right shifts of the signed value
-// (nvcc's >> on a negative int is arithmetic, as torch's is), and the
-// low part is `c & 1023`, which equals the reference's
-// `c - (carry << 10)` without left-shifting a negative number.
+// The arithmetic is field.cuh's register level (mul_regs, sq_regs; the
+// integer semantics are described there), which the fused keyed verify
+// (verify_keyed.cu) shares.  These two kernels serve the per-key table
+// build (ops/precompute.py build_tables_kernel), which still composes
+// field launches from torch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "field.cuh"
+
 namespace {
 
-constexpr int NL = 26;
-constexpr int NCOL = 2 * NL - 1;  // 51
-constexpr uint32_t WRAP = 608;    // 2^260 mod p
+using fe::NL;
 constexpr int THREADS = 128;
-
-__device__ __forceinline__ int32_t asr10(uint32_t x) {
-  return static_cast<int32_t>(x) >> 10;
-}
-
-// 51 columns -> 26 lazy limbs, then four relax passes; `c` is
-// clobbered.  Mirrors _fold_high_rows + _relax_rows exactly.
-__device__ __forceinline__ void fold_relax(uint32_t (&c)[NCOL],
-                                           uint32_t (&out)[NL]) {
-  uint32_t high[NL + 1];
-#pragma unroll
-  for (int j = 0; j < NL - 1; ++j) high[j] = c[NL + j];
-  high[NL - 1] = 0;
-  high[NL] = 0;
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    int32_t carry[NL + 1];
-#pragma unroll
-    for (int j = 0; j <= NL; ++j) {
-      carry[j] = asr10(high[j]);
-      high[j] &= 1023u;
-    }
-    // row 0 receives nothing; row 26's carry leaves the block (it is
-    // zero for every input, as in the reference's _shift_up)
-#pragma unroll
-    for (int j = 1; j <= NL; ++j) high[j] += static_cast<uint32_t>(carry[j - 1]);
-  }
-#pragma unroll
-  for (int i = 0; i < NL; ++i) out[i] = c[i] + high[i] * WRAP;
-  out[0] += high[NL] * (WRAP * WRAP);
-#pragma unroll
-  for (int pass = 0; pass < 4; ++pass) {
-    int32_t carry[NL];
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-      carry[j] = asr10(out[j]);
-      out[j] &= 1023u;
-    }
-    out[0] += static_cast<uint32_t>(carry[NL - 1]) * WRAP;
-#pragma unroll
-    for (int j = 1; j < NL; ++j) out[j] += static_cast<uint32_t>(carry[j - 1]);
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 fe_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
@@ -99,16 +53,8 @@ fe_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
     x[i] = static_cast<uint32_t>(a[i * n + lane]);
     y[i] = static_cast<uint32_t>(b[i * n + lane]);
   }
-  uint32_t c[NCOL];
-#pragma unroll
-  for (int j = 0; j < NCOL; ++j) c[j] = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-#pragma unroll
-    for (int j = 0; j < NL; ++j) c[i + j] += x[i] * y[j];
-  }
   uint32_t r[NL];
-  fold_relax(c, r);
+  fe::mul_regs(x, y, r);
 #pragma unroll
   for (int i = 0; i < NL; ++i) out[i * n + lane] = static_cast<int32_t>(r[i]);
 }
@@ -121,20 +67,7 @@ fe_sq_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
   uint32_t x[NL];
 #pragma unroll
   for (int i = 0; i < NL; ++i) x[i] = static_cast<uint32_t>(a[i * n + lane]);
-  for (int rep = 0; rep < reps; ++rep) {
-    uint32_t c[NCOL];
-#pragma unroll
-    for (int j = 0; j < NCOL; ++j) c[j] = 0;
-    // cols[j] = sum_{i < j-i} 2a[i]*a[j-i] + (j even) a[j/2]^2
-#pragma unroll
-    for (int i = 0; i < NL; ++i) {
-      c[2 * i] += x[i] * x[i];
-      const uint32_t d = x[i] + x[i];
-#pragma unroll
-      for (int j = i + 1; j < NL; ++j) c[i + j] += d * x[j];
-    }
-    fold_relax(c, x);
-  }
+  for (int rep = 0; rep < reps; ++rep) fe::sq_regs(x);
 #pragma unroll
   for (int i = 0; i < NL; ++i) out[i * n + lane] = static_cast<int32_t>(x[i]);
 }

@@ -3,10 +3,11 @@
 Each source is compiled by nvcc for sm_90a into a shared library with a
 plain C interface and loaded with ctypes -- no PyTorch headers, so a
 build takes seconds.  The library's file name carries a hash of the
-source and the flags, so a stale build is never loaded.  The build runs
-at first use (or all at once through :func:`build_all`, one nvcc
-process per source, started together) into ``build/torch_kernels/``
-beside the package, a directory that ``.gitignore`` lists.
+source, the shared headers (csrc/*.cuh) and the flags, so a stale
+build is never loaded.  The build runs at first use (or all at once
+through :func:`build_all`, one nvcc process per source, started
+together) into ``build/torch_kernels/`` beside the package, a directory
+that ``.gitignore`` lists.
 
 A build failure raises with nvcc's stderr.  Nothing here falls back to
 a CPU path: a kernel that cannot build is a fault.
@@ -18,6 +19,7 @@ one where it launches its kernel and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -52,10 +54,20 @@ SOURCES = {
         "sha512.cu",
         {"sha512_padded_launch": (_VP, _I32, _VP, _VP, _I64, _VP)},
     ),
+    "verify_keyed": (
+        "verify_keyed.cu",
+        {
+            "verify_keyed_launch": (_VP, _I64, _I32, _VP, _VP, _I64, _VP, _I64,
+                                    _VP, _VP, _VP, _I64, _I32, _VP),
+            "verify_keyed_smem_bytes": (),
+        },
+    ),
 }
 
 #: kernel name -> launches since the last reset
-LAUNCHES: dict[str, int] = {"fe_mul": 0, "fe_sq": 0, "sha512_padded": 0}
+LAUNCHES: dict[str, int] = {
+    "fe_mul": 0, "fe_sq": 0, "sha512_padded": 0, "verify_keyed": 0,
+}
 
 
 def reset_launches() -> None:
@@ -91,10 +103,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[str, str]:
-    fname = SOURCES[name][0]
-    src = os.path.join(CSRC, fname)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """(source path, library path): the library's name carries a hash of
+    the source, every shared header (csrc/*.cuh) and the flags."""
+    src = os.path.join(CSRC, SOURCES[name][0])
+    digest = hashlib.sha256()
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

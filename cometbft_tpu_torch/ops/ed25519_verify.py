@@ -10,6 +10,13 @@ validator set's per-key comb tables (ops/precompute.py), plus R's
 decompression, S < L and the key's validity.  Results come back as one
 bool per signature.
 
+On the card a slice is three steps: the padded input (torch ops), the
+sha512_padded kernel, and the verify_keyed kernel, which runs
+everything after the digest for a lane in one thread
+(csrc/verify_keyed.cu).  ``verify_keyed_plain`` is that kernel's plain
+version, composed from ops/curve.py, ops/scalar.py and
+ops/precompute.py.
+
 Layouts are the reference's: the packed buffer is feature-first
 (104 + bucket, B) uint8 -- pub[32] | sig[64] | msg[bucket] |
 msglen_le[4] | key_id_le[4] -- padded to a power-of-two batch and a
@@ -26,7 +33,9 @@ import torch
 from cometbft_tpu_torch.crypto import BatchVerifier, PubKey
 from cometbft_tpu_torch.crypto import ed25519 as _ed
 from cometbft_tpu_torch.crypto import edwards as _ref
+from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import curve as C
+from cometbft_tpu_torch.ops import field as F
 from cometbft_tpu_torch.ops import precompute as PR
 from cometbft_tpu_torch.ops import scalar as SC
 from cometbft_tpu_torch.ops import sha512 as SH
@@ -78,45 +87,106 @@ def build_padded_input(r_enc, a_enc, msg, msglen, nblocks: int):
     return buf.to(torch.uint8), nblocks_lane[0]
 
 
-def verify_kernel_keyed(pub, sig, msg, msglen, key_ids, table, key_valid,
-                        nblocks: int, window_bits: int) -> torch.Tensor:
-    """(B,) bool verdicts against a device-resident key table.
-
-    pub (32, B), sig (64, B), msg (M, B) uint8; msglen, key_ids (B,);
-    table (nwin, 4, 26, cap*nent) int32; key_valid (cap,) bool."""
-    r_enc = sig[:32]
-    s_bytes = sig[32:]
-    r_pt, r_ok = C.decompress(r_enc)
-    s_ok = SC.bytes_lt_l(s_bytes)
-    buf, nblocks_lane = build_padded_input(r_enc, pub, msg, msglen, nblocks)
-    digest = SH.sha512_padded(buf, nblocks, nblocks_lane)
-    k_limbs = SC.reduce_digest(digest)
-    if window_bits == 8:
-        k_win = SC.limbs_to_windows8(k_limbs)
-    else:
-        k_win = SC.limbs_to_nibbles(k_limbs)
-    p1 = PR.comb_mul_base8(s_bytes)                              # [S]B
-    p2 = PR.comb_mul_keyed(table, key_ids, k_win, window_bits)   # [k](-A)
-    q = C.pt_add(C.pt_add(p1, p2), C.pt_neg(r_pt))
-    eq_ok = C.pt_is_identity(C.mul8(q))
-    return eq_ok & r_ok & s_ok & key_valid[key_ids.to(torch.int64)]
-
-
 def _le32(rows: torch.Tensor) -> torch.Tensor:
     b = rows.to(torch.int32)
     return b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24)
 
 
-def verify_kernel_keyed_packed(buf, table, key_valid, bucket: int,
-                               nblocks: int, window_bits: int) -> torch.Tensor:
-    """Packed keyed verify: (104+bucket, B) uint8 rows
-    pub[32] | sig[64] | msg[bucket] | msglen_le[4] | key_id_le[4]."""
-    return verify_kernel_keyed(
-        buf[:32], buf[32:96], buf[96 : 96 + bucket],
-        _le32(buf[96 + bucket : 100 + bucket]),
-        _le32(buf[100 + bucket : 104 + bucket]),
-        table, key_valid, nblocks, window_bits,
+def keyed_digest(buf: torch.Tensor, bucket: int, nblocks: int) -> torch.Tensor:
+    """SHA-512(R || A || M) per lane of the packed rows: (104+bucket, B)
+    uint8 -> (64, B) uint8 (the sha512_padded kernel on a CUDA tensor)."""
+    msglen = _le32(buf[96 + bucket : 100 + bucket])
+    padded, nblocks_lane = build_padded_input(
+        buf[32:64], buf[:32], buf[96 : 96 + bucket], msglen, nblocks
     )
+    return SH.sha512_padded(padded, nblocks, nblocks_lane)
+
+
+def verify_keyed_plain(buf, digest, table, key_valid, b_table, bucket: int,
+                       window_bits: int):
+    """The plain PyTorch version of the verify_keyed kernel: -> ((B,)
+    bool verdicts, (4, 26, B) int32 limbs of [8]q).
+
+    buf (104+bucket, B) uint8 packed rows pub[32] | sig[64] | msg[bucket]
+    | msglen_le[4] | key_id_le[4]; digest (64, B) uint8 from
+    :func:`keyed_digest`; table (nwin, 4, 26, cap*nent) int32; key_valid
+    (cap,) bool; b_table the (32, 3, 26, 256) comb of B.  Its field
+    products go through fe_mul / fe_sq, so on a CUDA tensor it is a
+    composition of field-kernel launches and torch ops."""
+    r_enc, s_bytes = buf[32:64], buf[64:96]
+    key_ids = _le32(buf[100 + bucket : 104 + bucket])
+    r_pt, r_ok = C.decompress(r_enc)
+    s_ok = SC.bytes_lt_l(s_bytes)
+    k_limbs = SC.reduce_digest(digest)
+    if window_bits == 8:
+        k_win = SC.limbs_to_windows8(k_limbs)
+    else:
+        k_win = SC.limbs_to_nibbles(k_limbs)
+    p1 = PR.comb_mul_base8(s_bytes, b_table)                     # [S]B
+    p2 = PR.comb_mul_keyed(table, key_ids, k_win, window_bits)   # [k](-A)
+    q8 = C.mul8(C.pt_add(C.pt_add(p1, p2), C.pt_neg(r_pt)))
+    ok = C.pt_is_identity(q8) & r_ok & s_ok & key_valid[key_ids.to(torch.int64)]
+    return ok, torch.stack(q8)
+
+
+def verify_keyed_fused(buf, digest, table, key_valid, b_table, bucket: int,
+                       window_bits: int, out_point=None) -> torch.Tensor:
+    """Keyed verify of the packed rows after SHA-512: (B,) bool verdicts
+    (arguments as :func:`verify_keyed_plain`).  ``out_point``, a (4, 26,
+    B) int32 tensor, receives the limbs of [8]q when given.
+
+    A CUDA tensor goes through the verify_keyed kernel (one launch, one
+    thread per lane; csrc/verify_keyed.cu), a CPU tensor through
+    verify_keyed_plain."""
+    if buf.dim() != 2 or buf.shape[0] != 104 + bucket or buf.dtype != torch.uint8:
+        raise ValueError(f"verify_keyed: expected ({104 + bucket}, B) uint8 rows, "
+                         f"got {tuple(buf.shape)} {buf.dtype}")
+    if window_bits not in (8, 4):
+        raise ValueError(f"verify_keyed: window_bits must be 8 or 4, got {window_bits}")
+    n = buf.shape[1]
+    nent = 1 << window_bits
+    if (table.dim() != 4 or table.shape[:3] != (256 // window_bits, 4, F.NLIMBS)
+            or table.shape[3] != key_valid.shape[0] * nent):
+        raise ValueError(f"verify_keyed: table {tuple(table.shape)} does not match "
+                         f"window_bits={window_bits} and {key_valid.shape[0]} keys")
+    if out_point is not None and (out_point.shape != (4, F.NLIMBS, n)
+                                  or out_point.dtype != F.DTYPE):
+        raise ValueError("verify_keyed: out_point must be (4, 26, B) int32")
+    if buf.device.type == "cpu":
+        ok, q8 = verify_keyed_plain(buf, digest, table, key_valid, b_table,
+                                    bucket, window_bits)
+        if out_point is not None:
+            out_point.copy_(q8)
+        return ok
+    if buf.device.type != "cuda":
+        raise ValueError(f"verify_keyed: unsupported device {buf.device}")
+    if buf.stride(1) != 1:
+        raise ValueError("verify_keyed: the rows' lanes must be contiguous")
+    if digest.shape != (64, n) or digest.dtype != torch.uint8:
+        raise ValueError(f"verify_keyed: digest must be (64, {n}) uint8")
+    for name, t, dtype in (("digest", digest, torch.uint8), ("table", table, F.DTYPE),
+                           ("key_valid", key_valid, torch.bool),
+                           ("b_table", b_table, F.DTYPE),
+                           ("out_point", out_point, F.DTYPE)):
+        if t is None:
+            continue
+        if t.device != buf.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"verify_keyed: {name} must be a contiguous {dtype} "
+                             f"tensor on {buf.device}")
+    if b_table.shape != (32, 3, F.NLIMBS, 256):
+        raise ValueError(f"verify_keyed: b_table {tuple(b_table.shape)}")
+    if F.NLIMBS * table.shape[3] >= 1 << 31:
+        raise ValueError("verify_keyed: pool too wide for 32-bit limb strides")
+    ok = torch.empty(n, dtype=torch.bool, device=buf.device)
+    rc = _build.library("verify_keyed").verify_keyed_launch(
+        buf.data_ptr(), buf.stride(0), bucket, digest.data_ptr(), table.data_ptr(),
+        table.shape[3], key_valid.data_ptr(), key_valid.shape[0], b_table.data_ptr(),
+        ok.data_ptr(), None if out_point is None else out_point.data_ptr(), n,
+        window_bits, torch.cuda.current_stream(buf.device).cuda_stream,
+    )
+    _build.check(rc, "verify_keyed")
+    _build.LAUNCHES["verify_keyed"] += 1
+    return ok
 
 
 def pack_inputs(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes],
@@ -175,13 +245,14 @@ def verify_arrays_keyed(entry: PR.KeySetTables, key_ids: np.ndarray,
     nblocks = nblocks_for_bucket(bucket)
     buf = torch.from_numpy(packed).to(entry.table.device)
     key_valid = entry.valid_device()
-    outs = [
-        verify_kernel_keyed_packed(
-            buf[:, s : s + MAX_LAUNCH], entry.table, key_valid, bucket,
-            nblocks, entry.window_bits,
-        )
-        for s in range(0, batch, MAX_LAUNCH)
-    ]
+    b_table = F.const(PR.b_comb8(), buf.device)
+    outs = []
+    for s in range(0, batch, MAX_LAUNCH):
+        rows = buf[:, s : s + MAX_LAUNCH]
+        outs.append(verify_keyed_fused(
+            rows, keyed_digest(rows, bucket, nblocks), entry.table, key_valid,
+            b_table, bucket, entry.window_bits,
+        ))
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out.cpu().numpy()[:n]
 

@@ -9,11 +9,13 @@ a field element is a limbs-first ``(26, *batch)`` int32 tensor, radix
 output (|limb| < 2^13, so 26 * 2^13 * 2^13 < 2^31).  Lazy limbs may be
 negative; every shift is arithmetic.
 
-The multiply and the square are hand-written CUDA kernels
-(csrc/field.cu: ``fe_mul``, ``fe_sq``).  Their wrappers take the kernel
-for a CUDA tensor and the plain PyTorch version in this module for a CPU
-tensor; the plain version repeats the kernel's arithmetic exactly and is
-what the tests and chip_smoke.py hold the kernel to.
+The multiply and the square are hand-written CUDA: device functions in
+csrc/field.cuh, which the fused keyed verify (csrc/verify_keyed.cu)
+calls, and the standalone kernels ``fe_mul`` and ``fe_sq``
+(csrc/field.cu) that the table build launches.  Their wrappers take the
+kernel for a CUDA tensor and the plain PyTorch version in this module
+for a CPU tensor; the plain version repeats the kernel's arithmetic
+exactly and is what the tests and chip_smoke.py hold the kernel to.
 """
 
 from __future__ import annotations

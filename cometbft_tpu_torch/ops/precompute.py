@@ -85,10 +85,12 @@ def _gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(*tbl.shape[:-1], *idx.shape)
 
 
-def comb_mul_base8(s_bytes: torch.Tensor):
+def comb_mul_base8(s_bytes: torch.Tensor, table: torch.Tensor | None = None):
     """[S]B via the 8-bit Niels comb: s_bytes (32, *batch) uint8 LE
-    scalar encoding (the comb is exact for any 256-bit integer)."""
-    table = F.const(b_comb8(), s_bytes.device)
+    scalar encoding (the comb is exact for any 256-bit integer).
+    ``table`` is b_comb8() on s_bytes' device (uploaded once if None)."""
+    if table is None:
+        table = F.const(b_comb8(), s_bytes.device)
     acc = C.identity(s_bytes.shape[1:], s_bytes.device)
     for w in range(32):
         e = _gather(table[w], s_bytes[w])  # (3, 26, *batch)

@@ -103,3 +103,24 @@ def test_env_readers_reject_malformed_values(monkeypatch):
         env.choice_from_env("X_CHOICE", "a", ("a", "b"))
     monkeypatch.delenv("X_CHOICE")
     assert env.choice_from_env("X_CHOICE", "a", ("a", "b")) == "a"
+
+
+def test_library_name_tracks_shared_headers(monkeypatch, tmp_path):
+    """A kernel library's name hashes its source, every csrc/*.cuh and
+    the flags: an edit to the shared field.cuh renames the library of
+    every source that includes it, so a stale build is never loaded."""
+    import shutil
+
+    from cometbft_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    before = {name: _build._target(name)[1] for name in _build.SOURCES}
+    assert _build._target("field")[0] == str(csrc / "field.cu")
+    header = csrc / "field.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {name: _build._target(name)[1] for name in _build.SOURCES}
+    assert all(after[n] != before[n] for n in ("field", "verify_keyed"))
+    header.write_bytes(header.read_bytes()[: -len(b"\n// edited\n")])
+    assert {name: _build._target(name)[1] for name in _build.SOURCES} == before

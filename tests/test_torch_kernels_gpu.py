@@ -100,3 +100,54 @@ def test_wrappers_raise_on_wrong_dtype(dev):
     with pytest.raises(ValueError):
         F.fe_mul(torch.zeros((F.NLIMBS, 4), dtype=torch.int32, device=dev),
                  torch.zeros((F.NLIMBS, 4), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("window_bits", [8, 4])
+def test_verify_keyed_equals_plain(dev, window_bits, monkeypatch):
+    """The fused keyed verify against its plain version on the card:
+    verdicts and the limbs of [8]q on every lane, planted invalid lanes
+    (flipped S, S >= L, undecodable R, undecodable A) included."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import edwards as E
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    rs = np.random.RandomState(SEED + window_bits)
+    triples = []
+    for i in range(16):
+        priv = ed.priv_key_from_secret(b"gpu-%d" % i)
+        msg = rs.randint(0, 256, int(rs.randint(0, 250))).astype(np.uint8).tobytes()
+        triples.append([priv.pub_key().bytes(), msg, priv.sign(msg)])
+    s = triples[1][2]
+    triples[1][2] = s[:40] + bytes([s[40] ^ 1]) + s[41:]
+    s = triples[2][2]
+    triples[2][2] = s[:32] + (int.from_bytes(s[32:], "little") + E.L).to_bytes(32, "little")
+    bad = next(bytes([j]) + bytes(31) for j in range(2, 255)
+               if E.decode_point(bytes([j]) + bytes(31)) is None)
+    triples[3][2] = bad + triples[3][2][32:]
+    triples[4][0] = bad
+    expected = [E.verify_zip215(p, m, s) for p, m, s in triples]
+    if window_bits == 4:
+        monkeypatch.setattr(PR, "KEY8_MAX", 8)
+    pubs = [p for p, _, _ in triples]
+    entry = PR.KeyTableCache(dev).lookup_or_build(pubs)
+    assert entry.window_bits == window_bits
+    pub = np.stack([np.frombuffer(p, dtype=np.uint8) for p in pubs])
+    sig = np.stack([np.frombuffer(s, dtype=np.uint8) for _, _, s in triples])
+    packed, bucket = EV.pack_inputs(pub, sig, [m for _, m, _ in triples],
+                                    key_ids=entry.key_ids(pubs))
+    rows = torch.as_tensor(packed).to(dev)
+    digest = EV.keyed_digest(rows, bucket, EV.nblocks_for_bucket(bucket))
+    b_table = F.const(PR.b_comb8(), dev)
+    q8 = torch.empty((4, F.NLIMBS, rows.shape[1]), dtype=torch.int32, device=dev)
+    before = _build.LAUNCHES["verify_keyed"]
+    ok = EV.verify_keyed_fused(rows, digest, entry.table, entry.valid_device(),
+                               b_table, bucket, window_bits, out_point=q8)
+    assert _build.LAUNCHES["verify_keyed"] == before + 1
+    torch.cuda.synchronize()
+    want_ok, want_q8 = EV.verify_keyed_plain(rows, digest, entry.table,
+                                             entry.valid_device(), b_table, bucket,
+                                             window_bits)
+    assert torch.equal(ok, want_ok)
+    assert torch.equal(q8, want_q8)
+    assert ok.tolist() == expected

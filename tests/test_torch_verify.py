@@ -16,8 +16,11 @@ from cometbft_tpu.ops import precompute as JPR
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import edwards as E
 from cometbft_tpu_torch.crypto.batch import create_batch_verifier
+from cometbft_tpu_torch.ops import curve as C
 from cometbft_tpu_torch.ops import ed25519_verify as EV
+from cometbft_tpu_torch.ops import field as F
 from cometbft_tpu_torch.ops import precompute as PR
+from cometbft_tpu_torch.ops import scalar as SC
 
 SEED = 0xC0111
 
@@ -100,8 +103,8 @@ def test_commit_matches_reference_and_oracle(commit16, reference, monkeypatch):
 
 
 def test_port_kernel_on_reference_table(commit16, reference):
-    """The port's packed keyed kernel on the JAX-built table gives the
-    JAX kernel's verdict vector, padded lanes included; and the port
+    """The port's keyed verify (verify_keyed_fused) on the JAX-built
+    table gives the JAX kernel's verdict vector, padded lanes included; and the port
     builds the same pages for these keys."""
     triples, _ = commit16
     _, jentry, key_ids = reference
@@ -119,9 +122,10 @@ def test_port_kernel_on_reference_table(commit16, reference):
     nblocks = EV.nblocks_for_bucket(bucket)
     want = np.asarray(JEV._compiled_keyed(bucket, 8, JEV.MAX_LAUNCH)(
         jnp.asarray(jpacked), jentry.table, jentry.valid_device()))
-    got = EV.verify_kernel_keyed_packed(
-        torch.as_tensor(packed), entry.table, entry.valid_device(), bucket,
-        nblocks, 8,
+    rows = torch.as_tensor(packed)
+    got = EV.verify_keyed_fused(
+        rows, EV.keyed_digest(rows, bucket, nblocks), entry.table,
+        entry.valid_device(), F.const(PR.b_comb8(), "cpu"), bucket, 8,
     )
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -198,3 +202,79 @@ def test_add_rejects_bad_input():
     with pytest.raises(ValueError):
         EV.pack_inputs(np.zeros((1, 32), np.uint8), np.zeros((1, 64), np.uint8),
                        [bytes(4097)])
+
+
+def _packed(triples, entry):
+    pubs = [p for p, _, _ in triples]
+    pub = np.stack([np.frombuffer(p, dtype=np.uint8) for p in pubs])
+    sig = np.stack([np.frombuffer(s, dtype=np.uint8) for _, _, s in triples])
+    packed, bucket = EV.pack_inputs(pub, sig, [m for _, m, _ in triples],
+                                    key_ids=entry.key_ids(pubs))
+    return torch.as_tensor(packed), bucket
+
+
+def test_fused_4bit_matches_reference(commit16, reference, monkeypatch):
+    """verify_keyed_fused with the port's 4-bit pool gives the JAX
+    verifier's verdicts (a verdict does not depend on the window width);
+    the 8-bit case is test_port_kernel_on_reference_table."""
+    triples, _ = commit16
+    monkeypatch.setattr(PR, "KEY8_MAX", 8)
+    entry = PR.KeyTableCache("cpu").lookup_or_build([p for p, _, _ in triples])
+    assert entry.window_bits == 4
+    rows, bucket = _packed(triples, entry)
+    got = EV.verify_keyed_fused(
+        rows, EV.keyed_digest(rows, bucket, EV.nblocks_for_bucket(bucket)),
+        entry.table, entry.valid_device(), F.const(PR.b_comb8(), "cpu"), bucket, 4,
+    )
+    assert got.tolist() == list(reference[0])
+
+
+def test_fused_two_slices_on_reference_table(commit16, reference, monkeypatch):
+    """MAX_LAUNCH = 8: verify_arrays_keyed calls verify_keyed_fused once
+    per slice, on the JAX-built table, and returns the JAX verdicts."""
+    triples, _ = commit16
+    verdicts, jentry, key_ids = reference
+    entry = PR.tables_from_jax(np.asarray(jentry.table), jentry.valid,
+                               jentry.key_index, jentry.window_bits, "cpu")
+    monkeypatch.setattr(EV, "MAX_LAUNCH", 8)
+    calls = []
+    fused = EV.verify_keyed_fused
+
+    def counted(rows, *args, **kw):
+        calls.append(rows.shape[1])
+        return fused(rows, *args, **kw)
+
+    monkeypatch.setattr(EV, "verify_keyed_fused", counted)
+    pub = np.stack([np.frombuffer(p, dtype=np.uint8) for p, _, _ in triples])
+    sig = np.stack([np.frombuffer(s, dtype=np.uint8) for _, _, s in triples])
+    got = EV.verify_arrays_keyed(entry, key_ids, pub, sig, [m for _, m, _ in triples])
+    assert calls == [8, 8]
+    assert got.tolist() == list(verdicts)
+
+
+def test_plain_q8_equals_prerefactor_composition(commit16):
+    """verify_keyed_plain's [8]q and verdicts equal, limb for limb, the
+    composition the keyed path ran before the fused kernel (and which
+    the fused kernel's out_point is held to on the card)."""
+    triples, expected = commit16
+    entry = PR.table_cache("cpu").lookup_or_build([p for p, _, _ in triples])
+    rows, bucket = _packed(triples, entry)
+    digest = EV.keyed_digest(rows, bucket, EV.nblocks_for_bucket(bucket))
+    ok, q8 = EV.verify_keyed_plain(rows, digest, entry.table, entry.valid_device(),
+                                   F.const(PR.b_comb8(), "cpu"), bucket, 8)
+    key_ids = torch.as_tensor(entry.key_ids([p for p, _, _ in triples]))
+    r_pt, r_ok = C.decompress(rows[32:64])
+    s_bytes = rows[64:96]
+    k_win = SC.limbs_to_windows8(SC.reduce_digest(digest))
+    p1 = PR.comb_mul_base8(s_bytes)
+    p2 = PR.comb_mul_keyed(entry.table, key_ids, k_win, 8)
+    want = C.mul8(C.pt_add(C.pt_add(p1, p2), C.pt_neg(r_pt)))
+    want_ok = (C.pt_is_identity(want) & r_ok & SC.bytes_lt_l(s_bytes)
+               & entry.valid_device()[key_ids.long()])
+    assert torch.equal(q8, torch.stack(want))
+    assert ok.tolist() == want_ok.tolist() == expected
+    out = torch.zeros_like(q8)
+    again = EV.verify_keyed_fused(rows, digest, entry.table, entry.valid_device(),
+                                  F.const(PR.b_comb8(), "cpu"), bucket, 8,
+                                  out_point=out)
+    assert again.tolist() == expected and torch.equal(out, q8)
