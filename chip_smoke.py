@@ -16,18 +16,21 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
 4. the main path: keyed commit verification of a 150-validator commit
    through ``create_batch_verifier(...).verify()`` on ``cuda``, with
    planted invalid lanes whose verdicts the big-int oracle decides;
-   every kernel's launch count must rise during that cold verify (the
+   every kernel of the path must launch during that cold verify (the
    field kernels build the tables), and a warm verify must launch
-   verify_keyed and sha512_padded once per slice and no field kernel;
-   then one warm verify under torch.profiler for the device's busy
-   share;
+   sha512_keyed and verify_keyed once per slice and no other kernel
+   (sha512_padded and the field kernels 0); then ten warm verifies under
+   torch.profiler for the device's busy share;
 5. the same for a 1024-validator commit (the 4-bit comb tables);
 6. a batch of more than 8192 lanes, through the MAX_LAUNCH slicing,
    with a profiled warm verify too;
-   after each of phases 4-6 the fused verify_keyed kernel is held
-   against its plain version on the same batch, slice by slice: the
-   verdicts and the limbs of [8]q, exactly, on every lane; then timed
-   (CUDA events) beside its bound, with nvidia-smi's SM clock sampled;
+   after each of phases 4-6 the sha512_keyed kernel is held against
+   keyed_digest's plain route and the fused verify_keyed kernel against
+   its plain version, at every compiled group size G, on the same batch,
+   slice by slice: the digests, the verdicts and the limbs of [8]q,
+   exactly, on every lane; then each G is timed (CUDA events) beside the
+   bound, with nvidia-smi's SM clock sampled, and the launcher's choice
+   marked;
 7. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -351,8 +354,8 @@ def drive(name: str, triples, expected, dev, warm_runs: int,
     """Cold verify with launch counts (``cold_kernels`` must each
     launch: the field kernels only where the run builds tables), then
     warm VerifyCommit latency over ``warm_runs`` runs; a warm verify
-    launches verify_keyed and sha512_padded once per slice and no
-    field kernel."""
+    launches sha512_keyed and verify_keyed once per slice and no other
+    kernel."""
     import torch
 
     from cometbft_tpu_torch.ops import _build
@@ -387,7 +390,8 @@ def drive(name: str, triples, expected, dev, warm_runs: int,
         lat.append(dt)
         phases.append(split)
     slices = -(-max(PR.next_pow2(n), 8) // EV.MAX_LAUNCH)
-    want = {"verify_keyed": slices, "sha512_padded": slices, "fe_mul": 0, "fe_sq": 0}
+    want = {"verify_keyed": slices, "sha512_keyed": slices, "sha512_padded": 0,
+            "fe_mul": 0, "fe_sq": 0}
     if warm_launches != want:
         raise AssertionError(f"{name}: warm launches {warm_launches}, expected {want}")
     p50 = pct(lat, 50)
@@ -407,22 +411,27 @@ def drive(name: str, triples, expected, dev, warm_runs: int,
     add_ms, plan_ms, exec_ms = (1e3 * pct([p[j] for p in phases], 50) for j in range(3))
     print(f"  warm phases, p50: add {add_ms:.3f} ms (create_batch_verifier + add x {n}), "
           f"plan {plan_ms:.3f} ms (key lookup, key ids), execute {exec_ms:.3f} ms "
-          "(pack, copy in, padded input, sha512_padded, verify_keyed, copy out)")
+          "(pack, copy in, sha512_keyed, verify_keyed, copy out)")
     print(f"  launches per warm verify: {warm_launches} ({slices} slice(s); "
           f"field kernels {out['field_launches']})")
     print(f"  peak device memory (cold run): {out['peak_mb']:.1f} MiB")
     return out
 
 
-def check_fused(name: str, plan, expected, dev) -> dict:
-    """The fused verify_keyed kernel against its plain version
+def check_fused(name: str, plan, expected, dev, prefixes=()) -> dict:
+    """The sha512_keyed kernel against keyed_digest's plain route, and
+    the fused verify_keyed kernel against its plain version
     (verify_keyed_plain: the curve, scalar and comb code around the
-    fe_mul / fe_sq kernels) on the plan's packed batch, slice by slice
-    as verify_arrays_keyed cuts it: verdicts and the limbs of [8]q must
-    be equal on every lane, and the verdicts of the real lanes the
-    oracle's.  Then both timed on the first slice, beside the bound."""
+    fe_mul / fe_sq kernels) at every compiled group size G, on the
+    plan's packed batch, slice by slice as verify_arrays_keyed cuts it:
+    digests, verdicts and the limbs of [8]q must be equal on every lane,
+    and the verdicts of the real lanes the oracle's.  Then each timed on
+    the first slice, beside its bound; the G sweep marks the launcher's
+    choice; ``prefixes`` adds the sweep on the first slice's first n
+    lanes for each n given."""
     import torch
 
+    from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.ops import ed25519_verify as EV
     from cometbft_tpu_torch.ops import field as F
     from cometbft_tpu_torch.ops import precompute as PR
@@ -440,40 +449,47 @@ def check_fused(name: str, plan, expected, dev) -> dict:
     nblocks = EV.nblocks_for_bucket(bucket)
     b_table = F.const(PR.b_comb8(), dev)
     key_valid = entry.valid_device()
-    oks, slices, err = [], [], 0
+    oks, slices, err, sha_err = [], [], 0, 0
     for s in range(0, batch, EV.MAX_LAUNCH):
         rows = buf[:, s : s + EV.MAX_LAUNCH]
         digest = EV.keyed_digest(rows, bucket, nblocks)
-        q8 = torch.empty((4, F.NLIMBS, rows.shape[1]), dtype=F.DTYPE, device=dev)
-        ok = EV.verify_keyed_fused(rows, digest, entry.table, key_valid, b_table,
-                                   bucket, wb, out_point=q8)
+        want_digest = EV.keyed_digest_plain(rows, bucket, nblocks)
+        torch.cuda.synchronize()
+        sha_err = max(sha_err, int((digest.int() - want_digest.int()).abs().max()))
+        if sha_err != 0 or not torch.equal(digest, want_digest):
+            bad = (digest != want_digest).any(0).nonzero().flatten().tolist()[:20]
+            raise AssertionError(f"{name}: sha512_keyed differs from keyed_digest's plain "
+                                 f"route at slice {s}, lanes {bad}")
         want_ok, want_q8 = EV.verify_keyed_plain(rows, digest, entry.table, key_valid,
                                                  b_table, bucket, wb)
-        torch.cuda.synchronize()
-        e = int((q8.long() - want_q8.long()).abs().max())
-        if e != 0 or not torch.equal(q8, want_q8) or not torch.equal(ok, want_ok):
-            bad = (ok != want_ok).nonzero().flatten().tolist()[:20]
-            raise AssertionError(f"{name}: verify_keyed differs from its plain version "
-                                 f"at slice {s}: max |dq8| {e}, verdicts differ at {bad}")
-        err = max(err, e)
-        oks.append(ok)
+        for g in EV.VK_GROUPS:
+            q8 = torch.empty((4, F.NLIMBS, rows.shape[1]), dtype=F.DTYPE, device=dev)
+            ok = EV.verify_keyed_fused(rows, digest, entry.table, key_valid, b_table,
+                                       bucket, wb, out_point=q8, group=g)
+            torch.cuda.synchronize()
+            e = int((q8.long() - want_q8.long()).abs().max())
+            if e != 0 or not torch.equal(q8, want_q8) or not torch.equal(ok, want_ok):
+                bad = (ok != want_ok).nonzero().flatten().tolist()[:20]
+                raise AssertionError(f"{name}: verify_keyed G={g} differs from its plain "
+                                     f"version at slice {s}: max |dq8| {e}, verdicts "
+                                     f"differ at {bad}")
+            err = max(err, e)
+        oks.append(want_ok)
         slices.append((rows, digest))
     got = torch.cat(oks).cpu().numpy()[: len(expected)].tolist()
     if got != list(expected):
         raise AssertionError(f"{name}: verify_keyed verdicts differ from the oracle")
     rows, digest = slices[0]
     n = rows.shape[1]
-    fused = lambda: EV.verify_keyed_fused(rows, digest, entry.table, key_valid, b_table,
-                                          bucket, wb)
+    lib = _build.library("verify_keyed")
+    chosen = lib.verify_keyed_group(n, wb)
+
+    def fused(g):
+        return lambda: EV.verify_keyed_fused(rows, digest, entry.table, key_valid, b_table,
+                                             bucket, wb, group=g)
+
     plain = lambda: EV.verify_keyed_plain(rows, digest, entry.table, key_valid, b_table,
                                           bucket, wb)
-    # the kernel runs for a millisecond, far longer than its host enqueue
-    # (~0.05 ms), so back-to-back CUDA events time the kernel itself;
-    # torch.profiler is printed beside them
-    with SmiSampler() as smi:
-        ms = cuda_ms(fused, 200)
-        pfms = device_ms(fused, 50)
-    pms = device_ms(plain, 2)
     # bytes: per lane S and the key id (68 of the packed rows), the
     # digest, the verdict; and each distinct comb entry the lanes gather
     s_idx = rows[64:96].long()
@@ -489,39 +505,83 @@ def check_fused(name: str, plan, expected, dev) -> dict:
     nbytes = n * (68 + 64 + 1) + 3 * F.NLIMBS * 4 * b_entries + 4 * F.NLIMBS * 4 * k_entries
     ops = n * (vk_products(wb) * MUL_OPS + VK_SQUARES * SQ_OPS)
     bound = bound_ms(nbytes, ops)
-    print(f"verify_keyed {name}: {len(oks)} slice(s) of {n} lanes, window_bits {wb}: "
-          f"exact against its plain version (verdicts and [8]q limbs on every lane, "
-          f"= oracle); {ms * 1e3:9.2f} us/launch back-to-back at {n} lanes (CUDA "
-          f"events; torch.profiler {pfms * 1e3:9.2f} us; plain {pms * 1e3:10.2f} us "
-          f"device time); bound "
-          f"{bound[0] * 1e3:.3f} us ({bound[1]}; {b_entries} + {k_entries} comb "
-          f"entries, {nbytes} bytes); while timed: {smi.summary()}; host "
-          f"pack_inputs of the {len(expected)} lanes {pack_ms:.3f} ms")
-    return dict(err=err, ms=ms, plain_ms=pms, bound=bound, lanes=n)
+    # the kernel runs for far longer than its host enqueue (~0.05 ms),
+    # so back-to-back CUDA events time the kernel itself; torch.profiler
+    # is printed beside the launcher's choice
+    sweep = {}
+    with SmiSampler() as smi:
+        for g in EV.VK_GROUPS:
+            sweep[g] = cuda_ms(fused(g), 100)
+        pfms = device_ms(fused(0), 50)
+    pms = device_ms(plain, 2)
+    print(f"verify_keyed {name}: {len(slices)} slice(s) of {n} lanes, window_bits {wb}: "
+          f"exact against its plain version at G = {list(EV.VK_GROUPS)} (verdicts and [8]q "
+          f"limbs on every lane, = oracle); bound {bound[0] * 1e3:.3f} us ({bound[1]}; "
+          f"{b_entries} + {k_entries} comb entries, {nbytes} bytes); plain "
+          f"{pms * 1e3:10.2f} us device time; host pack_inputs of the {len(expected)} lanes "
+          f"{pack_ms:.3f} ms")
+    for g, ms in sweep.items():
+        mark = "  <- launcher's choice" if g == chosen else ""
+        print(f"  G={g:2d}: {ms * 1e3:9.2f} us/launch back-to-back at {n} lanes (CUDA "
+              f"events), roofline share {bound[0] / ms:.4f}{mark}")
+    print(f"  launcher's choice under torch.profiler: {pfms * 1e3:9.2f} us; while timed: "
+          f"{smi.summary()}")
+    for m in prefixes:
+        sub, sub_digest = rows[:, :m], digest[:, :m].contiguous()
+        times = {g: cuda_ms(lambda g=g: EV.verify_keyed_fused(
+            sub, sub_digest, entry.table, key_valid, b_table, bucket, wb, group=g), 20)
+            for g in EV.VK_GROUPS}
+        pick = lib.verify_keyed_group(m, wb)
+        print(f"  first {m} lanes: " + ", ".join(
+            f"G={g} {t * 1e3:.2f} us" + (" (choice)" if g == pick else "")
+            for g, t in times.items()))
+
+    # sha512_keyed on the same slice: bytes are R, A, each lane's message
+    # and length, read once, and the digest written; operations the
+    # blocks each lane absorbs
+    lens = packed[96 + bucket : 100 + bucket, :n].astype(np.int64)
+    msglen = lens[0] | (lens[1] << 8) | (lens[2] << 16) | (lens[3] << 24)
+    blocks = np.minimum((64 + msglen + 17 + 127) // 128, nblocks)
+    sha_bytes = int((64 + msglen + 4 + 64).sum())
+    sha_bound = bound_ms(sha_bytes, SHA_BLOCK_OPS * int(blocks.sum()))
+    digest_fn = lambda: EV.keyed_digest(rows, bucket, nblocks)
+    sms = cuda_ms(digest_fn, 200)
+    spfms = device_ms(digest_fn, 200)
+    spms = device_ms(lambda: EV.keyed_digest_plain(rows, bucket, nblocks), 3)
+    print(f"sha512_keyed {name}: exact against keyed_digest's plain route on every slice; "
+          f"device {spfms * 1e3:8.2f} us/launch (torch.profiler; back-to-back "
+          f"{sms * 1e3:8.2f} us) at {n} lanes of {int(blocks.min())}-{int(blocks.max())} "
+          f"blocks; plain {spms * 1e3:9.2f} us; bound {sha_bound[0] * 1e3:.4f} us "
+          f"({sha_bound[1]})")
+    return dict(err=err, ms=sweep[chosen], plain_ms=pms, bound=bound, lanes=n, group=chosen,
+                sweep=sweep, sha=dict(err=sha_err, ms=spfms, plain_ms=spms, bound=sha_bound))
 
 
-def profile_warm(name: str, triples, dev) -> None:
-    """One warm verify under torch.profiler: the device's busy share
-    (kernel and copy time over the wall), the kernels that take it, and
-    the host operations that take the wall."""
+def profile_warm(name: str, triples, dev, runs: int = 10) -> None:
+    """``runs`` warm verifies under torch.profiler, per verify: the
+    device's busy share (kernel and copy time over the wall), the
+    kernels that take it, and the host operations that take the wall.
+    (A window of one warm verify holds only ~4 events on the card, which
+    the profiler may not flush; ten hold enough.)"""
     from torch.profiler import ProfilerActivity, profile
 
     run_verify(triples, dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = run_verify(triples, dev)[0]
+        wall = sum(run_verify(triples, dev)[0] for _ in range(runs)) / runs
     dev_events, host = _split_events(prof)
-    dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / runs
     if dev_ms <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    print(f"profile: warm {name} verify, wall {wall * 1e3:.2f} ms under the "
-          f"profiler, device busy {dev_ms:.2f} ms, busy share {dev_ms / (wall * 1e3):.3f}, "
-          f"{sum(e.count for e in dev_events)} kernels and copies on the card")
+    print(f"profile: warm {name} verify, {runs} runs: wall {wall * 1e3:.2f} ms per verify "
+          f"under the profiler, device busy {dev_ms:.3f} ms, busy share "
+          f"{dev_ms / (wall * 1e3):.3f}, {sum(e.count for e in dev_events) / runs:.1f} "
+          "kernels and copies on the card per verify")
     for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  device {e.self_device_time_total / 1e3:7.3f} ms  calls {e.count:5d}  "
-              f"{e.key[:70]}")
+        print(f"  device {e.self_device_time_total / 1e3 / runs:7.3f} ms  calls "
+              f"{e.count / runs:5.1f}  {e.key[:70]}")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
-        print(f"  host   {e.self_cpu_time_total / 1e3:7.3f} ms  calls {e.count:5d}  "
-              f"{e.key[:70]}")
+        print(f"  host   {e.self_cpu_time_total / 1e3 / runs:7.3f} ms  calls "
+              f"{e.count / runs:5.1f}  {e.key[:70]}")
 
 
 def main() -> int:
@@ -544,8 +604,12 @@ def main() -> int:
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(built)} sources "
           "(nvcc in parallel)")
-    print(f"  verify_keyed: {_build.library('verify_keyed').verify_keyed_smem_bytes()} "
-          "bytes of dynamic shared memory per block")
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+
+    vk_lib = _build.library("verify_keyed")
+    for g in EV.VK_GROUPS:
+        print(f"  verify_keyed G={g}: {vk_lib.verify_keyed_smem_bytes(g)} bytes of dynamic "
+              f"shared memory per 32-thread block ({32 // g} lanes)")
     for b in built.values():
         print(f"  {b.name}: nvcc {b.seconds:.2f} s -> {b.path}")
         for line in b.ptxas.splitlines():
@@ -556,7 +620,7 @@ def main() -> int:
           "the arithmetic is integer)")
     kres = check_kernels(dev)
 
-    every = ("fe_mul", "fe_sq", "sha512_padded", "verify_keyed")
+    every = ("fe_mul", "fe_sq", "sha512_keyed", "verify_keyed")
     commit150, exp150 = make_commit(150, b"validator", plant=True)
     main150 = drive("commit150", commit150, exp150, dev, warm_runs=100,
                     window_bits=8, cold_kernels=every)
@@ -578,9 +642,9 @@ def main() -> int:
         big_exp[pos] = False
     # the tables are warm from commit150: no field kernel runs here
     chunked = drive("chunked", big, big_exp, dev, warm_runs=5, window_bits=8,
-                    cold_kernels=("sha512_padded", "verify_keyed"))
-    profile_warm("chunked", big, dev)
-    check_fused("chunked", chunked["plan"], big_exp, dev)
+                    cold_kernels=("sha512_keyed", "verify_keyed"))
+    profile_warm("chunked", big, dev, runs=3)
+    check_fused("chunked", chunked["plan"], big_exp, dev, prefixes=(512, 2048, 4096))
 
     kernels = []
     for kname, key in (("fe_mul", ("fe_mul", 256)), ("fe_sq", ("fe_sq", 256, 1)),
@@ -603,6 +667,16 @@ def main() -> int:
         "launches": main150["launches"]["verify_keyed"],
         "max_abs_err": vk150["err"], "ms": vk150["ms"], "plain_ms": vk150["plain_ms"],
         "bound_ms": vk150["bound"][0], "bound_by": vk150["bound"][1],
+        "library_ms": None, "G": vk150["group"],
+    })
+    sha = vk150["sha"]
+    kernels.append({
+        "name": "sha512_keyed", "route": "cuda",
+        "source": "cometbft_tpu_torch/csrc/sha512.cu",
+        "replaces": "cometbft_tpu/ops/sha512.py:116",
+        "launches": main150["launches"]["sha512_keyed"],
+        "max_abs_err": sha["err"], "ms": sha["ms"], "plain_ms": sha["plain_ms"],
+        "bound_ms": sha["bound"][0], "bound_by": sha["bound"][1],
         "library_ms": None,
     })
     print(smi_line())

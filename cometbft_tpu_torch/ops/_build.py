@@ -52,21 +52,26 @@ SOURCES = {
     ),
     "sha512": (
         "sha512.cu",
-        {"sha512_padded_launch": (_VP, _I32, _VP, _VP, _I64, _VP)},
+        {
+            "sha512_padded_launch": (_VP, _I32, _VP, _VP, _I64, _VP),
+            "sha512_keyed_launch": (_VP, _I64, _I32, _I32, _VP, _I64, _VP),
+        },
     ),
     "verify_keyed": (
         "verify_keyed.cu",
         {
             "verify_keyed_launch": (_VP, _I64, _I32, _VP, _VP, _I64, _VP, _I64,
-                                    _VP, _VP, _VP, _I64, _I32, _VP),
-            "verify_keyed_smem_bytes": (),
+                                    _VP, _VP, _VP, _I64, _I32, _I32, _VP),
+            "verify_keyed_group": (_I64, _I32),
+            "verify_keyed_smem_bytes": (_I32,),
         },
     ),
 }
 
 #: kernel name -> launches since the last reset
 LAUNCHES: dict[str, int] = {
-    "fe_mul": 0, "fe_sq": 0, "sha512_padded": 0, "verify_keyed": 0,
+    "fe_mul": 0, "fe_sq": 0, "sha512_padded": 0, "sha512_keyed": 0,
+    "verify_keyed": 0,
 }
 
 

@@ -10,12 +10,13 @@ validator set's per-key comb tables (ops/precompute.py), plus R's
 decompression, S < L and the key's validity.  Results come back as one
 bool per signature.
 
-On the card a slice is three steps: the padded input (torch ops), the
-sha512_padded kernel, and the verify_keyed kernel, which runs
-everything after the digest for a lane in one thread
-(csrc/verify_keyed.cu).  ``verify_keyed_plain`` is that kernel's plain
-version, composed from ops/curve.py, ops/scalar.py and
-ops/precompute.py.
+On the card a slice is two launches: the sha512_keyed kernel
+(csrc/sha512.cu), which hashes R || A || M straight from the packed
+rows, and the verify_keyed kernel (csrc/verify_keyed.cu), which runs
+everything after the digest for a lane on a group of threads.  Their
+plain versions are ``keyed_digest_plain`` (the padded input built by
+torch ops, then SHA-512) and ``verify_keyed_plain`` (composed from
+ops/curve.py, ops/scalar.py and ops/precompute.py).
 
 Layouts are the reference's: the packed buffer is feature-first
 (104 + bucket, B) uint8 -- pub[32] | sig[64] | msg[bucket] |
@@ -52,6 +53,9 @@ MAX_LAUNCH = 8192
 #: Smallest batch that takes the device when its tables are already
 #: warm; below it the per-signature floor runs.
 DEVICE_MIN_BATCH = 64
+
+#: Threads per lane that the verify_keyed kernel is compiled for.
+VK_GROUPS = (1, 8, 32)
 
 
 def nblocks_for_bucket(bucket: int) -> int:
@@ -92,14 +96,45 @@ def _le32(rows: torch.Tensor) -> torch.Tensor:
     return b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24)
 
 
-def keyed_digest(buf: torch.Tensor, bucket: int, nblocks: int) -> torch.Tensor:
-    """SHA-512(R || A || M) per lane of the packed rows: (104+bucket, B)
-    uint8 -> (64, B) uint8 (the sha512_padded kernel on a CUDA tensor)."""
+def keyed_digest_plain(buf: torch.Tensor, bucket: int, nblocks: int) -> torch.Tensor:
+    """The plain PyTorch version of the sha512_keyed kernel: the padded
+    input (:func:`build_padded_input`), then SHA-512 of each lane's own
+    blocks."""
     msglen = _le32(buf[96 + bucket : 100 + bucket])
     padded, nblocks_lane = build_padded_input(
         buf[32:64], buf[:32], buf[96 : 96 + bucket], msglen, nblocks
     )
-    return SH.sha512_padded(padded, nblocks, nblocks_lane)
+    return SH.sha512_padded_plain(padded, nblocks, nblocks_lane)
+
+
+def keyed_digest(buf: torch.Tensor, bucket: int, nblocks: int) -> torch.Tensor:
+    """SHA-512(R || A || M) per lane of the packed rows: (104+bucket, B)
+    uint8 -> (64, B) uint8.
+
+    A CUDA tensor goes through the sha512_keyed kernel, which reads the
+    rows in place (lanes contiguous, any row stride) and pads each lane
+    in registers; a CPU tensor through :func:`keyed_digest_plain`."""
+    if buf.dim() != 2 or buf.shape[0] != 104 + bucket or buf.dtype != torch.uint8:
+        raise ValueError(f"sha512_keyed: expected ({104 + bucket}, B) uint8 rows, "
+                         f"got {tuple(buf.shape)} {buf.dtype}")
+    if nblocks != nblocks_for_bucket(bucket):
+        raise ValueError(f"sha512_keyed: bucket {bucket} takes "
+                         f"{nblocks_for_bucket(bucket)} blocks, not {nblocks}")
+    if buf.device.type == "cpu":
+        return keyed_digest_plain(buf, bucket, nblocks)
+    if buf.device.type != "cuda":
+        raise ValueError(f"sha512_keyed: unsupported device {buf.device}")
+    if buf.stride(1) != 1:
+        raise ValueError("sha512_keyed: the rows' lanes must be contiguous")
+    n = buf.shape[1]
+    out = torch.empty((64, n), dtype=torch.uint8, device=buf.device)
+    rc = _build.library("sha512").sha512_keyed_launch(
+        buf.data_ptr(), buf.stride(0), bucket, nblocks, out.data_ptr(), n,
+        torch.cuda.current_stream(buf.device).cuda_stream,
+    )
+    _build.check(rc, "sha512_keyed")
+    _build.LAUNCHES["sha512_keyed"] += 1
+    return out
 
 
 def verify_keyed_plain(buf, digest, table, key_valid, b_table, bucket: int,
@@ -130,19 +165,22 @@ def verify_keyed_plain(buf, digest, table, key_valid, b_table, bucket: int,
 
 
 def verify_keyed_fused(buf, digest, table, key_valid, b_table, bucket: int,
-                       window_bits: int, out_point=None) -> torch.Tensor:
+                       window_bits: int, out_point=None, group: int = 0) -> torch.Tensor:
     """Keyed verify of the packed rows after SHA-512: (B,) bool verdicts
     (arguments as :func:`verify_keyed_plain`).  ``out_point``, a (4, 26,
     B) int32 tensor, receives the limbs of [8]q when given.
 
-    A CUDA tensor goes through the verify_keyed kernel (one launch, one
-    thread per lane; csrc/verify_keyed.cu), a CPU tensor through
-    verify_keyed_plain."""
+    A CUDA tensor goes through the verify_keyed kernel (one launch, a
+    group of ``group`` threads per lane, one of VK_GROUPS, or 0 for the
+    launcher's choice by lane count; csrc/verify_keyed.cu), a CPU tensor
+    through verify_keyed_plain."""
     if buf.dim() != 2 or buf.shape[0] != 104 + bucket or buf.dtype != torch.uint8:
         raise ValueError(f"verify_keyed: expected ({104 + bucket}, B) uint8 rows, "
                          f"got {tuple(buf.shape)} {buf.dtype}")
     if window_bits not in (8, 4):
         raise ValueError(f"verify_keyed: window_bits must be 8 or 4, got {window_bits}")
+    if group != 0 and group not in VK_GROUPS:
+        raise ValueError(f"verify_keyed: group must be 0 or one of {VK_GROUPS}, got {group}")
     n = buf.shape[1]
     nent = 1 << window_bits
     if (table.dim() != 4 or table.shape[:3] != (256 // window_bits, 4, F.NLIMBS)
@@ -182,7 +220,7 @@ def verify_keyed_fused(buf, digest, table, key_valid, b_table, bucket: int,
         buf.data_ptr(), buf.stride(0), bucket, digest.data_ptr(), table.data_ptr(),
         table.shape[3], key_valid.data_ptr(), key_valid.shape[0], b_table.data_ptr(),
         ok.data_ptr(), None if out_point is None else out_point.data_ptr(), n,
-        window_bits, torch.cuda.current_stream(buf.device).cuda_stream,
+        window_bits, group, torch.cuda.current_stream(buf.device).cuda_stream,
     )
     _build.check(rc, "verify_keyed")
     _build.LAUNCHES["verify_keyed"] += 1

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from cometbft_tpu_torch.ops import _build
+from cometbft_tpu_torch.ops import ed25519_verify as EV
 from cometbft_tpu_torch.ops import field as F
 from cometbft_tpu_torch.ops import sha512 as SH
 
@@ -102,14 +103,15 @@ def test_wrappers_raise_on_wrong_dtype(dev):
                  torch.zeros((F.NLIMBS, 4), dtype=torch.int32))
 
 
+@pytest.mark.parametrize("group", (0,) + EV.VK_GROUPS)
 @pytest.mark.parametrize("window_bits", [8, 4])
-def test_verify_keyed_equals_plain(dev, window_bits, monkeypatch):
-    """The fused keyed verify against its plain version on the card:
-    verdicts and the limbs of [8]q on every lane, planted invalid lanes
-    (flipped S, S >= L, undecodable R, undecodable A) included."""
+def test_verify_keyed_equals_plain(dev, window_bits, group, monkeypatch):
+    """The fused keyed verify against its plain version on the card, at
+    every compiled group size and the launcher's choice (0): verdicts
+    and the limbs of [8]q on every lane, planted invalid lanes (flipped
+    S, S >= L, undecodable R, undecodable A) included."""
     from cometbft_tpu_torch.crypto import ed25519 as ed
     from cometbft_tpu_torch.crypto import edwards as E
-    from cometbft_tpu_torch.ops import ed25519_verify as EV
     from cometbft_tpu_torch.ops import precompute as PR
 
     rs = np.random.RandomState(SEED + window_bits)
@@ -142,7 +144,7 @@ def test_verify_keyed_equals_plain(dev, window_bits, monkeypatch):
     q8 = torch.empty((4, F.NLIMBS, rows.shape[1]), dtype=torch.int32, device=dev)
     before = _build.LAUNCHES["verify_keyed"]
     ok = EV.verify_keyed_fused(rows, digest, entry.table, entry.valid_device(),
-                               b_table, bucket, window_bits, out_point=q8)
+                               b_table, bucket, window_bits, out_point=q8, group=group)
     assert _build.LAUNCHES["verify_keyed"] == before + 1
     torch.cuda.synchronize()
     want_ok, want_q8 = EV.verify_keyed_plain(rows, digest, entry.table,
@@ -151,3 +153,29 @@ def test_verify_keyed_equals_plain(dev, window_bits, monkeypatch):
     assert torch.equal(ok, want_ok)
     assert torch.equal(q8, want_q8)
     assert ok.tolist() == expected
+
+
+def test_sha512_keyed_equals_plain(dev):
+    """sha512_keyed on packed rows (a slice of a wider buffer, so the
+    row stride is not the lane count) against keyed_digest's plain
+    route and hashlib, message lengths on both sides of each block
+    edge."""
+    rs = np.random.RandomState(SEED + 5)
+    lens = [0, 46, 47, 48, 110, 111, 112, 175, 176, 256] * 4
+    n = len(lens)
+    pub = rs.randint(0, 256, (n, 32)).astype(np.uint8)
+    sig = rs.randint(0, 256, (n, 64)).astype(np.uint8)
+    msgs = [rs.randint(0, 256, ln).astype(np.uint8).tobytes() for ln in lens]
+    packed, bucket = EV.pack_inputs(pub, sig, msgs, key_ids=np.arange(n))
+    nblocks = EV.nblocks_for_bucket(bucket)
+    rows = torch.as_tensor(packed).to(dev)[:, 8:]
+    before = _build.LAUNCHES["sha512_keyed"]
+    got = EV.keyed_digest(rows, bucket, nblocks)
+    assert _build.LAUNCHES["sha512_keyed"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, EV.keyed_digest_plain(rows, bucket, nblocks))
+    host = got.cpu().numpy()
+    for j in range(n - 8):
+        i = j + 8
+        want = hashlib.sha512(bytes(sig[i, :32]) + bytes(pub[i]) + msgs[i]).digest()
+        assert bytes(host[:, j]) == want
