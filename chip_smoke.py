@@ -19,7 +19,7 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    every kernel of the path must launch during that cold verify (the
    field kernels build the tables), and a warm verify must launch
    sha512_keyed and verify_keyed once per slice and no other kernel
-   (sha512_padded and the field kernels 0); then ten warm verifies under
+   (sha512_padded, verify_generic and the field kernels 0); then ten warm verifies under
    torch.profiler for the device's busy share;
 5. the same for a 1024-validator commit (the 4-bit comb tables);
 6. a batch of more than 8192 lanes, through the MAX_LAUNCH slicing,
@@ -31,7 +31,20 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    exactly, on every lane; then each G is timed (CUDA events) beside the
    bound, with nvidia-smi's SM clock sampled, and the launcher's choice
    marked;
-7. a ``kernels`` JSON line, then the last line
+7. the generic tier (no comb tables), with precompute.TABLE_MAX_KEYS
+   set to 0 for the phase only, on the same three cells (generic150,
+   generic1024, generic-chunked): verdicts = the oracle's, a cold verify
+   launches what a warm one does (sha512_keyed and verify_generic once
+   per slice, no table build, no other kernel), warm latency; then
+   verify_generic held to verify_generic_plain at every compiled G on
+   every slice (verdicts and [8]q limbs, exactly) and each G timed
+   beside its bound; then generic-wide, a set of more than
+   TABLE_MAX_KEYS distinct keys at the default limit, the traffic that
+   takes the generic tier unasked; the oracle floor's time on commit150
+   (the route these batches took before the generic tier), and
+   ``models.commit.commit_verify_step`` on a (4, 150) batch against the
+   oracle;
+8. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports torch, numpy and the port only.  Exits non-zero, printing no
@@ -42,6 +55,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -85,6 +99,15 @@ VK_SQUARES = 255 + 3 * 4
 
 def vk_products(window_bits: int) -> int:
     return 20 + 32 * 7 + (256 // window_bits) * 8 + 2 * 9 + 3 * 4
+
+
+# The generic verify (csrc/verify_generic.cu), per lane: two
+# decompressions (A and R) of 20 products and 255 squarings, the
+# multiples table of -A (14 point additions of 9 products), 64 windows of
+# 4 doublings (4 products and 4 squarings each) and one addition of 9,
+# [S]B's 64 mixed adds of 7, the two point additions and [8] as above.
+VG_PRODUCTS = 2 * 20 + 14 * 9 + 64 * (4 * 4 + 9) + 64 * 7 + 2 * 9 + 3 * 4   # 2244
+VG_SQUARES = 2 * 255 + 64 * 4 * 4 + 3 * 4                                   # 1546
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -391,7 +414,7 @@ def drive(name: str, triples, expected, dev, warm_runs: int,
         phases.append(split)
     slices = -(-max(PR.next_pow2(n), 8) // EV.MAX_LAUNCH)
     want = {"verify_keyed": slices, "sha512_keyed": slices, "sha512_padded": 0,
-            "fe_mul": 0, "fe_sq": 0}
+            "fe_mul": 0, "fe_sq": 0, "verify_generic": 0}
     if warm_launches != want:
         raise AssertionError(f"{name}: warm launches {warm_launches}, expected {want}")
     p50 = pct(lat, 50)
@@ -462,7 +485,7 @@ def check_fused(name: str, plan, expected, dev, prefixes=()) -> dict:
                                  f"route at slice {s}, lanes {bad}")
         want_ok, want_q8 = EV.verify_keyed_plain(rows, digest, entry.table, key_valid,
                                                  b_table, bucket, wb)
-        for g in EV.VK_GROUPS:
+        for g in EV.GROUPS:
             q8 = torch.empty((4, F.NLIMBS, rows.shape[1]), dtype=F.DTYPE, device=dev)
             ok = EV.verify_keyed_fused(rows, digest, entry.table, key_valid, b_table,
                                        bucket, wb, out_point=q8, group=g)
@@ -482,7 +505,7 @@ def check_fused(name: str, plan, expected, dev, prefixes=()) -> dict:
     rows, digest = slices[0]
     n = rows.shape[1]
     lib = _build.library("verify_keyed")
-    chosen = lib.verify_keyed_group(n, wb)
+    chosen = lib.verify_keyed_group(n)
 
     def fused(g):
         return lambda: EV.verify_keyed_fused(rows, digest, entry.table, key_valid, b_table,
@@ -510,12 +533,12 @@ def check_fused(name: str, plan, expected, dev, prefixes=()) -> dict:
     # is printed beside the launcher's choice
     sweep = {}
     with SmiSampler() as smi:
-        for g in EV.VK_GROUPS:
+        for g in EV.GROUPS:
             sweep[g] = cuda_ms(fused(g), 100)
         pfms = device_ms(fused(0), 50)
     pms = device_ms(plain, 2)
     print(f"verify_keyed {name}: {len(slices)} slice(s) of {n} lanes, window_bits {wb}: "
-          f"exact against its plain version at G = {list(EV.VK_GROUPS)} (verdicts and [8]q "
+          f"exact against its plain version at G = {list(EV.GROUPS)} (verdicts and [8]q "
           f"limbs on every lane, = oracle); bound {bound[0] * 1e3:.3f} us ({bound[1]}; "
           f"{b_entries} + {k_entries} comb entries, {nbytes} bytes); plain "
           f"{pms * 1e3:10.2f} us device time; host pack_inputs of the {len(expected)} lanes "
@@ -530,8 +553,8 @@ def check_fused(name: str, plan, expected, dev, prefixes=()) -> dict:
         sub, sub_digest = rows[:, :m], digest[:, :m].contiguous()
         times = {g: cuda_ms(lambda g=g: EV.verify_keyed_fused(
             sub, sub_digest, entry.table, key_valid, b_table, bucket, wb, group=g), 20)
-            for g in EV.VK_GROUPS}
-        pick = lib.verify_keyed_group(m, wb)
+            for g in EV.GROUPS}
+        pick = lib.verify_keyed_group(m)
         print(f"  first {m} lanes: " + ", ".join(
             f"G={g} {t * 1e3:.2f} us" + (" (choice)" if g == pick else "")
             for g, t in times.items()))
@@ -584,6 +607,300 @@ def profile_warm(name: str, triples, dev, runs: int = 10) -> None:
               f"{e.count / runs:5.1f}  {e.key[:70]}")
 
 
+# -- phase 7: the generic tier ------------------------------------------
+
+GENERIC_KERNELS = ("fe_mul", "fe_sq", "sha512_padded", "sha512_keyed", "verify_keyed",
+                   "verify_generic")
+
+
+def drive_generic(name: str, triples, expected, dev, warm_runs: int, why: str) -> dict:
+    """The generic tier through ``create_batch_verifier(...).verify()``
+    (``why`` says what sends the set there): a cold verify
+    launches exactly what a warm one does -- sha512_keyed and
+    verify_generic once per slice, no table build -- then warm latency
+    over ``warm_runs`` runs."""
+    import torch
+
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    n = len(triples)
+    slices = -(-max(PR.next_pow2(n), 8) // EV.MAX_LAUNCH)
+    want = {k: 0 for k in GENERIC_KERNELS}
+    want.update(sha512_keyed=slices, verify_generic=slices)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    cold, bv, plan, results, _ = run_verify(triples, dev)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if bv.last_tier != "generic" or plan.entry is not None:
+        raise AssertionError(f"{name}: ran on tier {bv.last_tier}, not generic")
+    if results != expected:
+        bad = [i for i, (a, b) in enumerate(zip(results, expected)) if a != b]
+        raise AssertionError(f"{name}: verdicts differ from the oracle at {bad[:20]}")
+    if launches != want:
+        raise AssertionError(f"{name}: cold launches {launches}, expected {want}")
+    lat, phases = [], []
+    for i in range(warm_runs):
+        if i == 0:
+            _build.reset_launches()
+        dt, bv, _, results, split = run_verify(triples, dev)
+        if i == 0:
+            warm_launches = dict(_build.LAUNCHES)
+        if results != expected or bv.last_tier != "generic":
+            raise AssertionError(f"{name}: warm run {i} differs")
+        lat.append(dt)
+        phases.append(split)
+    if warm_launches != want:
+        raise AssertionError(f"{name}: warm launches {warm_launches}, expected {want}")
+    p50 = pct(lat, 50)
+    out = dict(n=n, cold_s=cold, launches=launches, p50_ms=1e3 * p50,
+               p90_ms=1e3 * pct(lat, 90), p95_ms=1e3 * pct(lat, 95), runs=warm_runs,
+               sigs_per_s=n / p50, peak_mb=peak / 2**20,
+               invalid=sum(not v for v in expected), plan=plan)
+    print(f"{name}: {n} lanes ({out['invalid']} invalid caught), tier generic ({why})")
+    print(f"  cold verify {cold:.3f} s (no table build); launches {launches}, the same "
+          "as a warm verify's")
+    print(f"  warm VerifyCommit over {warm_runs} runs: p50 {out['p50_ms']:.2f} ms, "
+          f"p90 {out['p90_ms']:.2f} ms, p95 {out['p95_ms']:.2f} ms; "
+          f"{out['sigs_per_s']:.0f} sigs/s")
+    add_ms, plan_ms, exec_ms = (1e3 * pct([p[j] for p in phases], 50) for j in range(3))
+    print(f"  warm phases, p50: add {add_ms:.3f} ms, plan {plan_ms:.3f} ms, execute "
+          f"{exec_ms:.3f} ms (pack, copy in, sha512_keyed, verify_generic, copy out); "
+          f"{slices} slice(s)")
+    print(f"  peak device memory (cold run): {out['peak_mb']:.1f} MiB")
+    return out
+
+
+def check_generic(name: str, plan, expected, dev, prefixes=()) -> dict:
+    """The verify_generic kernel against verify_generic_plain (the curve
+    and scalar code around the fe_mul / fe_sq kernels) at every compiled
+    group size G, on the plan's packed batch, slice by slice as
+    verify_arrays cuts it: verdicts and the limbs of [8]q equal on every
+    lane, the real lanes' verdicts the oracle's; sha512_keyed held to
+    keyed_digest_plain on the same (100 + bucket) rows.  Then each G
+    timed on the first slice beside the bound, the launcher's choice
+    marked; ``prefixes`` adds the sweep on the first slice's first n
+    lanes."""
+    import torch
+
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import curve as C
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+
+    t0 = time.perf_counter()
+    packed, bucket = EV.pack_inputs(plan.pub, plan.sig, plan.msgs)
+    pack_ms = 1e3 * (time.perf_counter() - t0)
+    batch = packed.shape[1]
+    buf = torch.from_numpy(packed).to(dev)
+    nblocks = EV.nblocks_for_bucket(bucket)
+    oks, slices, err = [], [], 0
+    for s in range(0, batch, EV.MAX_LAUNCH):
+        rows = buf[:, s : s + EV.MAX_LAUNCH]
+        digest = EV.keyed_digest(rows, bucket, nblocks)
+        if not torch.equal(digest, EV.keyed_digest_plain(rows, bucket, nblocks)):
+            raise AssertionError(f"{name}: sha512_keyed differs from keyed_digest_plain on "
+                                 f"the generic rows at slice {s}")
+        want_ok, want_q8 = EV.verify_generic_plain(rows, digest)
+        for g in EV.GROUPS:
+            ok, q8 = EV.verify_generic_fused(rows, digest, bucket, group=g, want_q=True)
+            torch.cuda.synchronize()
+            e = int((q8.long() - want_q8.long()).abs().max())
+            if e != 0 or not torch.equal(q8, want_q8) or not torch.equal(ok, want_ok):
+                bad = (ok != want_ok).nonzero().flatten().tolist()[:20]
+                raise AssertionError(f"{name}: verify_generic G={g} differs from its plain "
+                                     f"version at slice {s}: max |dq8| {e}, verdicts "
+                                     f"differ at {bad}")
+            err = max(err, e)
+        oks.append(want_ok)
+        slices.append((rows, digest))
+    got = torch.cat(oks).cpu().numpy()[: len(expected)].tolist()
+    if got != list(expected):
+        raise AssertionError(f"{name}: verify_generic verdicts differ from the oracle")
+    rows, digest = slices[0]
+    n = rows.shape[1]
+    lib = _build.library("verify_generic")
+    chosen = lib.verify_generic_group(n)
+
+    def fused(g, r=rows, d=digest):
+        return lambda: EV.verify_generic_fused(r, d, bucket, group=g)
+
+    # bytes: per lane pub and sig (96 of the packed rows), the digest and
+    # the verdict, and each distinct comb entry of B the lanes gather;
+    # the multiples table is scratch, written and read by the kernel
+    nib = C.nibbles_from_bytes_le(rows[64:96]).long()
+    b_entries = int(torch.unique(nib + 16 * torch.arange(64, device=dev)[:, None]).numel())
+    nbytes = n * (96 + 64 + 1) + 3 * 26 * 4 * b_entries
+    ops = n * (VG_PRODUCTS * MUL_OPS + VG_SQUARES * SQ_OPS)
+    bound = bound_ms(nbytes, ops)
+    # CUDA events only: on an H100, torch.profiler lost most or all of
+    # ten 8192-lane launches of this kernel (once it recorded no device
+    # time at all)
+    iters = 50 if n <= 1024 else 10
+    sweep = {}
+    with SmiSampler() as smi:
+        for g in EV.GROUPS:
+            sweep[g] = cuda_ms(fused(g), iters)
+    pms = device_ms(lambda: EV.verify_generic_plain(rows, digest), 1)
+    print(f"verify_generic {name}: {len(slices)} slice(s) of {n} lanes: exact against its "
+          f"plain version at G = {list(EV.GROUPS)} (verdicts and [8]q limbs on every "
+          f"lane, = oracle); bound {bound[0] * 1e3:.3f} us ({bound[1]}; {b_entries} comb "
+          f"entries, {nbytes} bytes); plain {pms * 1e3:10.2f} us device time; host "
+          f"pack_inputs of the {len(expected)} lanes {pack_ms:.3f} ms")
+    for g, ms in sweep.items():
+        mark = "  <- launcher's choice" if g == chosen else ""
+        print(f"  G={g:2d}: {ms * 1e3:9.2f} us/launch back-to-back at {n} lanes (CUDA "
+              f"events), roofline share {bound[0] / ms:.4f}{mark}")
+    print(f"  while timed: {smi.summary()}")
+    for m in prefixes:
+        sub, sub_digest = rows[:, :m], digest[:, :m].contiguous()
+        times = {g: cuda_ms(fused(g, sub, sub_digest), 10) for g in EV.GROUPS}
+        pick = lib.verify_generic_group(m)
+        print(f"  first {m} lanes: " + ", ".join(
+            f"G={g} {t * 1e3:.2f} us" + (" (choice)" if g == pick else "")
+            for g, t in times.items()))
+    return dict(err=err, ms=sweep[chosen], plain_ms=pms, bound=bound, lanes=n, group=chosen,
+                sweep=sweep)
+
+
+# One worker of oracle_verdicts: reads a pickled list of (pub, msg, sig)
+# from stdin and writes the pickled verdicts to stdout.
+_ORACLE_WORKER = (
+    "import pickle, sys\n"
+    "from cometbft_tpu_torch.crypto import edwards as E\n"
+    "triples = pickle.load(sys.stdin.buffer)\n"
+    "pickle.dump([E.verify_zip215(p, m, s) for p, m, s in triples], sys.stdout.buffer)\n"
+)
+
+
+def oracle_verdicts(triples) -> list[bool]:
+    """The oracle's verdict on every lane, in worker processes (plain
+    subprocesses, not multiprocessing, which would leave its resource
+    tracker running; every worker is reaped, or killed, before this
+    returns)."""
+    import pickle
+
+    workers = max(1, min(8, os.cpu_count() or 1))
+    step = -(-len(triples) // workers)
+    chunks = [triples[i : i + step] for i in range(0, len(triples), step)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        for chunk in chunks:
+            proc = subprocess.Popen([sys.executable, "-c", _ORACLE_WORKER], cwd=root,
+                                    stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+            procs.append(proc)
+            # The worker reads all of its input before it computes, and
+            # its output is a few KB: writing each in turn cannot block.
+            proc.stdin.write(pickle.dumps([tuple(t) for t in chunk]))
+            proc.stdin.close()
+        verdicts = []
+        for proc in procs:
+            out = proc.stdout.read()
+            if proc.wait(timeout=600) != 0:
+                raise RuntimeError(f"oracle worker exited {proc.returncode}")
+            verdicts += pickle.loads(out)
+        return verdicts
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+
+
+def make_wide(nkeys: int):
+    """``nkeys`` distinct keys, each signing one 120-byte vote: a set
+    larger than precompute.TABLE_MAX_KEYS, which no table is built for.
+    Key i is a0 + i and its nonce r0 + i, so A and R come by one point
+    addition each instead of a scalar multiplication; the signatures are
+    valid Ed25519 signatures (only the nonces are not RFC 8032's).  Three
+    lanes, one in each of three slices, carry an altered message; the
+    oracle decides every lane."""
+    from cometbft_tpu_torch.crypto import edwards as E
+
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(SEED + nkeys)
+    a0, r0 = (int.from_bytes(rs.bytes(32), "little") % E.L for _ in range(2))
+    a_pt, r_pt = E.pt_mul(a0, E.B_POINT), E.pt_mul(r0, E.B_POINT)
+    triples = []
+    for i in range(nkeys):
+        pub, r_enc = E.encode_point(a_pt), E.encode_point(r_pt)
+        head = b"vote|h=1|r=0|val=%05d|" % i
+        msg = head + rs.bytes(120 - len(head))
+        k = int.from_bytes(hashlib.sha512(r_enc + pub + msg).digest(), "little") % E.L
+        s = (r0 + i + k * (a0 + i)) % E.L
+        triples.append([pub, msg, r_enc + s.to_bytes(32, "little")])
+        a_pt, r_pt = E.pt_add(a_pt, E.B_POINT), E.pt_add(r_pt, E.B_POINT)
+    for pos in (100, 8192 + 5, nkeys - 1):
+        triples[pos][1] = triples[pos][1] + b"!"
+    t1 = time.perf_counter()
+    expected = oracle_verdicts(triples)
+    print(f"generic-wide data: {nkeys} distinct keys made in {t1 - t0:.2f} s, the oracle's "
+          f"verdicts in {time.perf_counter() - t1:.2f} s (worker processes)")
+    if len({p for p, _, _ in triples}) != nkeys or sum(expected) != nkeys - 3:
+        raise AssertionError("generic-wide: keys not distinct or verdicts not as planted")
+    return triples, expected
+
+
+def oracle_floor(triples) -> float:
+    """Host seconds of the per-signature oracle over ``triples``: the
+    route a table-less batch took before the generic tier."""
+    from cometbft_tpu_torch.crypto import edwards as E
+
+    t0 = time.perf_counter()
+    for p, m, s in triples:
+        E.verify_zip215(p, m, s)
+    secs = time.perf_counter() - t0
+    print(f"oracle floor: {len(triples)} verify_zip215 calls in {secs:.3f} s on the host "
+          f"({len(triples) / secs:.0f} sigs/s)")
+    return secs
+
+
+def check_commit_step(triples, expected, dev, heights: int = 4) -> None:
+    """``models.commit.commit_verify_step`` on a (heights, V) batch of
+    the commit's votes, one lane per height altered, against the oracle:
+    one sha512_keyed and one verify_generic launch per slice."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import edwards as E
+    from cometbft_tpu_torch.models import commit as M
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+
+    nval = len(triples)
+    pub = np.zeros((32, heights, nval), dtype=np.uint8)
+    sig = np.zeros((64, heights, nval), dtype=np.uint8)
+    msg = np.zeros((M.MSG_BUCKET, heights, nval), dtype=np.uint8)
+    msglen = np.zeros((heights, nval), dtype=np.int32)
+    want = np.zeros((heights, nval), dtype=bool)
+    for h in range(heights):
+        for v, (p, m, s) in enumerate(triples):
+            if v == 7 * h + 1:
+                m = m[:-1] + bytes([m[-1] ^ 1])
+            pub[:, h, v] = np.frombuffer(p, dtype=np.uint8)
+            sig[:, h, v] = np.frombuffer(s, dtype=np.uint8)
+            msg[: len(m), h, v] = np.frombuffer(m, dtype=np.uint8)
+            msglen[h, v] = len(m)
+            want[h, v] = expected[v] if v != 7 * h + 1 else E.verify_zip215(p, m, s)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = M.commit_verify_step(pub, sig, msg, msglen, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if got.shape != (heights, nval) or got.dtype != torch.bool:
+        raise AssertionError(f"commit_verify_step: {tuple(got.shape)} {got.dtype}")
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError("commit_verify_step: verdicts differ from the oracle")
+    slices = -(-heights * nval // EV.MAX_LAUNCH)
+    if launches != {"sha512_keyed": slices, "verify_generic": slices}:
+        raise AssertionError(f"commit_verify_step: launches {launches}")
+    print(f"commit_verify_step ({heights}, {nval}): = oracle ({int((~want).sum())} invalid "
+          f"caught), {secs * 1e3:.2f} ms first call, launches {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -592,6 +909,7 @@ def main() -> int:
         return 2
     from cometbft_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -607,9 +925,13 @@ def main() -> int:
     from cometbft_tpu_torch.ops import ed25519_verify as EV
 
     vk_lib = _build.library("verify_keyed")
-    for g in EV.VK_GROUPS:
+    for g in EV.GROUPS:
         print(f"  verify_keyed G={g}: {vk_lib.verify_keyed_smem_bytes(g)} bytes of dynamic "
               f"shared memory per 32-thread block ({32 // g} lanes)")
+    vg_lib = _build.library("verify_generic")
+    for g in EV.GROUPS:
+        print(f"  verify_generic G={g}: {vg_lib.verify_generic_smem_bytes(g)} bytes of "
+              f"dynamic shared memory per 32-thread block ({32 // g} lanes)")
     for b in built.values():
         print(f"  {b.name}: nvcc {b.seconds:.2f} s -> {b.path}")
         for line in b.ptxas.splitlines():
@@ -646,6 +968,29 @@ def main() -> int:
     profile_warm("chunked", big, dev, runs=3)
     check_fused("chunked", chunked["plan"], big_exp, dev, prefixes=(512, 2048, 4096))
 
+    # phase 7: the same cells on the generic tier, the tables bypassed by
+    # a table limit of 0 for the phase
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    limit, PR.TABLE_MAX_KEYS = PR.TABLE_MAX_KEYS, 0
+    try:
+        why = "TABLE_MAX_KEYS set to 0"
+        gen150 = drive_generic("generic150", commit150, exp150, dev, warm_runs=50, why=why)
+        vg150 = check_generic("generic150", gen150["plan"], exp150, dev)
+        gen1k = drive_generic("generic1024", commit1k, exp1k, dev, warm_runs=20, why=why)
+        check_generic("generic1024", gen1k["plan"], exp1k, dev)
+        gen_big = drive_generic("generic-chunked", big, big_exp, dev, warm_runs=5, why=why)
+        check_generic("generic-chunked", gen_big["plan"], big_exp, dev,
+                      prefixes=(512, 2048, 4096))
+    finally:
+        PR.TABLE_MAX_KEYS = limit
+    # a set over the default limit takes the generic tier by itself
+    wide, wide_exp = make_wide(PR.TABLE_MAX_KEYS + 16)
+    drive_generic("generic-wide", wide, wide_exp, dev, warm_runs=5,
+                  why=f"{len(wide)} distinct keys > TABLE_MAX_KEYS = {PR.TABLE_MAX_KEYS}")
+    oracle_floor(commit150)
+    check_commit_step(commit150, exp150, dev)
+
     kernels = []
     for kname, key in (("fe_mul", ("fe_mul", 256)), ("fe_sq", ("fe_sq", 256, 1)),
                        ("sha512_padded", ("sha512_padded", 256))):
@@ -679,6 +1024,16 @@ def main() -> int:
         "bound_ms": sha["bound"][0], "bound_by": sha["bound"][1],
         "library_ms": None,
     })
+    kernels.append({
+        "name": "verify_generic", "route": "cuda",
+        "source": "cometbft_tpu_torch/csrc/verify_generic.cu",
+        "replaces": "cometbft_tpu/ops/field.py:338",
+        "launches": gen150["launches"]["verify_generic"],
+        "max_abs_err": vg150["err"], "ms": vg150["ms"], "plain_ms": vg150["plain_ms"],
+        "bound_ms": vg150["bound"][0], "bound_by": vg150["bound"][1],
+        "library_ms": None, "G": vg150["group"],
+    })
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

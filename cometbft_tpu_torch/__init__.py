@@ -17,9 +17,12 @@ Layout mirrors the reference:
   ops/field.py          GF(2^255-19) limbs; fe_mul / fe_sq CUDA kernels
   ops/sha512.py         SHA-512; sha512_padded CUDA kernel
   ops/scalar.py         arithmetic mod L
-  ops/curve.py          edwards25519 point ops, ZIP-215 decompression
+  ops/curve.py          edwards25519 point ops, ZIP-215 decompression,
+                        the comb of B and window_mul (generic tier)
   ops/precompute.py     per-validator comb tables + the key-table pool
-  ops/ed25519_verify.py the keyed verify path + TorchBatchVerifier
+  ops/ed25519_verify.py the keyed and generic verify paths +
+                        TorchBatchVerifier
+  models/commit.py      commit_verify_step: the generic tier as one step
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that argument they raise.

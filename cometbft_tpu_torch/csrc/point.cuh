@@ -1,0 +1,393 @@
+// The lane-level steps that the fused verify kernels share: a lane's
+// field elements in shared memory, asynchronous copies of table entries,
+// the point formulas, ZIP-215 decompression, the canonical-S check and
+// the digest reduction mod L; and the group size both kernels launch
+// with and their launcher.  verify_keyed.cu (the keyed tier) and
+// verify_generic.cu (the generic tier) include it.
+//
+// Every step mirrors its plain PyTorch version operation for operation
+// (ops/curve.py pt_add / pt_add_niels / pt_add_pniels / pt_double /
+// decompress, ops/scalar.py bytes_lt_l / reduce_digest), so a kernel's
+// limbs equal its plain version's, not merely congruent mod p.  The
+// field arithmetic is field.cuh's group level: a lane runs on a group of
+// G threads of one warp (G = 1 is one thread).
+//
+// A lane's elements are the slots of a Lane<NS>: the first NSLOTS are
+// the layout both kernels use (R, the two accumulators, four
+// temporaries); a kernel that needs more slots takes them after those.
+// The file compiles as plain C++ too (see field.cuh).
+
+#pragma once
+
+#include <cstdint>
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+
+#include <atomic>
+#endif
+
+#include "field.cuh"
+
+namespace pt {
+
+using fe::Grp;
+using fe::NL;
+
+// 16-bit limbs (ops/scalar.py): 16c with 2^256 = -16c (mod L), L with a
+// zero 17th limb, and 16L.
+FE_TABLE(int64_t, kK, 9, {16080, 53085, 12709, 33062, 52581, 12153, 40426, 19951, 1})
+FE_TABLE(int64_t, kL, 17,
+         {54253, 23797, 25370, 22546, 40150, 41719, 63966, 5342, 0, 0, 0, 0, 0, 0, 0, 4096, 0})
+FE_TABLE(int64_t, kL16, 17,
+         {16080, 53085, 12709, 33062, 52581, 12153, 40426, 19951, 1, 0, 0, 0, 0, 0, 0, 0, 1})
+
+// The shared slots: R's x, y and t = xy (z is one), the accumulators P1
+// and P2 (four slots each), and the point formulas' four temporaries.
+// Decompression borrows P1, P2 and the temporaries as scratch.
+enum Slot { RX, RY, RT, P1, P2 = P1 + 4, T0 = P2 + 4, T1, T2, T3, NSLOTS };
+
+// The field constants the steps read: the block's, one copy before the
+// lanes.  With the constants in shared memory every operand of a product
+// is, and the compiler addresses them all as shared.
+enum Const { K_ONE, K_D, K_TWO_D, K_SQRT_M1, NCONST };
+
+// A lane's shared memory: its NS elements and the staging buffer of one
+// table entry (up to 4 coordinates of 26 limbs).
+template <int NS>
+struct Lane {
+  static_assert(NS >= NSLOTS, "a lane holds at least the shared slots");
+  int32_t s[NS][NL];
+  int32_t stage[4][NL];
+};
+
+using Consts = int32_t[NCONST][NL];
+
+FE_HD FE_INLINE void fill_consts(Consts& k, int first, int step) {
+  for (int i = first; i < NL; i += step) {
+    k[K_ONE][i] = FE_K(fe::kOne)[i];
+    k[K_D][i] = FE_K(fe::kD)[i];
+    k[K_TWO_D][i] = FE_K(fe::kTwoD)[i];
+    k[K_SQRT_M1][i] = FE_K(fe::kSqrtM1)[i];
+  }
+}
+
+// Words between two lanes' Lane structs: padded to G (mod 32) so that
+// the groups of one warp start on distinct banks and a group's G
+// consecutive words tile the 32 banks with its neighbours' (G = 1: an
+// odd stride, so 32 lanes reading the same word of their own structs hit
+// 32 banks).
+template <class LaneT, int G>
+FE_HD constexpr int lane_words() {
+  constexpr int base = static_cast<int>(sizeof(LaneT) / sizeof(int32_t));
+  return base + ((G % 32) - base % 32 + 32) % 32;
+}
+
+// The group size for n lanes, both kernels', from the sweeps chip_smoke.py
+// prints (H100): G = 32 is fastest up to 1024 lanes, G = 8 up to 4096,
+// and one thread per lane beyond, where the card is full and a lane's
+// instruction count, not its latency, sets the time.
+FE_HD FE_INLINE int pick_group(int64_t n) { return n <= 1024 ? 32 : n <= 4096 ? 8 : 1; }
+
+#ifdef __CUDACC__
+
+// -- the launcher both kernels use ------------------------------------------
+
+constexpr int BLOCK = 32;  // one warp: 32 / G lanes
+constexpr int MAX_DEVICES = 64;
+
+// A block's dynamic shared memory: the constants, then its lanes.
+template <class LaneT, int G>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(int32_t)) * (NCONST * NL + (BLOCK / G) * lane_words<LaneT, G>());
+}
+
+// The same at a run-time group size; -1 for one that is not compiled.
+template <class LaneT>
+int smem_bytes(int group) {
+  return group == 1 ? smem_bytes<LaneT, 1>() : group == 8 ? smem_bytes<LaneT, 8>()
+                                             : group == 32 ? smem_bytes<LaneT, 32>() : -1;
+}
+
+// Launches Kernel over a.n lanes, BLOCK threads and BLOCK / G lanes a
+// block, on `stream`, without synchronising; returns cudaGetLastError().
+// Shared memory above 48 KB needs an opt-in, once per device: the
+// attribute belongs to the function in each device's context.
+template <class LaneT, int G, class Args, void (*Kernel)(Args)>
+int launch(const Args& a, cudaStream_t stream) {
+  static std::atomic<bool> opted_in[MAX_DEVICES];
+  constexpr int smem = smem_bytes<LaneT, G>();
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= MAX_DEVICES || !opted_in[dev].load()) {
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= 0 && dev < MAX_DEVICES) opted_in[dev].store(true);
+  }
+  constexpr int lpb = BLOCK / G;
+  const unsigned grid = static_cast<unsigned>((a.n + lpb - 1) / lpb);
+  Kernel<<<grid, BLOCK, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#endif
+
+// -- asynchronous copies of table entries --------------------------------
+
+#ifdef __CUDA_ARCH__
+__device__ FE_INLINE void copy_async4(int32_t* dst, const int32_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+// Wait for all of this thread's copies (one entry is in flight at a time).
+__device__ FE_INLINE void copy_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+#else
+inline void copy_async4(int32_t* dst, const int32_t* src) { *dst = *src; }
+inline void copy_wait() {}
+#endif
+
+// Start copying one table entry (`ncoord` coordinates, coordinate c's
+// limb i at src[c * cstride + i * lstride]) into dst, spread over the
+// ranks.
+template <int G>
+FE_HD FE_INLINE void fetch_entry(Grp<G> g, int32_t (*dst)[NL], const int32_t* src,
+                                 int64_t cstride, int64_t lstride, int ncoord) {
+  FE_RANKS(g) {
+    for (int idx = r; idx < ncoord * NL; idx += G) {
+      const int c = idx / NL, i = idx - c * NL;
+      copy_async4(&dst[c][i], src + c * cstride + i * lstride);
+    }
+  }
+}
+
+// -- points: (X, Y, Z, T) in four consecutive slots from `p` ------------
+
+template <int G, int NS>
+FE_HD FE_INLINE void set_identity(Grp<G> g, Lane<NS>* L, int p, int q) {
+  FE_PHASE(g) {
+    for (int k = r; k < NL; k += G) {
+      const int32_t one = k == 0 ? 1 : 0;
+      L->s[p][k] = 0, L->s[p + 1][k] = one, L->s[p + 2][k] = one, L->s[p + 3][k] = 0;
+      L->s[q][k] = 0, L->s[q + 1][k] = one, L->s[q + 2][k] = one, L->s[q + 3][k] = 0;
+    }
+  }
+}
+
+// The table entry a step adds next, or none (src null): fetched into the
+// staging buffer as soon as the current step has read its own entry.
+struct Next {
+  const int32_t* src;
+  int64_t cstride, lstride;
+  int ncoord;
+};
+
+// p += (Y+X, Y-X, c2) for the entry in L->stage: pt_add_niels (c2 =
+// 2dxy, dd = 2 Z1) or, when `projective`, pt_add_pniels (c2 = 2dT, dd =
+// Z1 * z2 with z2 = 2Z).  The stage's coordinates are yplus, yminus, then
+// c2 (affine) or z2, c2 (projective).  Once dd is formed the entry is
+// spent, and `next` starts loading into the same buffer.  The last four
+// products write in place (e in X, h in Y), so the step needs four
+// temporaries.
+template <int G, int NS>
+FE_HD FE_NOINLINE void pt_madd(Grp<G> g, Lane<NS>* L, int p, bool projective, Next next) {
+  int32_t *x1 = L->s[p], *y1 = L->s[p + 1], *z1 = L->s[p + 2], *t1 = L->s[p + 3];
+  int32_t *a = L->s[T0], *b = L->s[T1], *c = L->s[T2], *dd = L->s[T3];
+  const int32_t *yplus = L->stage[0], *yminus = L->stage[1];
+  fe::sub_add(g, a, b, y1, x1);
+  fe::mul(g, a, a, yminus);
+  fe::mul(g, b, b, yplus);
+  if (projective) {
+    fe::mul(g, c, t1, L->stage[3]);
+    fe::mul(g, dd, z1, L->stage[2]);
+  } else {
+    fe::mul(g, c, t1, L->stage[2]);
+    fe::mul_small(g, dd, z1, 2);
+  }
+  if (next.src != nullptr) fetch_entry(g, L->stage, next.src, next.cstride, next.lstride, next.ncoord);
+  int32_t *e = x1, *h = y1, *f = a, *gg = b;  // x1, y1, a and b are spent
+  fe::sub_add(g, e, h, b, a);
+  fe::sub_add(g, f, gg, dd, c);
+  fe::mul(g, t1, e, h);
+  fe::mul(g, z1, f, gg);
+  fe::mul(g, x1, e, f);
+  fe::mul(g, y1, gg, h);
+}
+
+// p += q: pt_add (add-2008-hwcd-3, a = -1, k = 2d).
+template <int G, int NS>
+FE_HD FE_NOINLINE void pt_add(Grp<G> g, Lane<NS>* L, const Consts& k, int p, const int32_t* x2,
+                              const int32_t* y2, const int32_t* z2, const int32_t* t2) {
+  int32_t *x1 = L->s[p], *y1 = L->s[p + 1], *z1 = L->s[p + 2], *t1 = L->s[p + 3];
+  int32_t *a = L->s[T0], *b = L->s[T1], *c = L->s[T2], *dd = L->s[T3];
+  fe::sub(g, a, y1, x1);
+  fe::sub(g, b, y2, x2);
+  fe::mul(g, a, a, b);
+  fe::add(g, b, y1, x1);
+  fe::add(g, c, y2, x2);
+  fe::mul(g, b, b, c);
+  fe::mul(g, c, t1, k[K_TWO_D]);
+  fe::mul(g, c, c, t2);
+  fe::mul(g, dd, z1, z2);
+  fe::mul_small(g, dd, dd, 2);
+  int32_t *e = x1, *h = y1, *f = a, *gg = b;  // x1, y1, a and b are spent
+  fe::sub_add(g, e, h, b, a);
+  fe::sub_add(g, f, gg, dd, c);
+  fe::mul(g, t1, e, h);
+  fe::mul(g, z1, f, gg);
+  fe::mul(g, x1, e, f);
+  fe::mul(g, y1, gg, h);
+}
+
+// p = [2]p: pt_double (dbl-2008-hwcd).  T is not read, so it holds e,
+// and Z holds g once Z^2 is formed.
+template <int G, int NS>
+FE_HD FE_NOINLINE void pt_double(Grp<G> g, Lane<NS>* L, int p) {
+  int32_t *x1 = L->s[p], *y1 = L->s[p + 1], *z1 = L->s[p + 2], *t1 = L->s[p + 3];
+  int32_t *a = L->s[T0], *b = L->s[T1], *c = L->s[T2], *h = L->s[T3];
+  int32_t *e = t1, *gg = z1, *f = a;
+  fe::sq(g, a, x1, 1);
+  fe::sq(g, b, y1, 1);
+  fe::sq(g, c, z1, 1);
+  fe::mul_small(g, c, c, 2);
+  fe::add(g, h, a, b);
+  fe::add(g, e, x1, y1);
+  fe::sq(g, e, e, 1);
+  fe::sub(g, e, h, e);
+  fe::sub(g, gg, a, b);
+  fe::add(g, f, c, gg);  // a is spent
+  fe::mul(g, x1, e, f);
+  fe::mul(g, y1, gg, h);
+  fe::mul(g, z1, f, gg);
+  fe::mul(g, t1, e, h);
+}
+
+// ZIP-215 decompression (decompress) of the 32 bytes at enc[0], enc[ld],
+// ... -- a lane's column of the packed rows at the encoding's first row:
+// A at row 0, R at row 32.  Leaves x, y and t = xy in slots out, out + 1
+// and out + 2 (z is one) and returns the validity.  Scratch: P1, P2 and
+// the temporaries, so `out` must lie outside them.
+template <int G, int NS>
+FE_HD FE_NOINLINE bool decompress(Grp<G> g, const uint8_t* enc, int64_t ld, Lane<NS>* L,
+                                  const Consts& k, int out) {
+  const int32_t* one = k[K_ONE];
+  int32_t *x = L->s[out], *y = L->s[out + 1];
+  int32_t *u = L->s[P1], *v = L->s[P1 + 1], *v3 = L->s[P1 + 2], *v7 = L->s[P1 + 3];
+  int32_t *a = L->s[T0], *b = L->s[T1];
+  const int32_t sign = enc[31 * ld] >> 7;
+  fe::from_bytes_le(g, y, enc, ld);
+  // clear bit 255: limb 25 covers bits [250, 260), so bit 255 is its bit 5
+  FE_PHASE(g) {
+    if (r == (NL - 1) % G) y[NL - 1] -= sign << 5;
+  }
+  fe::sq(g, a, y, 1);  // yy
+  fe::sub(g, u, a, one);
+  fe::mul(g, v, a, k[K_D]);
+  fe::add(g, v, v, one);
+  fe::sq(g, a, v, 1);
+  fe::mul(g, v3, a, v);
+  fe::sq(g, a, v3, 1);
+  fe::mul(g, v7, a, v);
+  fe::mul(g, a, u, v7);
+  fe::pow22523(g, b, a, L->s[T2], L->s[T3], L->s[P2]);
+  fe::mul(g, a, u, v3);
+  fe::mul(g, x, a, b);
+  fe::sq(g, a, x, 1);
+  fe::mul(g, a, v, a);  // vxx
+  const bool ok1 = fe::eq(g, a, u);
+  fe::neg(g, b, u);
+  const bool ok2 = fe::eq(g, a, b);
+  fe::mul(g, b, x, k[K_SQRT_M1]);
+  fe::select_into(g, ok2, x, b);
+  const bool flip = fe::is_odd(g, x) != (sign == 1);
+  fe::neg(g, b, x);
+  fe::select_into(g, flip, x, b);
+  fe::mul(g, L->s[out + 2], x, y);
+  return ok1 || ok2;
+}
+
+// -- scalars mod L: signed int64 16-bit limbs ---------------------------
+
+// Exact sequential pass (_propagate), in place: limbs to [0, 2^16),
+// returning the signed carry out.
+FE_HD FE_INLINE int64_t sc_propagate(int64_t* c, int n) {
+  int64_t carry = 0;
+  for (int i = 0; i < n; ++i) {
+    const int64_t t = c[i] + carry;
+    c[i] = t & 0xFFFF;
+    carry = t >> 16;
+  }
+  return carry;
+}
+
+// The canonical-S check (bytes_lt_l): the 32 bytes at s[0], s[ld], ...
+FE_HD FE_INLINE bool bytes_lt_l(const uint8_t* s, int64_t ld) {
+  int64_t d[16];
+  for (int i = 0; i < 16; ++i)
+    d[i] = s[2 * i * ld] + (static_cast<int64_t>(s[(2 * i + 1) * ld]) << 8) - FE_K(kL)[i];
+  return sc_propagate(d, 16) < 0;
+}
+
+// n (len limbs) -> LO(16) - HI*16c, `width` limbs (_fold_step): three
+// relax passes that keep the top limb's own carry.
+FE_HD FE_INLINE void fold_step(int64_t (&n)[32], int len, int width) {
+  const int nh = len - 16;
+  const int plen = nh + 9 - 1;
+  int64_t prod[32];
+  for (int t = 0; t < plen; ++t) prod[t] = 0;
+  for (int j = 0; j < 9; ++j) {
+    const int64_t kj = FE_K(kK)[j];
+    if (kj != 0) {
+      for (int i = 0; i < nh; ++i) prod[j + i] += kj * n[16 + i];
+    }
+  }
+  const int w = width > plen ? width : plen;
+  int64_t out[32];
+  for (int t = 0; t < w; ++t)
+    out[t] = (t < 16 ? n[t] : 0) - (t < plen ? prod[t] : 0);
+  for (int pass = 0; pass < 3; ++pass) {
+    int64_t carry[32];
+    for (int t = 0; t < w; ++t) carry[t] = out[t] >> 16;
+    carry[w - 1] = 0;
+    for (int t = 0; t < w; ++t) out[t] -= carry[t] * 65536;
+    for (int t = w - 1; t >= 1; --t) out[t] += carry[t - 1];
+  }
+  for (int t = 0; t < width; ++t) n[t] = out[t];
+}
+
+// The 64-byte little-endian digest at d[0], d[stride], ... -> its 16
+// canonical limbs mod L (reduce_digest).  Static: not a template and not
+// inlined, so each kernel source keeps its own copy.
+static FE_HD FE_NOINLINE void reduce_digest(const uint8_t* d, int64_t stride, int64_t (&k)[16]) {
+  int64_t n[32];
+  for (int i = 0; i < 32; ++i)
+    n[i] = d[2 * i * stride] + (static_cast<int64_t>(d[(2 * i + 1) * stride]) << 8);
+  fold_step(n, 32, 25);  // |n| < 2^390
+  fold_step(n, 25, 18);  // |n| < 2^265
+  fold_step(n, 18, 17);  // (-2^135, 2^256 + 2^135)
+  int64_t tmp[17];
+  // make positive: one add of 16L = 2^256 + 16c always suffices
+  for (int t = 0; t < 17; ++t) tmp[t] = n[t];
+  if (sc_propagate(tmp, 17) < 0) {
+    for (int t = 0; t < 17; ++t) n[t] += FE_K(kL16)[t];
+  }
+  int64_t limbs[17];
+  for (int t = 0; t < 17; ++t) limbs[t] = n[t];
+  sc_propagate(limbs, 17);  // in [0, 2^262)
+  // approximate quotient: q = floor(n / 2^252) < 2^10
+  const int64_t q = (limbs[15] >> 12) + (limbs[16] << 4);
+  for (int t = 0; t < 17; ++t) n[t] = limbs[t] - (t < 16 ? FE_K(kL)[t] * q : 0);
+  for (int t = 0; t < 17; ++t) tmp[t] = n[t];
+  if (sc_propagate(tmp, 17) < 0) {
+    for (int t = 0; t < 17; ++t) n[t] += FE_K(kL)[t];
+  }
+  int64_t diff[17];
+  for (int t = 0; t < 17; ++t) diff[t] = n[t] - FE_K(kL)[t];
+  if (sc_propagate(diff, 17) >= 0) {
+    for (int t = 0; t < 16; ++t) k[t] = diff[t];
+  } else {
+    sc_propagate(n, 17);
+    for (int t = 0; t < 16; ++t) k[t] = n[t];
+  }
+}
+
+}  // namespace pt

@@ -19,7 +19,10 @@
 // sha512_keyed: buf is the packed rows (104 + bucket, ld) uint8 --
 // pub[32] | sig[64] | msg[bucket] | msglen_le[4] | key_id_le[4], lane j
 // in column j, rows ld bytes apart, so a slice of a wider batch needs no
-// copy.  The message is R (rows 32:64) || A (rows 0:32) || M (rows
+// copy.  The generic tier's rows (100 + bucket, ld), without the key ids,
+// hash the same way: R, A, the message and its length sit at the same
+// rows in both layouts, and the key-id rows are never read.  The
+// message is R (rows 32:64) || A (rows 0:32) || M (rows
 // 96:96+msglen); each 64-bit word of a block is assembled in registers
 // with the padding exactly where build_padded_input puts it: 0x80 at
 // byte 64 + msglen, the big-endian bit length in the last 8 bytes of the

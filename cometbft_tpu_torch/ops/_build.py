@@ -62,8 +62,16 @@ SOURCES = {
         {
             "verify_keyed_launch": (_VP, _I64, _I32, _VP, _VP, _I64, _VP, _I64,
                                     _VP, _VP, _VP, _I64, _I32, _I32, _VP),
-            "verify_keyed_group": (_I64, _I32),
+            "verify_keyed_group": (_I64,),
             "verify_keyed_smem_bytes": (_I32,),
+        },
+    ),
+    "verify_generic": (
+        "verify_generic.cu",
+        {
+            "verify_generic_launch": (_VP, _I64, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _VP),
+            "verify_generic_group": (_I64,),
+            "verify_generic_smem_bytes": (_I32,),
         },
     ),
 }
@@ -71,7 +79,7 @@ SOURCES = {
 #: kernel name -> launches since the last reset
 LAUNCHES: dict[str, int] = {
     "fe_mul": 0, "fe_sq": 0, "sha512_padded": 0, "sha512_keyed": 0,
-    "verify_keyed": 0,
+    "verify_keyed": 0, "verify_generic": 0,
 }
 
 

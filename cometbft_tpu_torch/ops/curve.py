@@ -1,5 +1,8 @@
-"""edwards25519 group operations for the keyed verify path (the port of
-the keyed subset of cometbft_tpu/ops/curve.py).
+"""edwards25519 group operations (the port of cometbft_tpu/ops/curve.py):
+the point formulas and ZIP-215 decompression that both verify tiers use,
+and the generic tier's scalar multiplications -- [S]B over the 4-bit
+comb of B (``B_COMB``, ``comb_mul_base``) and [k]P by windowed
+double-and-add (``window_mul``).
 
 Points are tuples (X, Y, Z, T) of lazy field elements, each a
 limbs-first ``(26, *batch)`` int32 tensor: extended twisted Edwards
@@ -9,7 +12,8 @@ produced here is a multiply output (limbs < 2^11) and the formulas
 chain at most 2 add/subs before the next multiply -- the field
 multiply's operand budget (ops/field.py).
 
-Encodings are feature-first (32, *batch) uint8.
+Encodings are feature-first (32, *batch) uint8, scalar windows
+(64, *batch) int32.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ D_LIMBS = F.from_int(_ref.D)
 TWO_D_LIMBS = F.from_int(2 * _ref.D % _ref.P)
 SQRT_M1_LIMBS = F.from_int(_ref.SQRT_M1)
 
+WINDOWS = 64  # 4-bit windows over 256-bit scalars
+
 
 def niels_from_affine(x: int, y: int) -> np.ndarray:
     """(y+x, y-x, 2dxy) limbs -- shape (3, 26)."""
@@ -34,6 +40,29 @@ def niels_from_affine(x: int, y: int) -> np.ndarray:
             F.from_int(2 * _ref.D * x * y % _ref.P),
         ]
     )
+
+
+def _build_comb_table() -> np.ndarray:
+    """COMB[w][j] = j * 16^w * B as affine-Niels triples, (64, 16, 3,
+    26) int32, from the oracle.  j = 0 is the Niels identity (1, 1, 0),
+    which the mixed add treats as a no-op projectively, so a lookup needs
+    no identity branch."""
+    table = np.zeros((WINDOWS, 16, 3, F.NLIMBS), dtype=np.int32)
+    base = _ref.B_POINT
+    for w in range(WINDOWS):
+        acc = _ref.IDENTITY
+        for j in range(16):
+            if j == 0:
+                table[w, j] = np.stack([F.ONE, F.ONE, F.ZERO])
+            else:
+                acc = _ref.pt_add(acc, base)
+                table[w, j] = niels_from_affine(*_ref.pt_to_affine(acc))
+        for _ in range(4):
+            base = _ref.pt_double(base)
+    return table
+
+
+B_COMB = _build_comb_table()  # (64, 16, 3, 26) int32
 
 
 def identity(batch_shape, device) -> tuple:
@@ -148,3 +177,50 @@ def decompress(enc: torch.Tensor):
     x = F.select(flip, F.neg(x), x)
     z = one.expand(y.shape)
     return (x, y, z, F.mul(x, y)), valid
+
+
+# -- the generic tier's scalar multiplications --------------------------
+
+def nibbles_from_bytes_le(b: torch.Tensor) -> torch.Tensor:
+    """(32, *batch) uint8 scalar -> (64, *batch) int32 4-bit windows,
+    little-endian (window w has weight 16^w)."""
+    b = b.to(torch.int32)
+    return torch.stack([b & 0xF, b >> 4], dim=1).reshape(64, *b.shape[1:])
+
+
+def comb_mul_base(s_nibbles: torch.Tensor, table: torch.Tensor | None = None):
+    """[S]B via the 4-bit Niels comb: 64 table lookups and mixed adds.
+    s_nibbles (64, *batch) int32; ``table`` is B_COMB on their device
+    (uploaded once if None).  Returns an extended point."""
+    dev, batch = s_nibbles.device, s_nibbles.shape[1:]
+    if table is None:
+        table = F.const(B_COMB, dev)
+    acc = identity(batch, dev)
+    for w in range(WINDOWS):
+        idx = s_nibbles[w].reshape(-1).to(torch.int64)
+        e = table[w].index_select(0, idx)                  # (B, 3, 26)
+        e = e.permute(1, 2, 0).reshape(3, F.NLIMBS, *batch)
+        acc = pt_add_niels(acc, (e[0], e[1], e[2]))
+    return acc
+
+
+def window_mul(k_nibbles: torch.Tensor, p):
+    """[k]P for a per-lane point P: windowed double-and-add.  Builds the
+    16-entry multiples table [identity, P, 2P, ..., 15P] (14 adds), then
+    scans k's windows from the most significant: acc = 16 acc + T[nib].
+    k_nibbles (64, *batch) int32."""
+    batch, dev = k_nibbles.shape[1:], k_nibbles.device
+    entries = [identity(batch, dev), p]
+    for _ in range(14):
+        entries.append(pt_add(entries[-1], p))
+    # (16, 26, *batch) per coordinate
+    table = tuple(
+        torch.stack([e[c].expand(F.NLIMBS, *batch) for e in entries]) for c in range(4)
+    )
+    acc = identity(batch, dev)
+    for w in range(WINDOWS - 1, -1, -1):
+        for _ in range(4):
+            acc = pt_double(acc)
+        idx = k_nibbles[w].to(torch.int64)[None, None].expand(1, F.NLIMBS, *batch)
+        acc = pt_add(acc, tuple(torch.gather(table[c], 0, idx)[0] for c in range(4)))
+    return acc

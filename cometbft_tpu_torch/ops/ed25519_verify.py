@@ -1,29 +1,34 @@
-"""Keyed Ed25519 batch verification on the device (the port of the keyed
-tier of cometbft_tpu/ops/ed25519_verify.py) and ``TorchBatchVerifier``.
+"""Ed25519 batch verification on the device (the port of the keyed and
+generic tiers of cometbft_tpu/ops/ed25519_verify.py) and
+``TorchBatchVerifier``.
 
 For every lane the device checks the cofactored ZIP-215 equation
 
     [8]([S]B + [k](-A) - R) == identity,   k = SHA-512(R || A || M) mod L,
 
-with [S]B from the shared 8-bit comb of B and [k](-A) from the
-validator set's per-key comb tables (ops/precompute.py), plus R's
-decompression, S < L and the key's validity.  Results come back as one
-bool per signature.
+plus the decompressions, S < L and the key's validity.  Results come
+back as one bool per signature.  Two tiers:
 
-On the card a slice is two launches: the sha512_keyed kernel
-(csrc/sha512.cu), which hashes R || A || M straight from the packed
-rows, and the verify_keyed kernel (csrc/verify_keyed.cu), which runs
-everything after the digest for a lane on a group of threads.  Their
-plain versions are ``keyed_digest_plain`` (the padded input built by
-torch ops, then SHA-512) and ``verify_keyed_plain`` (composed from
-ops/curve.py, ops/scalar.py and ops/precompute.py).
+- **keyed**: [S]B from the shared 8-bit comb of B and [k](-A) from the
+  validator set's per-key comb tables (ops/precompute.py).  On the card
+  a slice is the sha512_keyed kernel (csrc/sha512.cu), which hashes
+  R || A || M straight from the packed rows, and the verify_keyed kernel
+  (csrc/verify_keyed.cu).  Plain versions: ``keyed_digest_plain`` and
+  ``verify_keyed_plain``.
+- **generic**: no tables.  A is decompressed on the device, [S]B comes
+  from the 4-bit comb of B (``curve.B_COMB``) and [k](-A) from a
+  per-lane window table.  A slice is sha512_keyed and the verify_generic
+  kernel (csrc/verify_generic.cu); plain version
+  ``verify_generic_plain``.  It takes sets with no table entry: more
+  than TABLE_MAX_KEYS unique keys.
 
 Layouts are the reference's: the packed buffer is feature-first
-(104 + bucket, B) uint8 -- pub[32] | sig[64] | msg[bucket] |
-msglen_le[4] | key_id_le[4] -- padded to a power-of-two batch and a
-message-length bucket.  Batches wider than MAX_LAUNCH run as a loop of
-MAX_LAUNCH-lane slices; the slices' results are concatenated on the
-device and come back with one copy per batch.
+(100 + bucket, B) uint8 -- pub[32] | sig[64] | msg[bucket] |
+msglen_le[4] -- plus key_id_le[4] on the keyed tier (104 + bucket),
+padded to a power-of-two batch and a message-length bucket.  Batches
+wider than MAX_LAUNCH run as a loop of MAX_LAUNCH-lane slices; the
+slices' results are concatenated on the device and come back with one
+copy per batch.
 """
 
 from __future__ import annotations
@@ -54,8 +59,9 @@ MAX_LAUNCH = 8192
 #: warm; below it the per-signature floor runs.
 DEVICE_MIN_BATCH = 64
 
-#: Threads per lane that the verify_keyed kernel is compiled for.
-VK_GROUPS = (1, 8, 32)
+#: Threads per lane that the verify_keyed and verify_generic kernels are
+#: compiled for (csrc/point.cuh's launcher; pick_group chooses among them).
+GROUPS = (1, 8, 32)
 
 
 def nblocks_for_bucket(bucket: int) -> int:
@@ -109,14 +115,17 @@ def keyed_digest_plain(buf: torch.Tensor, bucket: int, nblocks: int) -> torch.Te
 
 def keyed_digest(buf: torch.Tensor, bucket: int, nblocks: int) -> torch.Tensor:
     """SHA-512(R || A || M) per lane of the packed rows: (104+bucket, B)
-    uint8 -> (64, B) uint8.
+    or (100+bucket, B) uint8 -> (64, B) uint8.  Both tiers' layouts hold
+    R, A, the message and its length at the same rows, and the key-id
+    rows are never read.
 
     A CUDA tensor goes through the sha512_keyed kernel, which reads the
     rows in place (lanes contiguous, any row stride) and pads each lane
     in registers; a CPU tensor through :func:`keyed_digest_plain`."""
-    if buf.dim() != 2 or buf.shape[0] != 104 + bucket or buf.dtype != torch.uint8:
-        raise ValueError(f"sha512_keyed: expected ({104 + bucket}, B) uint8 rows, "
-                         f"got {tuple(buf.shape)} {buf.dtype}")
+    if (buf.dim() != 2 or buf.shape[0] not in (100 + bucket, 104 + bucket)
+            or buf.dtype != torch.uint8):
+        raise ValueError(f"sha512_keyed: expected ({104 + bucket}, B) or "
+                         f"({100 + bucket}, B) uint8 rows, got {tuple(buf.shape)} {buf.dtype}")
     if nblocks != nblocks_for_bucket(bucket):
         raise ValueError(f"sha512_keyed: bucket {bucket} takes "
                          f"{nblocks_for_bucket(bucket)} blocks, not {nblocks}")
@@ -171,7 +180,7 @@ def verify_keyed_fused(buf, digest, table, key_valid, b_table, bucket: int,
     B) int32 tensor, receives the limbs of [8]q when given.
 
     A CUDA tensor goes through the verify_keyed kernel (one launch, a
-    group of ``group`` threads per lane, one of VK_GROUPS, or 0 for the
+    group of ``group`` threads per lane, one of GROUPS, or 0 for the
     launcher's choice by lane count; csrc/verify_keyed.cu), a CPU tensor
     through verify_keyed_plain."""
     if buf.dim() != 2 or buf.shape[0] != 104 + bucket or buf.dtype != torch.uint8:
@@ -179,8 +188,8 @@ def verify_keyed_fused(buf, digest, table, key_valid, b_table, bucket: int,
                          f"got {tuple(buf.shape)} {buf.dtype}")
     if window_bits not in (8, 4):
         raise ValueError(f"verify_keyed: window_bits must be 8 or 4, got {window_bits}")
-    if group != 0 and group not in VK_GROUPS:
-        raise ValueError(f"verify_keyed: group must be 0 or one of {VK_GROUPS}, got {group}")
+    if group != 0 and group not in GROUPS:
+        raise ValueError(f"verify_keyed: group must be 0 or one of {GROUPS}, got {group}")
     n = buf.shape[1]
     nent = 1 << window_bits
     if (table.dim() != 4 or table.shape[:3] != (256 // window_bits, 4, F.NLIMBS)
@@ -225,6 +234,71 @@ def verify_keyed_fused(buf, digest, table, key_valid, b_table, bucket: int,
     _build.check(rc, "verify_keyed")
     _build.LAUNCHES["verify_keyed"] += 1
     return ok
+
+
+def verify_generic_plain(buf, digest, b_comb=None):
+    """The plain PyTorch version of the verify_generic kernel: -> ((B,)
+    bool verdicts, (4, 26, B) int32 limbs of [8]q).
+
+    buf (100+bucket, B) uint8 packed rows pub[32] | sig[64] | msg[bucket]
+    | msglen_le[4] (only pub and sig are read); digest (64, B) uint8 from
+    :func:`keyed_digest`; b_comb ``curve.B_COMB`` on buf's device
+    (uploaded once if None).  The reference's ``verify_kernel`` after the
+    digest; its field products go through fe_mul / fe_sq, so on a CUDA
+    tensor it is a composition of field-kernel launches and torch ops."""
+    pub, r_enc, s_bytes = buf[:32], buf[32:64], buf[64:96]
+    a_pt, a_ok = C.decompress(pub)
+    r_pt, r_ok = C.decompress(r_enc)
+    s_ok = SC.bytes_lt_l(s_bytes)
+    k_nib = SC.limbs_to_nibbles(SC.reduce_digest(digest))
+    s_nib = C.nibbles_from_bytes_le(s_bytes)
+    p1 = C.comb_mul_base(s_nib, b_comb)                    # [S]B
+    p2 = C.window_mul(k_nib, C.pt_neg(a_pt))               # [k](-A)
+    q8 = C.mul8(C.pt_add(C.pt_add(p1, p2), C.pt_neg(r_pt)))
+    ok = C.pt_is_identity(q8) & a_ok & r_ok & s_ok
+    return ok, torch.stack(q8)
+
+
+def verify_generic_fused(buf, digest, bucket: int, group: int = 0, want_q: bool = False):
+    """Generic verify of the packed rows after SHA-512: (B,) bool
+    verdicts, or (verdicts, (4, 26, B) int32 limbs of [8]q) when
+    ``want_q`` (arguments as :func:`verify_generic_plain`).
+
+    A CUDA tensor goes through the verify_generic kernel (one launch, a
+    group of ``group`` threads per lane, one of GROUPS, or 0 for the
+    launcher's choice by lane count; csrc/verify_generic.cu), a CPU
+    tensor through verify_generic_plain."""
+    if buf.dim() != 2 or buf.shape[0] != 100 + bucket or buf.dtype != torch.uint8:
+        raise ValueError(f"verify_generic: expected ({100 + bucket}, B) uint8 rows, "
+                         f"got {tuple(buf.shape)} {buf.dtype}")
+    if group != 0 and group not in GROUPS:
+        raise ValueError(f"verify_generic: group must be 0 or one of {GROUPS}, got {group}")
+    n = buf.shape[1]
+    if digest.shape != (64, n) or digest.dtype != torch.uint8:
+        raise ValueError(f"verify_generic: digest must be (64, {n}) uint8")
+    if buf.device.type == "cpu":
+        ok, q8 = verify_generic_plain(buf, digest)
+        return (ok, q8) if want_q else ok
+    if buf.device.type != "cuda":
+        raise ValueError(f"verify_generic: unsupported device {buf.device}")
+    if buf.stride(1) != 1:
+        raise ValueError("verify_generic: the rows' lanes must be contiguous")
+    if digest.device != buf.device or not digest.is_contiguous():
+        raise ValueError(f"verify_generic: digest must be contiguous on {buf.device}")
+    b_comb = F.const(C.B_COMB, buf.device)
+    # each lane's multiples 0..15 of -A, lanes on the minor axis
+    mult = torch.empty((16, 4, F.NLIMBS, n), dtype=F.DTYPE, device=buf.device)
+    ok = torch.empty(n, dtype=torch.bool, device=buf.device)
+    q8 = (torch.empty((4, F.NLIMBS, n), dtype=F.DTYPE, device=buf.device)
+          if want_q else None)
+    rc = _build.library("verify_generic").verify_generic_launch(
+        buf.data_ptr(), buf.stride(0), digest.data_ptr(), b_comb.data_ptr(),
+        mult.data_ptr(), ok.data_ptr(), None if q8 is None else q8.data_ptr(), n, group,
+        torch.cuda.current_stream(buf.device).cuda_stream,
+    )
+    _build.check(rc, "verify_generic")
+    _build.LAUNCHES["verify_generic"] += 1
+    return (ok, q8) if want_q else ok
 
 
 def pack_inputs(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes],
@@ -295,6 +369,29 @@ def verify_arrays_keyed(entry: PR.KeySetTables, key_ids: np.ndarray,
     return out.cpu().numpy()[:n]
 
 
+def verify_generic_rows(buf: torch.Tensor, bucket: int) -> torch.Tensor:
+    """Verdicts of packed generic rows (100+bucket, B) uint8 on their
+    device: per MAX_LAUNCH-lane slice sha512_keyed then verify_generic,
+    the slices' verdicts concatenated on the device."""
+    nblocks = nblocks_for_bucket(bucket)
+    outs = []
+    for s in range(0, buf.shape[1], MAX_LAUNCH):
+        rows = buf[:, s : s + MAX_LAUNCH]
+        outs.append(verify_generic_fused(rows, keyed_digest(rows, bucket, nblocks), bucket))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def verify_arrays(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes],
+                  device) -> np.ndarray:
+    """Host entry of the generic path: numpy (n, 32), (n, 64) and n
+    messages -> bool[n], on ``device``.  One host-to-device copy of the
+    packed batch, :func:`verify_generic_rows`, one device-to-host copy
+    of the verdicts."""
+    packed, bucket = pack_inputs(pub, sig, msgs)
+    out = verify_generic_rows(torch.from_numpy(packed).to(device), bucket)
+    return out.cpu().numpy()[: len(msgs)]
+
+
 class _VerifyPlan:
     """Output of :meth:`TorchBatchVerifier.plan`: the route and what
     :meth:`TorchBatchVerifier.execute` needs to run it."""
@@ -304,7 +401,7 @@ class _VerifyPlan:
 
     def __init__(self) -> None:
         self.n = 0
-        self.route = "empty"      # "empty" | "keyed" | "python"
+        self.route = "empty"      # "empty" | "keyed" | "generic" | "python"
         self.reason = "batch_size"
         self.entry = None
         self.key_ids = None
@@ -316,16 +413,18 @@ class _VerifyPlan:
 
 
 class TorchBatchVerifier(BatchVerifier):
-    """BatchVerifier on the keyed device path (the counterpart of
-    cometbft_tpu's TpuBatchVerifier, reference slot
-    crypto/ed25519/ed25519.go:190).
+    """BatchVerifier on the device (the counterpart of cometbft_tpu's
+    TpuBatchVerifier, reference slot crypto/ed25519/ed25519.go:190).
 
-    Routing (``plan``): a batch of at least ``device_min_batch``
-    signatures looks up -- building if needed -- its key set's tables;
-    a batch of DEVICE_MIN_BATCH or more but below that takes the device
-    only when the tables are already warm (``peek``).  Anything else,
-    or a message over 4096 bytes, runs the per-signature oracle floor.
-    ``last_tier`` records the tier that ran: "keyed" or "python".
+    Routing (``plan``), the reference's keyed-then-generic order without
+    its ladder: a batch of at least ``device_min_batch`` signatures looks
+    up -- building if needed -- its key set's tables and takes the keyed
+    tier; when the set has no table entry (more than TABLE_MAX_KEYS
+    unique keys) it takes the generic tier.  A batch of DEVICE_MIN_BATCH or more but below
+    ``device_min_batch`` takes the keyed tier only when its tables are
+    already warm (``peek``).  Anything else, or a message over 4096
+    bytes, runs the per-signature oracle floor.  ``last_tier`` records
+    the tier that ran: "keyed", "generic" or "python".
 
     A fault in a device launch propagates to the caller; it is never
     caught and re-run on the floor."""
@@ -353,8 +452,8 @@ class TorchBatchVerifier(BatchVerifier):
         return len(self._pubs)
 
     def plan(self) -> _VerifyPlan:
-        """Host phase: the route (table lookup or warm peek) and the
-        packed pub/sig arrays."""
+        """Host phase: the route (table lookup or warm peek, else the
+        generic tier) and the packed pub/sig arrays."""
         plan = _VerifyPlan()
         n = plan.n = len(self._pubs)
         if n == 0:
@@ -365,16 +464,18 @@ class TorchBatchVerifier(BatchVerifier):
             plan.reason = "msg_too_large"
         elif n >= self._device_min_batch:
             entry = self._cache.lookup_or_build(self._pubs)
-            plan.reason = "table_policy" if entry is None else "batch_size"
+            plan.route = "keyed" if entry is not None else "generic"
+            plan.reason = "batch_size" if entry is not None else "table_policy"
         elif n >= DEVICE_MIN_BATCH:
             entry = self._cache.peek(self._pubs)
-            plan.reason = "keyed_warm" if entry is not None else "batch_size"
-        if entry is None:
+            if entry is not None:
+                plan.route, plan.reason = "keyed", "keyed_warm"
+        if plan.route == "empty":
             plan.route = "python"
             return plan
-        plan.route = "keyed"
-        plan.entry = entry
-        plan.key_ids = entry.key_ids(self._pubs)
+        if entry is not None:
+            plan.entry = entry
+            plan.key_ids = entry.key_ids(self._pubs)
         plan.pub = np.frombuffer(b"".join(self._pubs), dtype=np.uint8).reshape(n, 32)
         plan.sig = np.frombuffer(b"".join(self._sigs), dtype=np.uint8).reshape(n, 64)
         return plan
@@ -388,6 +489,9 @@ class TorchBatchVerifier(BatchVerifier):
             out = verify_arrays_keyed(
                 plan.entry, plan.key_ids, plan.pub, plan.sig, plan.msgs
             )
+            results = [bool(v) for v in out]
+        elif plan.route == "generic":
+            out = verify_arrays(plan.pub, plan.sig, plan.msgs, self.device)
             results = [bool(v) for v in out]
         else:
             results = [

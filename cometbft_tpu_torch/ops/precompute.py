@@ -34,7 +34,8 @@ from cometbft_tpu_torch.ops import field as F
 
 #: largest set that gets 8-bit per-key combs (3.4 MB/key on device)
 KEY8_MAX = 256
-#: largest set tables are built for at all
+#: largest set tables are built for at all; a larger one takes the
+#: generic tier (ops/ed25519_verify.py)
 TABLE_MAX_KEYS = 16384
 
 

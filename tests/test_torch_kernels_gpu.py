@@ -103,7 +103,7 @@ def test_wrappers_raise_on_wrong_dtype(dev):
                  torch.zeros((F.NLIMBS, 4), dtype=torch.int32))
 
 
-@pytest.mark.parametrize("group", (0,) + EV.VK_GROUPS)
+@pytest.mark.parametrize("group", (0,) + EV.GROUPS)
 @pytest.mark.parametrize("window_bits", [8, 4])
 def test_verify_keyed_equals_plain(dev, window_bits, group, monkeypatch):
     """The fused keyed verify against its plain version on the card, at
@@ -179,3 +179,46 @@ def test_sha512_keyed_equals_plain(dev):
         i = j + 8
         want = hashlib.sha512(bytes(sig[i, :32]) + bytes(pub[i]) + msgs[i]).digest()
         assert bytes(host[:, j]) == want
+
+
+@pytest.mark.parametrize("group", (0,) + EV.GROUPS)
+def test_verify_generic_equals_plain(dev, group):
+    """The generic verify (no tables) against its plain version on the
+    card, at every compiled group size and the launcher's choice (0):
+    verdicts and the limbs of [8]q on every lane of a slice read through
+    its row stride, planted invalid lanes (flipped S, S >= L, undecodable
+    and non-canonical R, undecodable A, small-order A) included."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import edwards as E
+
+    rs = np.random.RandomState(SEED + 9)
+    triples = []
+    for i in range(24):
+        priv = ed.priv_key_from_secret(b"gpu-generic-%d" % (i % 5))
+        msg = rs.randint(0, 256, int(rs.randint(0, 129))).astype(np.uint8).tobytes()
+        triples.append([priv.pub_key().bytes(), msg, priv.sign(msg)])
+    s = triples[9][2]
+    triples[9][2] = s[:40] + bytes([s[40] ^ 1]) + s[41:]
+    s = triples[10][2]
+    triples[10][2] = s[:32] + (int.from_bytes(s[32:], "little") + E.L).to_bytes(32, "little")
+    bad = next(bytes([j]) + bytes(31) for j in range(2, 255)
+               if E.decode_point(bytes([j]) + bytes(31)) is None)
+    triples[11][2] = bad + triples[11][2][32:]
+    triples[12][2] = (E.P + 1).to_bytes(32, "little") + triples[12][2][32:]
+    triples[13][0] = bad
+    triples[14][0] = E.small_order_points()[1]
+    triples[14][2] = E.encode_point(E.IDENTITY) + bytes(32)
+    expected = [E.verify_zip215(p, m, s) for p, m, s in triples]
+    pub = np.stack([np.frombuffer(p, dtype=np.uint8) for p, _, _ in triples])
+    sig = np.stack([np.frombuffer(s, dtype=np.uint8) for _, _, s in triples])
+    packed, bucket = EV.pack_inputs(pub, sig, [m for _, m, _ in triples])
+    rows = torch.as_tensor(packed).to(dev)[:, 8:24]
+    digest = EV.keyed_digest(rows, bucket, EV.nblocks_for_bucket(bucket))
+    before = _build.LAUNCHES["verify_generic"]
+    ok, q8 = EV.verify_generic_fused(rows, digest, bucket, group=group, want_q=True)
+    assert _build.LAUNCHES["verify_generic"] == before + 1
+    torch.cuda.synchronize()
+    want_ok, want_q8 = EV.verify_generic_plain(rows, digest)
+    assert torch.equal(ok, want_ok)
+    assert torch.equal(q8, want_q8)
+    assert ok.tolist() == expected[8:24]

@@ -111,7 +111,7 @@ def keyed_case(request):
                 b_table=np.ascontiguousarray(b_table.numpy()), want_q8=want_q8.numpy())
 
 
-@pytest.mark.parametrize("group", EV.VK_GROUPS)
+@pytest.mark.parametrize("group", EV.GROUPS)
 def test_host_build_matches_plain(hostlib, keyed_case, group):
     c = keyed_case
     table = c["entry"].table.numpy()
