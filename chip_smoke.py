@@ -36,9 +36,11 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    generic1024, generic-chunked): verdicts = the oracle's, a cold verify
    launches what a warm one does (sha512_keyed and verify_generic once
    per slice, no table build, no other kernel), warm latency; then
-   verify_generic held to verify_generic_plain at every compiled G on
-   every slice (verdicts and [8]q limbs, exactly) and each G timed
-   beside its bound; then generic-wide, a set of more than
+   verify_generic held to verify_generic_plain at every compiled launch
+   shape (quarters, threads per quarter) on every slice (verdicts and
+   [8]q limbs, exactly) and each shape timed beside its bound, with its
+   time per step of the lane's critical path (VG_CHAIN), also on
+   generic-chunked's first 256 to 4096 lanes; then generic-wide, a set of more than
    TABLE_MAX_KEYS distinct keys at the default limit, the traffic that
    takes the generic tier unasked; the oracle floor's time on commit150
    (the route these batches took before the generic tier), and
@@ -108,6 +110,25 @@ def vk_products(window_bits: int) -> int:
 # [S]B's 64 mixed adds of 7, the two point additions and [8] as above.
 VG_PRODUCTS = 2 * 20 + 14 * 9 + 64 * (4 * 4 + 9) + 64 * 7 + 2 * 9 + 3 * 4   # 2244
 VG_SQUARES = 2 * 255 + 64 * 4 * 4 + 3 * 4                                   # 1546
+# Dependent field operations on a lane's critical path, per schedule.
+# One group per lane (Q = 1) runs all of them in turn.  Four quarters
+# run A's and R's decompressions side by side (275 each), a mixed
+# addition at a depth of two products, a point addition at three (x2d
+# then xt2) and a doubling at two: [S]B after the decompressions
+# four-way (64 x 2), or at (4, 32) beside them two-way (64 x 4 = 256,
+# under the 275), then the table (14 x 3), 64 windows of four doublings
+# and an addition (64 x 11), the two additions and [8] (2 x 3 + 3 x 2).
+VG_DECOMPRESS = 20 + 255
+VG_CHAIN = {
+    1: VG_PRODUCTS + VG_SQUARES,                                          # 3790
+    4: VG_DECOMPRESS + 64 * 2 + 14 * 3 + 64 * (4 * 2 + 3) + 2 * 3 + 3 * 2,  # 1161
+    "split": max(VG_DECOMPRESS, 64 * 4) + 14 * 3 + 64 * 11 + 12,            # 1033
+}
+
+
+def vg_chain(shape) -> int:
+    q, g = shape
+    return VG_CHAIN["split" if (q, g) == (4, 32) else q]
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -146,6 +167,10 @@ class SmiSampler:
             except ValueError:
                 continue
             self.rows.append((mhz, watts))
+
+    def median_mhz(self) -> float | None:
+        mhz = sorted(r[0] for r in self.rows)
+        return mhz[len(mhz) // 2] if mhz else None
 
     def summary(self) -> str:
         if not self.rows:
@@ -673,16 +698,25 @@ def drive_generic(name: str, triples, expected, dev, warm_runs: int, why: str) -
     return out
 
 
+def vg_choice(lib, n: int) -> tuple[int, int]:
+    """The launch shape verify_generic's launcher picks for n lanes."""
+    import ctypes
+
+    q, g = ctypes.c_int(), ctypes.c_int()
+    lib.verify_generic_shape(n, ctypes.byref(q), ctypes.byref(g))
+    return q.value, g.value
+
+
 def check_generic(name: str, plan, expected, dev, prefixes=()) -> dict:
     """The verify_generic kernel against verify_generic_plain (the curve
     and scalar code around the fe_mul / fe_sq kernels) at every compiled
-    group size G, on the plan's packed batch, slice by slice as
+    launch shape, on the plan's packed batch, slice by slice as
     verify_arrays cuts it: verdicts and the limbs of [8]q equal on every
     lane, the real lanes' verdicts the oracle's; sha512_keyed held to
-    keyed_digest_plain on the same (100 + bucket) rows.  Then each G
-    timed on the first slice beside the bound, the launcher's choice
-    marked; ``prefixes`` adds the sweep on the first slice's first n
-    lanes."""
+    keyed_digest_plain on the same (100 + bucket) rows.  Then each shape
+    timed on the first slice beside the bound and per step of its
+    critical path (VG_CHAIN), the launcher's choice marked; ``prefixes``
+    adds the sweep on the first slice's first n lanes."""
     import torch
 
     from cometbft_tpu_torch.ops import _build
@@ -703,13 +737,13 @@ def check_generic(name: str, plan, expected, dev, prefixes=()) -> dict:
             raise AssertionError(f"{name}: sha512_keyed differs from keyed_digest_plain on "
                                  f"the generic rows at slice {s}")
         want_ok, want_q8 = EV.verify_generic_plain(rows, digest)
-        for g in EV.GROUPS:
-            ok, q8 = EV.verify_generic_fused(rows, digest, bucket, group=g, want_q=True)
+        for shape in EV.VG_SHAPES:
+            ok, q8 = EV.verify_generic_fused(rows, digest, bucket, shape=shape, want_q=True)
             torch.cuda.synchronize()
             e = int((q8.long() - want_q8.long()).abs().max())
             if e != 0 or not torch.equal(q8, want_q8) or not torch.equal(ok, want_ok):
                 bad = (ok != want_ok).nonzero().flatten().tolist()[:20]
-                raise AssertionError(f"{name}: verify_generic G={g} differs from its plain "
+                raise AssertionError(f"{name}: verify_generic {shape} differs from its plain "
                                      f"version at slice {s}: max |dq8| {e}, verdicts "
                                      f"differ at {bad}")
             err = max(err, e)
@@ -721,46 +755,58 @@ def check_generic(name: str, plan, expected, dev, prefixes=()) -> dict:
     rows, digest = slices[0]
     n = rows.shape[1]
     lib = _build.library("verify_generic")
-    chosen = lib.verify_generic_group(n)
+    chosen = vg_choice(lib, n)
 
-    def fused(g, r=rows, d=digest):
-        return lambda: EV.verify_generic_fused(r, d, bucket, group=g)
+    def fused(shape, r=rows, d=digest):
+        return lambda: EV.verify_generic_fused(r, d, bucket, shape=shape)
 
     # bytes: per lane pub and sig (96 of the packed rows), the digest and
     # the verdict, and each distinct comb entry of B the lanes gather;
     # the multiples table is scratch, written and read by the kernel
-    nib = C.nibbles_from_bytes_le(rows[64:96]).long()
-    b_entries = int(torch.unique(nib + 16 * torch.arange(64, device=dev)[:, None]).numel())
-    nbytes = n * (96 + 64 + 1) + 3 * 26 * 4 * b_entries
-    ops = n * (VG_PRODUCTS * MUL_OPS + VG_SQUARES * SQ_OPS)
-    bound = bound_ms(nbytes, ops)
+    def bound_for(r):
+        m = r.shape[1]
+        nib = C.nibbles_from_bytes_le(r[64:96]).long()
+        entries = int(torch.unique(nib + 16 * torch.arange(64, device=dev)[:, None]).numel())
+        nbytes = m * (96 + 64 + 1) + 3 * 26 * 4 * entries
+        return bound_ms(nbytes, m * (VG_PRODUCTS * MUL_OPS + VG_SQUARES * SQ_OPS)), entries, nbytes
+
+    bound, b_entries, nbytes = bound_for(rows)
     # CUDA events only: on an H100, torch.profiler lost most or all of
     # ten 8192-lane launches of this kernel (once it recorded no device
     # time at all)
     iters = 50 if n <= 1024 else 10
     sweep = {}
     with SmiSampler() as smi:
-        for g in EV.GROUPS:
-            sweep[g] = cuda_ms(fused(g), iters)
+        for shape in EV.VG_SHAPES:
+            sweep[shape] = cuda_ms(fused(shape), iters)
+    mhz = smi.median_mhz() or 1980.0
     pms = device_ms(lambda: EV.verify_generic_plain(rows, digest), 1)
     print(f"verify_generic {name}: {len(slices)} slice(s) of {n} lanes: exact against its "
-          f"plain version at G = {list(EV.GROUPS)} (verdicts and [8]q limbs on every "
-          f"lane, = oracle); bound {bound[0] * 1e3:.3f} us ({bound[1]}; {b_entries} comb "
-          f"entries, {nbytes} bytes); plain {pms * 1e3:10.2f} us device time; host "
-          f"pack_inputs of the {len(expected)} lanes {pack_ms:.3f} ms")
-    for g, ms in sweep.items():
-        mark = "  <- launcher's choice" if g == chosen else ""
-        print(f"  G={g:2d}: {ms * 1e3:9.2f} us/launch back-to-back at {n} lanes (CUDA "
-              f"events), roofline share {bound[0] / ms:.4f}{mark}")
-    print(f"  while timed: {smi.summary()}")
+          f"plain version at every shape (Q, G) of {list(EV.VG_SHAPES)} (verdicts and [8]q "
+          f"limbs on every lane, = oracle); bound {bound[0] * 1e3:.3f} us ({bound[1]}; "
+          f"{b_entries} comb entries, {nbytes} bytes); plain {pms * 1e3:10.2f} us device "
+          f"time; host pack_inputs of the {len(expected)} lanes {pack_ms:.3f} ms")
+    fastest = min(sweep, key=sweep.get)
+    for shape, ms in sweep.items():
+        mark = "  <- launcher's choice" if shape == chosen else ""
+        mark += "  (fastest)" if shape == fastest else ""
+        chain = vg_chain(shape)
+        print(f"  (Q, G) = {shape}: {ms * 1e3:9.2f} us/launch back-to-back at {n} lanes "
+              f"(CUDA events), roofline share {bound[0] / ms:.4f}; chain {chain} steps, "
+              f"{ms * 1e3 / chain:.4f} us = {ms * 1e-3 * mhz * 1e6 / chain:.0f} cycles "
+              f"per step{mark}")
+    print(f"  while timed: {smi.summary()} (cycles at the median)")
     for m in prefixes:
         sub, sub_digest = rows[:, :m], digest[:, :m].contiguous()
-        times = {g: cuda_ms(fused(g, sub, sub_digest), 10) for g in EV.GROUPS}
-        pick = lib.verify_generic_group(m)
-        print(f"  first {m} lanes: " + ", ".join(
-            f"G={g} {t * 1e3:.2f} us" + (" (choice)" if g == pick else "")
-            for g, t in times.items()))
-    return dict(err=err, ms=sweep[chosen], plain_ms=pms, bound=bound, lanes=n, group=chosen,
+        times = {shape: cuda_ms(fused(shape, sub, sub_digest), 10) for shape in EV.VG_SHAPES}
+        pick, best = vg_choice(lib, m), min(times, key=times.get)
+        sub_bound = bound_for(sub)[0][0]
+        print(f"  first {m} lanes (bound {sub_bound * 1e3:.3f} us): " + ", ".join(
+            f"{shape} {t * 1e3:.2f} us ({sub_bound / t:.3f})" + (" (choice)" if shape == pick
+                                                                 else "")
+            for shape, t in times.items()) + f"; fastest {best}"
+              + ("" if best == pick else f", not the choice {pick}"))
+    return dict(err=err, ms=sweep[chosen], plain_ms=pms, bound=bound, lanes=n, shape=chosen,
                 sweep=sweep)
 
 
@@ -929,9 +975,11 @@ def main() -> int:
         print(f"  verify_keyed G={g}: {vk_lib.verify_keyed_smem_bytes(g)} bytes of dynamic "
               f"shared memory per 32-thread block ({32 // g} lanes)")
     vg_lib = _build.library("verify_generic")
-    for g in EV.GROUPS:
-        print(f"  verify_generic G={g}: {vg_lib.verify_generic_smem_bytes(g)} bytes of "
-              f"dynamic shared memory per 32-thread block ({32 // g} lanes)")
+    for q, g in EV.VG_SHAPES:
+        threads = max(32, q * g)
+        print(f"  verify_generic (Q, G) = ({q}, {g}): {vg_lib.verify_generic_smem_bytes(q, g)} "
+              f"bytes of dynamic shared memory per {threads}-thread block "
+              f"({threads // (q * g)} lanes)")
     for b in built.values():
         print(f"  {b.name}: nvcc {b.seconds:.2f} s -> {b.path}")
         for line in b.ptxas.splitlines():
@@ -981,7 +1029,7 @@ def main() -> int:
         check_generic("generic1024", gen1k["plan"], exp1k, dev)
         gen_big = drive_generic("generic-chunked", big, big_exp, dev, warm_runs=5, why=why)
         check_generic("generic-chunked", gen_big["plan"], big_exp, dev,
-                      prefixes=(512, 2048, 4096))
+                      prefixes=(256, 512, 1024, 2048, 4096))
     finally:
         PR.TABLE_MAX_KEYS = limit
     # a set over the default limit takes the generic tier by itself
@@ -1031,7 +1079,7 @@ def main() -> int:
         "launches": gen150["launches"]["verify_generic"],
         "max_abs_err": vg150["err"], "ms": vg150["ms"], "plain_ms": vg150["plain_ms"],
         "bound_ms": vg150["bound"][0], "bound_by": vg150["bound"][1],
-        "library_ms": None, "G": vg150["group"],
+        "library_ms": None, "shape": list(vg150["shape"]),
     })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(smi_line())

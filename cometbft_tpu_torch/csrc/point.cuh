@@ -15,6 +15,13 @@
 // A lane's elements are the slots of a Lane<NS>: the first NSLOTS are
 // the layout both kernels use (R, the two accumulators, four
 // temporaries); a kernel that needs more slots takes them after those.
+//
+// The generic kernel also runs a lane on Q quarters of G threads (a
+// Team; the four-way formulas pt_double_q, pt_add_q and pt_madd_q), so
+// that a formula's independent products run side by side.  The keyed
+// kernel keeps the one-group steps (pt_double, pt_add, pt_madd) and its
+// launch shapes (pick_group): the two kernels now differ by design, and
+// each has its own chooser.
 // The file compiles as plain C++ too (see field.cuh).
 
 #pragma once
@@ -82,10 +89,11 @@ FE_HD constexpr int lane_words() {
   return base + ((G % 32) - base % 32 + 32) % 32;
 }
 
-// The group size for n lanes, both kernels', from the sweeps chip_smoke.py
-// prints (H100): G = 32 is fastest up to 1024 lanes, G = 8 up to 4096,
-// and one thread per lane beyond, where the card is full and a lane's
-// instruction count, not its latency, sets the time.
+// The keyed kernel's group size for n lanes, from the sweeps
+// chip_smoke.py prints (H100): G = 32 is fastest up to 1024 lanes, G = 8
+// up to 4096, and one thread per lane beyond, where the card is full and
+// a lane's instruction count, not its latency, sets the time.  (The
+// generic kernel has its own chooser, verify_generic.cu's pick_shape.)
 FE_HD FE_INLINE int pick_group(int64_t n) { return n <= 1024 ? 32 : n <= 4096 ? 8 : 1; }
 
 #ifdef __CUDACC__
@@ -95,10 +103,19 @@ FE_HD FE_INLINE int pick_group(int64_t n) { return n <= 1024 ? 32 : n <= 4096 ? 
 constexpr int BLOCK = 32;  // one warp: 32 / G lanes
 constexpr int MAX_DEVICES = 64;
 
-// A block's dynamic shared memory: the constants, then its lanes.
-template <class LaneT, int G>
+// A block's threads for TPL threads per lane: one warp, or one lane
+// when a lane spans warps.
+template <int TPL>
+FE_HD constexpr int block_threads() {
+  return TPL > BLOCK ? TPL : BLOCK;
+}
+
+// A block's dynamic shared memory: the constants, then its lanes (TPL
+// threads each, G to a group).
+template <class LaneT, int G, int TPL = G>
 constexpr int smem_bytes() {
-  return static_cast<int>(sizeof(int32_t)) * (NCONST * NL + (BLOCK / G) * lane_words<LaneT, G>());
+  return static_cast<int>(sizeof(int32_t)) *
+         (NCONST * NL + (block_threads<TPL>() / TPL) * lane_words<LaneT, G>());
 }
 
 // The same at a run-time group size; -1 for one that is not compiled.
@@ -108,14 +125,15 @@ int smem_bytes(int group) {
                                              : group == 32 ? smem_bytes<LaneT, 32>() : -1;
 }
 
-// Launches Kernel over a.n lanes, BLOCK threads and BLOCK / G lanes a
-// block, on `stream`, without synchronising; returns cudaGetLastError().
-// Shared memory above 48 KB needs an opt-in, once per device: the
-// attribute belongs to the function in each device's context.
-template <class LaneT, int G, class Args, void (*Kernel)(Args)>
+// Launches Kernel over a.n lanes of TPL threads (G by default),
+// block_threads<TPL>() threads a block, on `stream`, without
+// synchronising; returns cudaGetLastError().  Shared memory above 48 KB
+// needs an opt-in, once per device: the attribute belongs to the
+// function in each device's context.
+template <class LaneT, int G, class Args, void (*Kernel)(Args), int TPL = G>
 int launch(const Args& a, cudaStream_t stream) {
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  constexpr int smem = smem_bytes<LaneT, G>();
+  constexpr int smem = smem_bytes<LaneT, G, TPL>();
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -124,9 +142,10 @@ int launch(const Args& a, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev >= 0 && dev < MAX_DEVICES) opted_in[dev].store(true);
   }
-  constexpr int lpb = BLOCK / G;
+  constexpr int threads = block_threads<TPL>();
+  constexpr int lpb = threads / TPL;
   const unsigned grid = static_cast<unsigned>((a.n + lpb - 1) / lpb);
-  Kernel<<<grid, BLOCK, smem, stream>>>(a);
+  Kernel<<<grid, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,18 +280,32 @@ FE_HD FE_NOINLINE void pt_double(Grp<G> g, Lane<NS>* L, int p) {
   fe::mul(g, t1, e, h);
 }
 
+// Where a decompression keeps its nine scratch elements (u, v, v3, v7,
+// two temporaries, pow22523's three): slot x(m) for m < 9.  FixedScratch
+// is P1, the temporaries and P2; BaseScratch the nine slots from `base`,
+// a run-time value, so that quarters that decompress side by side run
+// one function and stay converged.
+struct FixedScratch {
+  FE_HD FE_INLINE int operator()(int m) const { return m < 4 ? P1 + m : m < 8 ? T0 + m - 4 : P2; }
+};
+struct BaseScratch {
+  int base;
+  FE_HD FE_INLINE int operator()(int m) const { return base + m; }
+};
+
 // ZIP-215 decompression (decompress) of the 32 bytes at enc[0], enc[ld],
 // ... -- a lane's column of the packed rows at the encoding's first row:
 // A at row 0, R at row 32.  Leaves x, y and t = xy in slots out, out + 1
-// and out + 2 (z is one) and returns the validity.  Scratch: P1, P2 and
-// the temporaries, so `out` must lie outside them.
-template <int G, int NS>
+// and out + 2 (z is one) and returns the validity.  Scratch: the slots
+// of `x` (P1, P2 and the temporaries by default), so `out` must lie
+// outside them.
+template <int G, int NS, class S = FixedScratch>
 FE_HD FE_NOINLINE bool decompress(Grp<G> g, const uint8_t* enc, int64_t ld, Lane<NS>* L,
-                                  const Consts& k, int out) {
+                                  const Consts& k, int out, S x = S()) {
   const int32_t* one = k[K_ONE];
-  int32_t *x = L->s[out], *y = L->s[out + 1];
-  int32_t *u = L->s[P1], *v = L->s[P1 + 1], *v3 = L->s[P1 + 2], *v7 = L->s[P1 + 3];
-  int32_t *a = L->s[T0], *b = L->s[T1];
+  int32_t *xo = L->s[out], *y = L->s[out + 1];
+  int32_t *u = L->s[x(0)], *v = L->s[x(1)], *v3 = L->s[x(2)], *v7 = L->s[x(3)];
+  int32_t *a = L->s[x(4)], *b = L->s[x(5)];
   const int32_t sign = enc[31 * ld] >> 7;
   fe::from_bytes_le(g, y, enc, ld);
   // clear bit 255: limb 25 covers bits [250, 260), so bit 255 is its bit 5
@@ -288,21 +321,242 @@ FE_HD FE_NOINLINE bool decompress(Grp<G> g, const uint8_t* enc, int64_t ld, Lane
   fe::sq(g, a, v3, 1);
   fe::mul(g, v7, a, v);
   fe::mul(g, a, u, v7);
-  fe::pow22523(g, b, a, L->s[T2], L->s[T3], L->s[P2]);
+  fe::pow22523(g, b, a, L->s[x(6)], L->s[x(7)], L->s[x(8)]);
   fe::mul(g, a, u, v3);
-  fe::mul(g, x, a, b);
-  fe::sq(g, a, x, 1);
+  fe::mul(g, xo, a, b);
+  fe::sq(g, a, xo, 1);
   fe::mul(g, a, v, a);  // vxx
   const bool ok1 = fe::eq(g, a, u);
   fe::neg(g, b, u);
   const bool ok2 = fe::eq(g, a, b);
-  fe::mul(g, b, x, k[K_SQRT_M1]);
-  fe::select_into(g, ok2, x, b);
-  const bool flip = fe::is_odd(g, x) != (sign == 1);
-  fe::neg(g, b, x);
-  fe::select_into(g, flip, x, b);
-  fe::mul(g, L->s[out + 2], x, y);
+  fe::mul(g, b, xo, k[K_SQRT_M1]);
+  fe::select_into(g, ok2, xo, b);
+  const bool flip = fe::is_odd(g, xo) != (sign == 1);
+  fe::neg(g, b, xo);
+  fe::select_into(g, flip, xo, b);
+  fe::mul(g, L->s[out + 2], xo, y);
   return ok1 || ok2;
+}
+
+// -- a lane on Q quarters of G threads ----------------------------------
+//
+// A Team runs one lane on Q groups of G threads, its quarters (Q in {1,
+// 2, 4}; each a Grp<G> of field.cuh).  A stage's independent jobs (the
+// products of one step of a point formula) are spread over the quarters,
+// job j on quarter j % Q; a limb-parallel step is spread over all Q * G
+// threads, limb k on thread k mod Q * G; the lane meets at a barrier after
+// each.  Q = 1 runs a stage's jobs in turn on one group.  The barrier is
+// __syncwarp over the lane's threads when they lie in one warp, and a
+// named barrier (`bar`, Q * G threads) when they span warps.  Under a
+// host compiler the jobs of a stage run one after another, in order or,
+// with `reverse`, last to first: a job that reads a slot another job of
+// its stage writes shows as a difference between the two orders.
+template <int Q, int G>
+struct Team {
+  static constexpr int NT = Q * G;
+  Grp<G> g;  // this thread's quarter
+#ifdef __CUDA_ARCH__
+  int q;          // the quarter's index in the lane
+  int tid;        // the thread's index in the lane, q * G + rank
+  unsigned mask;  // NT <= 32: the lane's threads in the warp
+  int bar;        // NT > 32: the named barrier
+  __device__ FE_INLINE void sync() const {
+    if (NT > 32) {
+      asm volatile("barrier.sync %0, %1;" ::"r"(bar), "r"(NT) : "memory");
+    } else if (NT > 1) {
+      __syncwarp(NT == 32 ? 0xffffffffu : mask);
+    }
+  }
+#else
+  bool reverse;
+  FE_INLINE void sync() const {}
+#endif
+};
+
+// True on one thread of the group (under a host compiler, where a group
+// is simulated, on the one pass).
+template <int G>
+FE_HD FE_INLINE bool lead(Grp<G> g) {
+#ifdef __CUDA_ARCH__
+  return g.rank == 0;
+#else
+  (void)g;
+  return true;
+#endif
+}
+
+// Device loops below have compile-time trip counts and a compile-time
+// job index where the lane has one quarter: a product is then never
+// called under a branch that the compiler must treat as divergent.
+
+// f(i) for each i < N, spread over the lane's threads; no barrier.
+template <int N, int Q, int G, class F>
+FE_HD FE_INLINE void each(Team<Q, G> t, F&& f) {
+#ifdef __CUDA_ARCH__
+  constexpr int NT = Q * G;
+#pragma unroll
+  for (int i = 0; i < (N + NT - 1) / NT; ++i) {
+    const int k = (NT == 1 ? 0 : t.tid) + i * NT;
+    if (N % NT == 0 || k < N) f(k);
+  }
+#else
+  (void)t;
+  for (int i = 0; i < N; ++i) f(i);
+#endif
+}
+
+// A limb-parallel step: f(k) for each limb k, then the barrier.  f reads
+// all of its operands' limb k before it writes any output's, so outputs
+// may alias operands.
+template <int Q, int G, class F>
+FE_HD FE_INLINE void limbs(Team<Q, G> t, F&& f) {
+  each<NL>(t, f);
+  t.sync();
+}
+
+// A stage: job(j) for j < N, job j on quarter j % Q, then the barrier.
+template <int N, int Q, int G, class F>
+FE_HD FE_INLINE void stage(Team<Q, G> t, F&& job) {
+#ifdef __CUDA_ARCH__
+#pragma unroll
+  for (int i = 0; i < (N + Q - 1) / Q; ++i) {
+    const int j = (Q == 1 ? 0 : t.q) + i * Q;
+    if (N % Q == 0 || j < N) job(j);
+  }
+  t.sync();
+#else
+  for (int i = 0; i < N; ++i) job(t.reverse ? N - 1 - i : i);
+#endif
+}
+
+// The j-th of four values.  A stage's quarters pick their operands with
+// it and make one call, so that quarters of one warp stay converged.
+template <class P>
+FE_HD FE_INLINE P pick(int j, P p0, P p1, P p2, P p3) {
+  return j == 0 ? p0 : j == 1 ? p1 : j == 2 ? p2 : p3;
+}
+
+FE_HD FE_INLINE int32_t add32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+FE_HD FE_INLINE int32_t sub32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+
+template <int Q, int G, int NS>
+FE_HD FE_INLINE void set_identity_q(Team<Q, G> t, Lane<NS>* L, int p) {
+  limbs(t, [&](int k) {
+    const int32_t one = k == 0 ? 1 : 0;
+    L->s[p][k] = 0, L->s[p + 1][k] = one, L->s[p + 2][k] = one, L->s[p + 3][k] = 0;
+  });
+}
+
+// Start copying one table entry into dst (as fetch_entry), spread over
+// the lane's threads.
+template <int Q, int G>
+FE_HD FE_INLINE void fetch_entry_q(Team<Q, G> t, int32_t (*dst)[NL], const int32_t* src,
+                                   int64_t cstride, int64_t lstride, int ncoord) {
+  each<4 * NL>(t, [&](int idx) {
+    const int c = idx / NL, i = idx - c * NL;
+    if (c < ncoord) copy_async4(&dst[c][i], src + c * cstride + i * lstride);
+  });
+}
+
+// The four-way point formulas: pt_double's, pt_add's and pt_madd's
+// operations on the same operands, in the same order within each chain,
+// so the limbs are theirs; only the independent products of a step run
+// side by side, as one stage.  No job reads a slot that another job of
+// its stage writes: each formula ends with e, f, g and h in T0-T3 and the
+// stage X = ef, Y = gh, Z = fg, T = eh.
+template <int Q, int G, int NS>
+FE_HD FE_INLINE void ext_products(Team<Q, G> t, Lane<NS>* L, int p) {
+  int32_t *e = L->s[T0], *f = L->s[T1], *gg = L->s[T2], *h = L->s[T3];
+  stage<4>(t, [&](int j) {
+    fe::mul(t.g, L->s[p + j], pick(j, e, gg, f, e), pick(j, f, h, gg, h));
+  });
+}
+
+// p = [2]p (pt_double): four squarings -- X^2, Y^2, Z^2, (X + Y)^2 in
+// T0-T3 -- then e = h - (X + Y)^2, f = 2Z^2 + g, g = X^2 - Y^2, h = X^2 +
+// Y^2, then the four products: a depth of two.
+template <int Q, int G, int NS>
+FE_HD FE_NOINLINE void pt_double_q(Team<Q, G> t, Lane<NS>* L, int p) {
+  int32_t *x1 = L->s[p], *y1 = L->s[p + 1], *z1 = L->s[p + 2];
+  int32_t *t0 = L->s[T0], *t1 = L->s[T1], *t2 = L->s[T2], *t3 = L->s[T3];
+  limbs(t, [&](int k) { t3[k] = add32(x1[k], y1[k]); });
+  stage<4>(t, [&](int j) { fe::sq(t.g, pick(j, t0, t1, t2, t3), pick(j, x1, y1, z1, t3), 1); });
+  limbs(t, [&](int k) {
+    const int32_t a = t0[k], b = t1[k], c = t2[k], s = t3[k];
+    const int32_t h = add32(a, b), gg = sub32(a, b);
+    t0[k] = sub32(h, s);                                                      // e
+    t1[k] = add32(static_cast<int32_t>(static_cast<uint32_t>(c) * 2u), gg);  // f
+    t2[k] = gg;
+    t3[k] = h;
+  });
+  ext_products(t, L, p);
+}
+
+// e, f, g, h into T0-T3 from a = T0, b = `bs`, c = T (the point's slot
+// p + 3) and dd: e = b - a, f = dd - c, g = dd + c, h = b + a.
+template <int Q, int G, int NS, class DD>
+FE_HD FE_INLINE void efgh(Team<Q, G> t, Lane<NS>* L, int p, const int32_t* bs, DD dd) {
+  int32_t *t0 = L->s[T0], *t1 = L->s[T1], *t2 = L->s[T2], *t3 = L->s[T3];
+  const int32_t* c = L->s[p + 3];
+  limbs(t, [&](int k) {
+    const int32_t a = t0[k], b = bs[k], ck = c[k], d = dd(k);
+    t0[k] = sub32(b, a);
+    t1[k] = sub32(d, ck);
+    t2[k] = add32(d, ck);
+    t3[k] = add32(b, a);
+  });
+}
+
+// p += q (pt_add): a = (Y1 - X1)(Y2 - X2), b = (Y1 + X1)(Y2 + X2), c =
+// T1 2d and dd = Z1 Z2 side by side (c in T1's slot, dd in Z1's), then c
+// *= T2 alone, then the four products: a depth of three.
+template <int Q, int G, int NS>
+FE_HD FE_NOINLINE void pt_add_q(Team<Q, G> t, Lane<NS>* L, const Consts& k, int p,
+                                const int32_t* x2, const int32_t* y2, const int32_t* z2,
+                                const int32_t* t2) {
+  int32_t *x1 = L->s[p], *y1 = L->s[p + 1], *z1 = L->s[p + 2], *t1 = L->s[p + 3];
+  int32_t *s0 = L->s[T0], *s1 = L->s[T1], *s2 = L->s[T2], *s3 = L->s[T3];
+  limbs(t, [&](int i) {
+    const int32_t xa = x1[i], ya = y1[i], xb = x2[i], yb = y2[i];
+    s0[i] = sub32(ya, xa);
+    s1[i] = sub32(yb, xb);
+    s2[i] = add32(ya, xa);
+    s3[i] = add32(yb, xb);
+  });
+  stage<4>(t, [&](int j) {
+    int32_t* o = pick(j, s0, s2, t1, z1);
+    fe::mul(t.g, o, o, pick<const int32_t*>(j, s1, s3, k[K_TWO_D], z2));
+  });
+  stage<1>(t, [&](int) { fe::mul(t.g, t1, t1, t2); });
+  efgh(t, L, p, s2, [&](int i) { return static_cast<int32_t>(static_cast<uint32_t>(z1[i]) * 2u); });
+  ext_products(t, L, p);
+}
+
+// p += (Y+X, Y-X, 2dxy), the entry in L->stage (pt_add_niels): a, b and
+// c = T1 2dxy side by side, then the four products: a depth of two.  Once
+// the first stage has read the entry, `next` starts loading into the
+// same buffer.
+template <int Q, int G, int NS>
+FE_HD FE_NOINLINE void pt_madd_q(Team<Q, G> t, Lane<NS>* L, int p, Next next) {
+  int32_t *x1 = L->s[p], *y1 = L->s[p + 1], *z1 = L->s[p + 2], *t1 = L->s[p + 3];
+  int32_t *s0 = L->s[T0], *s1 = L->s[T1];
+  limbs(t, [&](int i) {
+    const int32_t xa = x1[i], ya = y1[i];
+    s0[i] = sub32(ya, xa);
+    s1[i] = add32(ya, xa);
+  });
+  stage<3>(t, [&](int j) {
+    int32_t* o = pick(j, s0, s1, t1, t1);
+    const int32_t* c = L->stage[2];
+    fe::mul(t.g, o, o, pick<const int32_t*>(j, L->stage[1], L->stage[0], c, c));
+  });
+  if (next.src != nullptr) fetch_entry_q(t, L->stage, next.src, next.cstride, next.lstride, next.ncoord);
+  efgh(t, L, p, s1, [&](int i) { return static_cast<int32_t>(static_cast<uint32_t>(z1[i]) * 2u); });
+  ext_products(t, L, p);
 }
 
 // -- scalars mod L: signed int64 16-bit limbs ---------------------------

@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 )
 
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_PI32 = ctypes.POINTER(ctypes.c_int)
 
 #: source name -> (file, {C function: argtypes})
 SOURCES = {
@@ -69,9 +70,10 @@ SOURCES = {
     "verify_generic": (
         "verify_generic.cu",
         {
-            "verify_generic_launch": (_VP, _I64, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _VP),
-            "verify_generic_group": (_I64,),
-            "verify_generic_smem_bytes": (_I32,),
+            "verify_generic_launch": (_VP, _I64, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32,
+                                      _VP),
+            "verify_generic_shape": (_I64, _PI32, _PI32),
+            "verify_generic_smem_bytes": (_I32, _I32),
         },
     ),
 }

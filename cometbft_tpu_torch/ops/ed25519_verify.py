@@ -59,9 +59,15 @@ MAX_LAUNCH = 8192
 #: warm; below it the per-signature floor runs.
 DEVICE_MIN_BATCH = 64
 
-#: Threads per lane that the verify_keyed and verify_generic kernels are
-#: compiled for (csrc/point.cuh's launcher; pick_group chooses among them).
+#: Threads per lane that the verify_keyed kernel is compiled for
+#: (csrc/point.cuh's launcher; pick_group chooses among them).
 GROUPS = (1, 8, 32)
+
+#: Launch shapes (quarters, threads per quarter) that the verify_generic
+#: kernel is compiled for: a lane on Q groups of G threads, a point
+#: formula's independent products side by side when Q = 4
+#: (csrc/verify_generic.cu; pick_shape chooses among them).
+VG_SHAPES = ((1, 1), (1, 8), (1, 32), (4, 1), (4, 8), (4, 32))
 
 
 def nblocks_for_bucket(bucket: int) -> int:
@@ -259,20 +265,21 @@ def verify_generic_plain(buf, digest, b_comb=None):
     return ok, torch.stack(q8)
 
 
-def verify_generic_fused(buf, digest, bucket: int, group: int = 0, want_q: bool = False):
+def verify_generic_fused(buf, digest, bucket: int, shape=None, want_q: bool = False):
     """Generic verify of the packed rows after SHA-512: (B,) bool
     verdicts, or (verdicts, (4, 26, B) int32 limbs of [8]q) when
     ``want_q`` (arguments as :func:`verify_generic_plain`).
 
     A CUDA tensor goes through the verify_generic kernel (one launch, a
-    group of ``group`` threads per lane, one of GROUPS, or 0 for the
-    launcher's choice by lane count; csrc/verify_generic.cu), a CPU
-    tensor through verify_generic_plain."""
+    lane on ``shape`` = (quarters, threads per quarter), one of
+    VG_SHAPES, or None for the launcher's choice by lane count;
+    csrc/verify_generic.cu), a CPU tensor through verify_generic_plain."""
     if buf.dim() != 2 or buf.shape[0] != 100 + bucket or buf.dtype != torch.uint8:
         raise ValueError(f"verify_generic: expected ({100 + bucket}, B) uint8 rows, "
                          f"got {tuple(buf.shape)} {buf.dtype}")
-    if group != 0 and group not in GROUPS:
-        raise ValueError(f"verify_generic: group must be 0 or one of {GROUPS}, got {group}")
+    if shape is not None and tuple(shape) not in VG_SHAPES:
+        raise ValueError(f"verify_generic: shape must be None or one of {VG_SHAPES}, "
+                         f"got {shape}")
     n = buf.shape[1]
     if digest.shape != (64, n) or digest.dtype != torch.uint8:
         raise ValueError(f"verify_generic: digest must be (64, {n}) uint8")
@@ -293,8 +300,8 @@ def verify_generic_fused(buf, digest, bucket: int, group: int = 0, want_q: bool 
           if want_q else None)
     rc = _build.library("verify_generic").verify_generic_launch(
         buf.data_ptr(), buf.stride(0), digest.data_ptr(), b_comb.data_ptr(),
-        mult.data_ptr(), ok.data_ptr(), None if q8 is None else q8.data_ptr(), n, group,
-        torch.cuda.current_stream(buf.device).cuda_stream,
+        mult.data_ptr(), ok.data_ptr(), None if q8 is None else q8.data_ptr(), n,
+        *(shape or (0, 0)), torch.cuda.current_stream(buf.device).cuda_stream,
     )
     _build.check(rc, "verify_generic")
     _build.LAUNCHES["verify_generic"] += 1

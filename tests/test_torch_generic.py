@@ -170,7 +170,7 @@ def test_wrappers_refuse_what_they_cannot_run(lanes):
                                 torch.zeros((64, 8), dtype=torch.uint8), bucket)
     with pytest.raises(ValueError):
         EV.verify_generic_fused(torch.zeros((100 + bucket, 8), dtype=torch.uint8),
-                                torch.zeros((64, 8), dtype=torch.uint8), bucket, group=4)
+                                torch.zeros((64, 8), dtype=torch.uint8), bucket, shape=(4, 4))
 
 
 # -- routing -------------------------------------------------------------

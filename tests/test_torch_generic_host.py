@@ -2,9 +2,12 @@
 on the host, lane by lane, against its plain PyTorch version:
 
 - csrc/verify_generic.cu (with field.cuh and point.cuh) at every compiled
-  group size, each group's ranks simulated phase by phase, against
+  launch shape (quarters, threads per quarter), each group's ranks
+  simulated phase by phase and each stage's jobs in turn, against
   ``verify_generic_plain``: verdicts and the limbs of [8]q identical on
-  every lane, planted invalid lanes included;
+  every lane, planted invalid lanes included; and again with each
+  stage's jobs last to first, so that a job reading a slot that another
+  job of its stage writes (a race between quarters on the card) shows;
 - csrc/sha512.cu's sha512_keyed per-lane body on the generic layout
   (100 + bucket rows, no key ids) against ``keyed_digest_plain``.
 
@@ -37,7 +40,8 @@ def hostlib(tmp_path_factory):
     if gxx is None:
         pytest.skip("no g++ on PATH: the host build of the kernel sources needs a C++ compiler")
     out = str(tmp_path_factory.mktemp("generic_host") / "libgeneric_host.so")
-    srcs = [os.path.join(_build.CSRC, f) for f in ("verify_generic.cu", "sha512.cu")]
+    srcs = [os.path.join(_build.CSRC, f)
+            for f in ("verify_generic.cu", "verify_keyed.cu", "sha512.cu")]
     proc = subprocess.run(
         [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-x", "c++", "-o", out, *srcs],
         capture_output=True, text=True, timeout=120,
@@ -45,12 +49,15 @@ def hostlib(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(out)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.verify_generic_host.argtypes = [vp, i64, vp, vp, vp, vp, vp, i64, i32]
+    pi32 = ctypes.POINTER(ctypes.c_int)
+    lib.verify_generic_host.argtypes = [vp, i64, vp, vp, vp, vp, vp, i64, i32, i32, i32]
     lib.verify_generic_host.restype = ctypes.c_int
     lib.sha512_keyed_host.argtypes = [vp, i64, i32, i32, vp, i64]
     lib.sha512_keyed_host.restype = ctypes.c_int
-    lib.verify_generic_group.argtypes = [i64]
-    lib.verify_generic_group.restype = ctypes.c_int
+    lib.verify_keyed_group.argtypes = [i64]
+    lib.verify_keyed_group.restype = ctypes.c_int
+    lib.verify_generic_shape.argtypes = [i64, pi32, pi32]
+    lib.verify_generic_shape.restype = ctypes.c_int
     return lib
 
 
@@ -99,32 +106,54 @@ def generic_case():
                 want_q8=want_q8.numpy())
 
 
-@pytest.mark.parametrize("group", EV.GROUPS)
-def test_host_build_matches_plain(hostlib, generic_case, group):
-    """The kernel reads the second half of the 16-lane buffer through its
-    row stride, as it reads a slice of a wider batch."""
-    c = generic_case
-    packed = c["packed"]
-    n = 8
+def _sid(shape):
+    """A shape's test id: the group size alone for one group per lane,
+    as the tests were named when that was the only schedule."""
+    q, g = shape
+    return str(g) if q == 1 else f"{q}x{g}"
+
+
+def _run_host(lib, packed, digest, n, shape, reverse=False, offset=0):
+    """The host build on n lanes of ``packed`` from column ``offset``
+    (read through the row stride): (verdicts, [8]q limbs)."""
     b_comb = np.ascontiguousarray(C.B_COMB)
     mult = np.zeros((16, 4, F.NLIMBS, n), dtype=np.int32)
     ok = np.full(n, 7, dtype=np.uint8)
     q8 = np.zeros((4, F.NLIMBS, n), dtype=np.int32)
-    rc = hostlib.verify_generic_host(
-        packed.ctypes.data + 8, packed.shape[1], c["digest"].ctypes.data, b_comb.ctypes.data,
-        mult.ctypes.data, ok.ctypes.data, q8.ctypes.data, n, group,
+    rc = lib.verify_generic_host(
+        packed.ctypes.data + offset, packed.shape[1], digest.ctypes.data, b_comb.ctypes.data,
+        mult.ctypes.data, ok.ctypes.data, q8.ctypes.data, n, *shape, int(reverse),
     )
     assert rc == 0
-    assert ok.astype(bool).tolist() == c["expected"]
+    return ok.astype(bool).tolist(), q8
+
+
+@pytest.mark.parametrize("shape", EV.VG_SHAPES, ids=_sid)
+def test_host_build_matches_plain(hostlib, generic_case, shape):
+    """The kernel reads the second half of the 16-lane buffer through its
+    row stride, as it reads a slice of a wider batch."""
+    c = generic_case
+    ok, q8 = _run_host(hostlib, c["packed"], c["digest"], 8, shape, offset=8)
+    assert ok == c["expected"]
     np.testing.assert_array_equal(q8, c["want_q8"])
 
 
-@pytest.mark.parametrize("group", EV.GROUPS)
-def test_host_build_refuses_invalid_a_alone(hostlib, group):
+@pytest.mark.parametrize("shape", EV.VG_SHAPES, ids=_sid)
+def test_host_build_reverse_order_matches_plain(hostlib, generic_case, shape):
+    """Each stage's jobs run last to first: the verdicts and limbs must
+    not move, or one quarter's product reads a slot that a concurrent
+    quarter writes (on the card, a race)."""
+    c = generic_case
+    ok, q8 = _run_host(hostlib, c["packed"], c["digest"], 8, shape, reverse=True, offset=8)
+    assert ok == c["expected"]
+    np.testing.assert_array_equal(q8, c["want_q8"])
+
+
+@pytest.fixture(scope="module")
+def invalid_a_case():
     """Lanes whose equation holds whatever A is -- a zero digest (k = 0),
-    S = 0, R the identity -- so that A's validity alone decides: a valid
-    A passes, an undecodable one fails, in the kernel as in the plain
-    version."""
+    S = 0, R the identity -- so that A's validity alone decides, and the
+    plain version's verdicts and limbs on them."""
     bad = next(bytes([j]) + bytes(31) for j in range(2, 255)
                if E.decode_point(bytes([j]) + bytes(31)) is None)
     good = ed.priv_key_from_secret(b"generic-host-a").pub_key().bytes()
@@ -136,30 +165,45 @@ def test_host_build_refuses_invalid_a_alone(hostlib, group):
     digest = np.zeros((64, 4), dtype=np.uint8)
     want_ok, want_q8 = EV.verify_generic_plain(torch.as_tensor(packed), torch.as_tensor(digest))
     assert want_ok.tolist() == [True, False, True, False]
-    b_comb = np.ascontiguousarray(C.B_COMB)
-    mult = np.zeros((16, 4, F.NLIMBS, 4), dtype=np.int32)
-    ok = np.full(4, 7, dtype=np.uint8)
-    q8 = np.zeros((4, F.NLIMBS, 4), dtype=np.int32)
-    assert hostlib.verify_generic_host(
-        packed.ctypes.data, 4, digest.ctypes.data, b_comb.ctypes.data, mult.ctypes.data,
-        ok.ctypes.data, q8.ctypes.data, 4, group) == 0
-    assert ok.astype(bool).tolist() == [True, False, True, False]
-    np.testing.assert_array_equal(q8, want_q8.numpy())
+    return packed, digest, want_q8.numpy()
+
+
+@pytest.mark.parametrize("shape", EV.VG_SHAPES, ids=_sid)
+def test_host_build_refuses_invalid_a_alone(hostlib, invalid_a_case, shape):
+    """A valid A passes, an undecodable one fails, in the kernel as in
+    the plain version, whichever quarter decompresses A."""
+    packed, digest, want_q8 = invalid_a_case
+    ok, q8 = _run_host(hostlib, packed, digest, 4, shape)
+    assert ok == [True, False, True, False]
+    np.testing.assert_array_equal(q8, want_q8)
 
 
 @pytest.mark.parametrize("n, want", [(1, 32), (1024, 32), (1025, 8), (4096, 8),
                                      (4097, 1), (8192, 1)])
 def test_launcher_group_choice(hostlib, n, want):
-    """point.cuh's pick_group, which both verify kernels launch with: 32
+    """point.cuh's pick_group, which the keyed kernel launches with: 32
     threads per lane up to 1024 lanes, 8 up to 4096, then 1 -- always a
     compiled group size."""
-    assert hostlib.verify_generic_group(n) == want and want in EV.GROUPS
+    assert hostlib.verify_keyed_group(n) == want and want in EV.GROUPS
+
+
+@pytest.mark.parametrize("n, want", [(1, (4, 32)), (256, (4, 32)), (257, (4, 8)),
+                                     (1024, (4, 8)), (1025, (4, 1)), (8192, (4, 1))])
+def test_launcher_shape_choice(hostlib, n, want):
+    """verify_generic.cu's pick_shape, the generic kernel's own chooser:
+    four quarters of 32 threads up to 256 lanes, of 8 up to 1024, then
+    of one -- always a compiled shape."""
+    q, g = ctypes.c_int(-1), ctypes.c_int(-1)
+    assert hostlib.verify_generic_shape(n, ctypes.byref(q), ctypes.byref(g)) == 0
+    assert (q.value, g.value) == want and want in EV.VG_SHAPES
 
 
 def test_host_build_refuses_uncompiled_group(hostlib):
     z = np.zeros(1, dtype=np.uint8)
-    assert hostlib.verify_generic_host(z.ctypes.data, 1, z.ctypes.data, z.ctypes.data,
-                                       z.ctypes.data, z.ctypes.data, None, 0, 16) == -1
+    for shape in [(1, 16), (2, 8), (4, 4), (0, 0)]:
+        assert hostlib.verify_generic_host(z.ctypes.data, 1, z.ctypes.data, z.ctypes.data,
+                                           z.ctypes.data, z.ctypes.data, None, 0, *shape,
+                                           0) == -1, shape
 
 
 def test_host_sha512_keyed_on_generic_rows(hostlib):

@@ -181,10 +181,11 @@ def test_sha512_keyed_equals_plain(dev):
         assert bytes(host[:, j]) == want
 
 
-@pytest.mark.parametrize("group", (0,) + EV.GROUPS)
-def test_verify_generic_equals_plain(dev, group):
+@pytest.mark.parametrize("shape", (None,) + EV.VG_SHAPES,
+                         ids=lambda s: "0" if s is None else f"{s[0]}x{s[1]}")
+def test_verify_generic_equals_plain(dev, shape):
     """The generic verify (no tables) against its plain version on the
-    card, at every compiled group size and the launcher's choice (0):
+    card, at every compiled launch shape and the launcher's choice:
     verdicts and the limbs of [8]q on every lane of a slice read through
     its row stride, planted invalid lanes (flipped S, S >= L, undecodable
     and non-canonical R, undecodable A, small-order A) included."""
@@ -215,7 +216,7 @@ def test_verify_generic_equals_plain(dev, group):
     rows = torch.as_tensor(packed).to(dev)[:, 8:24]
     digest = EV.keyed_digest(rows, bucket, EV.nblocks_for_bucket(bucket))
     before = _build.LAUNCHES["verify_generic"]
-    ok, q8 = EV.verify_generic_fused(rows, digest, bucket, group=group, want_q=True)
+    ok, q8 = EV.verify_generic_fused(rows, digest, bucket, shape=shape, want_q=True)
     assert _build.LAUNCHES["verify_generic"] == before + 1
     torch.cuda.synchronize()
     want_ok, want_q8 = EV.verify_generic_plain(rows, digest)

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Cycles per field product of the port's keyed-verify kernel, per group
-size, on an NVIDIA GPU.
+"""Cycles per field product and per point formula of the port's verify
+kernels, per launch shape, on an NVIDIA GPU.
 
     python3 tools/torch_product_cycles.py
 
 Builds tools/torch_product_cycles.cu with nvcc for sm_90a into
 build/torch_tools/ and runs it: one warp runs 2000 dependent products
-(fe::mul<G> for G = 32, 8, 1, and the one-thread register-level product)
-and prints SM cycles per product, with the card's name and power limit.
-Needs nvcc and a card; exits non-zero without them.
+(fe::mul<G> for G = 32, 8, 1, and the one-thread register-level
+product); then one lane alone on the card runs 200 point doublings, 200
+point additions, 200 lane barriers and 200 limb-parallel steps on each
+generic-kernel shape (Q, G) and on the keyed kernel's one-group formulas.
+Prints SM cycles for each, with the card's name and power limit.  Needs
+nvcc and a card; exits non-zero without them.
 """
 
 from __future__ import annotations
