@@ -12,15 +12,21 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    main path's shapes (exact equality: the arithmetic is integer), with
    its time per launch beside the plain version's: device time from
    torch.profiler, and the back-to-back rate from CUDA events (which
-   the host's enqueue cost bounds at these sizes);
+   the host's enqueue cost bounds at these sizes); the table build
+   (build_tables) on commit150's 150 keys and one key (8-bit windows)
+   and commit1024's 1024 keys and one key (4-bit), limbs and validity,
+   timed by CUDA events beside its bound and the plain version, with
+   the entry launch's group sizes swept;
 4. the main path: keyed commit verification of a 150-validator commit
    through ``create_batch_verifier(...).verify()`` on ``cuda``, with
    planted invalid lanes whose verdicts the big-int oracle decides;
-   every kernel of the path must launch during that cold verify (the
-   field kernels build the tables), and a warm verify must launch
-   sha512_keyed and verify_keyed once per slice and no other kernel
-   (sha512_padded, verify_generic and the field kernels 0); then ten warm verifies under
-   torch.profiler for the device's busy share;
+   the cold verify (b_comb8, the host-built comb of B, timed alone just
+   before it) must launch build_tables once and sha512_keyed and
+   verify_keyed once per slice, and nothing else (fe_mul and fe_sq 0),
+   and is split into its table lookup (plan: the build and the copy
+   into the pool) and the rest; a warm verify must launch sha512_keyed
+   and verify_keyed once per slice and no other kernel; then ten warm
+   verifies under torch.profiler for the device's busy share;
 5. the same for a 1024-validator commit (the 4-bit comb tables);
 6. a batch of more than 8192 lanes, through the MAX_LAUNCH slicing,
    with a profiled warm verify too;
@@ -31,7 +37,22 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    exactly, on every lane; then each G is timed (CUDA events) beside the
    bound, with nvidia-smi's SM clock sampled, and the launcher's choice
    marked;
-7. the generic tier (no comb tables), with precompute.TABLE_MAX_KEYS
+7. the validator-set change: commit150's set on a fresh KeyTableCache,
+   then 20 heights that each rotate one validator out and a newcomer in
+   (generic-wide's keys), each a cold one-key verify (p50 and max), three
+   times: the default budget (new pages into never-used slots, in
+   place), a budget under the pool that evicts the key rotated out at
+   every height (its slot reused by copy-on-write), and a budget that
+   grows, evicts and compacts the pool at every height (after a prior
+   106-key set); verdicts = the oracle's at every height, ``stats`` as
+   the policy says, and an entry taken before the first eviction still
+   verifies its own batch after the last height;
+8. commit10k: generic-wide's first 10000 triples (two planted invalid
+   keys) as one set on the keyed tier, 4-bit, on a fresh cache: cold
+   seconds, warm p50, peak memory; the pool's pages of 512 of its keys,
+   the invalid ones included, held to build_tables_plain; the build of
+   all 10000 keys timed by CUDA events beside its bound;
+9. the generic tier (no comb tables), with precompute.TABLE_MAX_KEYS
    set to 0 for the phase only, on the same three cells (generic150,
    generic1024, generic-chunked): verdicts = the oracle's, a cold verify
    launches what a warm one does (sha512_keyed and verify_generic once
@@ -46,7 +67,7 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    (the route these batches took before the generic tier), and
    ``models.commit.commit_verify_step`` on a (4, 150) batch against the
    oracle;
-8. a ``kernels`` JSON line, then the last line
+10. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports torch, numpy and the port only.  Exits non-zero, printing no
@@ -126,6 +147,23 @@ VG_CHAIN = {
 }
 
 
+# The table build (csrc/build_tables.cu), per key: A's decompression (20
+# products, 255 squarings), t = xy, (nwin - 1) * wb doublings of 4
+# products and 4 squarings, nwin * (2^wb - 1) additions of 9 products, and
+# 2dT for each of the nwin * 2^wb entries.  Bytes: the key and its
+# validity, and its page written once (the window bases are scratch).
+def bt_counts(window_bits: int) -> tuple[int, int]:
+    nwin, nent = 256 // window_bits, 1 << window_bits
+    dbl = (nwin - 1) * window_bits
+    return 21 + 4 * dbl + 9 * nwin * (nent - 1) + nwin * nent, 255 + 4 * dbl
+
+
+def bt_bound(nkeys: int, window_bits: int) -> tuple[float, str]:
+    prods, sqs = bt_counts(window_bits)
+    page = (256 // window_bits) * 4 * 26 * (1 << window_bits) * 4
+    return bound_ms(nkeys * (32 + 1 + page), nkeys * (prods * MUL_OPS + sqs * SQ_OPS))
+
+
 def vg_chain(shape) -> int:
     q, g = shape
     return VG_CHAIN["split" if (q, g) == (4, 32) else q]
@@ -182,13 +220,13 @@ class SmiSampler:
                 f"{len(mhz)} samples")
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, warm: int = 3) -> float:
     """Mean time per call of ``fn`` over ``iters`` back-to-back calls
-    (CUDA events, after a warm-up).  For a launch shorter than the
+    (CUDA events, after ``warm`` calls).  For a launch shorter than the
     host's enqueue cost this is the enqueue rate, not the kernel."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -324,8 +362,66 @@ def check_kernels(dev) -> dict:
           f"(and equal to hashlib); device {ms * 1e3:8.2f} us/launch (plain "
           f"{pms * 1e3:9.2f} us); back-to-back {ems * 1e3:8.2f} us (plain "
           f"{epms * 1e3:9.2f} us); bound {bound_ms(nb, ops)[0] * 1e3:.4f} us")
-    print("library: no PyTorch call computes a GF(2^255-19) limb product, "
-          "SHA-512 or a keyed Ed25519 verify, so library_ms is null")
+    print("library: no PyTorch call computes a GF(2^255-19) limb product, SHA-512, an "
+          "Ed25519 verify or a comb-table build, so library_ms is null")
+    _build.reset_launches()
+    return res
+
+
+def key_tensor(keys: list[bytes], dev):
+    """(32, n) uint8 keys on ``dev``, key i in column i."""
+    import torch
+
+    return torch.as_tensor(np.stack([np.frombuffer(k, dtype=np.uint8) for k in keys],
+                                    axis=-1)).to(dev)
+
+
+def check_build(dev, cases) -> dict:
+    """The build_tables kernel against build_tables_plain on the card:
+    ``cases`` are (name, keys, window_bits); every limb of the table and
+    the validity must be equal.  Then the launcher's choice timed by CUDA
+    events beside the bound and the plain version, and the entry
+    launch's other group sizes beside it.  (CUDA events only:
+    torch.profiler read these launches at about a third of their
+    time.)"""
+    import torch
+
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    lib = _build.library("build_tables")
+    res = {}
+    for name, keys, wb in cases:
+        pub = key_tensor(keys, dev)
+        n = pub.shape[1]
+        table, valid = PR.build_tables_kernel(pub, wb)
+        want_table, want_valid = PR.build_tables_plain(pub, wb)
+        torch.cuda.synchronize()
+        err = int((table - want_table).abs().max())
+        if err != 0 or not torch.equal(table, want_table) or not torch.equal(valid, want_valid):
+            raise AssertionError(f"build_tables differs from build_tables_plain on {name}: "
+                                 f"max |d| {err}, validity equal: "
+                                 f"{torch.equal(valid, want_valid)}")
+        del table, want_table
+        choice = (lib.build_tables_group(n, 1), lib.build_tables_group(n * (256 // wb), 2))
+        iters = 10 if n <= 150 else 3
+        with SmiSampler() as smi:
+            ms = cuda_ms(lambda: PR.build_tables_kernel(pub, wb), iters)
+            sweep = {g: cuda_ms(lambda g=g: PR.build_tables_kernel(pub, wb, groups=(0, g)),
+                                iters, warm=1)
+                     for g in PR.BUILD_GROUPS if g != choice[1]}
+        pms = cuda_ms(lambda: PR.build_tables_plain(pub, wb), 1, warm=0)
+        bound = bt_bound(n, wb)
+        invalid = int((~valid).sum())
+        print(f"build_tables {name}: {n} keys, window_bits {wb} ({invalid} invalid): exact "
+              f"against build_tables_plain (every limb, validity); {ms:.3f} ms per call (CUDA "
+              f"events, groups {choice}), {ms * 1e3 / n:.2f} us per key; plain {pms:.3f} ms; "
+              f"bound {bound[0]:.4f} ms ({bound[1]}), share {bound[0] / ms:.4f}")
+        print("  entry launch at G = " + ", ".join(
+            f"{g}: {t:.3f} ms" for g, t in sorted(sweep.items()))
+              + f" (choice {choice[1]}: {ms:.3f} ms); {smi.summary()}")
+        res[name] = dict(err=err, ms=ms, plain_ms=pms, bound=bound, n=n, wb=wb,
+                         choice=choice, sweep=sweep)
     _build.reset_launches()
     return res
 
@@ -378,14 +474,21 @@ def make_commit(nval: int, tag: bytes, plant: bool):
     return triples, expected
 
 
-def run_verify(triples, dev):
+def run_verify(triples, dev, cache=None):
+    """One verify through the entry point (``create_batch_verifier``, or
+    a TorchBatchVerifier on ``cache`` when one is given): (seconds, the
+    verifier, its plan, the verdicts, (add, plan, execute) seconds)."""
     import torch
 
     from cometbft_tpu_torch.crypto import ed25519 as ed
     from cometbft_tpu_torch.crypto.batch import create_batch_verifier
+    from cometbft_tpu_torch.ops.ed25519_verify import TorchBatchVerifier
 
     t0 = time.perf_counter()
-    bv = create_batch_verifier(ed.Ed25519PubKey(triples[0][0]), device=dev)
+    if cache is None:
+        bv = create_batch_verifier(ed.Ed25519PubKey(triples[0][0]), device=dev)
+    else:
+        bv = TorchBatchVerifier(device=dev, cache=cache)
     for p, m, s in triples:
         bv.add(ed.Ed25519PubKey(p), m, s)
     t1 = time.perf_counter()
@@ -397,13 +500,15 @@ def run_verify(triples, dev):
     return t3 - t0, bv, plan, results, (t1 - t0, t2 - t1, t3 - t2)
 
 
-def drive(name: str, triples, expected, dev, warm_runs: int,
-          window_bits: int, cold_kernels) -> dict:
-    """Cold verify with launch counts (``cold_kernels`` must each
-    launch: the field kernels only where the run builds tables), then
+def drive(name: str, triples, expected, dev, warm_runs: int, window_bits: int,
+          builds: bool, cache=None, b8_s: float | None = None) -> dict:
+    """Cold verify with launch counts -- build_tables once where the set
+    is cold (``builds``), sha512_keyed and verify_keyed once per slice,
+    nothing else -- split into the table lookup (plan) and the rest, then
     warm VerifyCommit latency over ``warm_runs`` runs; a warm verify
     launches sha512_keyed and verify_keyed once per slice and no other
-    kernel."""
+    kernel.  ``b8_s``: the seconds of b_comb8's first call, timed alone
+    before the cold verify."""
     import torch
 
     from cometbft_tpu_torch.ops import _build
@@ -411,9 +516,12 @@ def drive(name: str, triples, expected, dev, warm_runs: int,
     from cometbft_tpu_torch.ops import precompute as PR
 
     n = len(triples)
+    slices = -(-max(PR.next_pow2(n), 8) // EV.MAX_LAUNCH)
+    want = {k: 0 for k in _build.LAUNCHES}
+    want.update(verify_keyed=slices, sha512_keyed=slices)
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    cold, bv, plan, results, _ = run_verify(triples, dev)
+    cold, bv, plan, results, cold_split = run_verify(triples, dev, cache)
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     if bv.last_tier != "keyed":
@@ -423,36 +531,41 @@ def drive(name: str, triples, expected, dev, warm_runs: int,
     if results != expected:
         bad = [i for i, (a, b) in enumerate(zip(results, expected)) if a != b]
         raise AssertionError(f"{name}: verdicts differ from the oracle at {bad[:20]}")
-    missing = [k for k in cold_kernels if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"{name}: kernels never launched: {missing}")
+    if launches != dict(want, build_tables=int(builds)):
+        raise AssertionError(f"{name}: cold launches {launches}, expected "
+                             f"{dict(want, build_tables=int(builds))}")
     lat, phases = [], []
     for i in range(warm_runs):
         if i == 0:
             _build.reset_launches()
-        dt, bv, _, results, split = run_verify(triples, dev)
+        dt, bv, _, results, split = run_verify(triples, dev, cache)
         if i == 0:
             warm_launches = dict(_build.LAUNCHES)
         if results != expected or bv.last_tier != "keyed":
             raise AssertionError(f"{name}: warm run {i} differs")
         lat.append(dt)
         phases.append(split)
-    slices = -(-max(PR.next_pow2(n), 8) // EV.MAX_LAUNCH)
-    want = {"verify_keyed": slices, "sha512_keyed": slices, "sha512_padded": 0,
-            "fe_mul": 0, "fe_sq": 0, "verify_generic": 0}
     if warm_launches != want:
         raise AssertionError(f"{name}: warm launches {warm_launches}, expected {want}")
     p50 = pct(lat, 50)
     out = dict(
-        n=n, cold_s=cold, launches=launches, warm_launches=warm_launches,
+        n=n, cold_s=cold, cold_split=cold_split, launches=launches,
+        warm_launches=warm_launches,
         p50_ms=1e3 * p50, p90_ms=1e3 * pct(lat, 90), p95_ms=1e3 * pct(lat, 95),
         runs=warm_runs, sigs_per_s=n / p50, peak_mb=peak / 2**20,
-        field_launches=warm_launches["fe_mul"] + warm_launches["fe_sq"],
+        field_launches=launches["fe_mul"] + launches["fe_sq"],
         invalid=sum(not v for v in expected), plan=plan,
     )
     print(f"{name}: {n} lanes ({out['invalid']} invalid caught), tier keyed, "
           f"window_bits {window_bits}")
-    print(f"  cold verify (tables built) {cold:.3f} s; launches {launches}")
+    print(f"  cold verify ({'tables built' if builds else 'tables warm'}) {cold:.3f} s; "
+          f"launches {launches}")
+    add_s, plan_s, exec_s = cold_split
+    print(f"  cold split: " + (f"b_comb8 {b8_s:.3f} s (its first call, timed alone before), "
+                               if b8_s is not None else "")
+          + f"table lookup (plan: build_tables, growth and the copy into the pool) "
+          f"{plan_s:.4f} s, the rest {add_s + exec_s:.4f} s (add {add_s:.4f}, execute "
+          f"{exec_s:.4f})")
     print(f"  warm VerifyCommit over {warm_runs} runs: p50 {out['p50_ms']:.2f} ms, "
           f"p90 {out['p90_ms']:.2f} ms, p95 {out['p95_ms']:.2f} ms; "
           f"{out['sigs_per_s']:.0f} sigs/s")
@@ -460,8 +573,7 @@ def drive(name: str, triples, expected, dev, warm_runs: int,
     print(f"  warm phases, p50: add {add_ms:.3f} ms (create_batch_verifier + add x {n}), "
           f"plan {plan_ms:.3f} ms (key lookup, key ids), execute {exec_ms:.3f} ms "
           "(pack, copy in, sha512_keyed, verify_keyed, copy out)")
-    print(f"  launches per warm verify: {warm_launches} ({slices} slice(s); "
-          f"field kernels {out['field_launches']})")
+    print(f"  launches per warm verify: {warm_launches} ({slices} slice(s))")
     print(f"  peak device memory (cold run): {out['peak_mb']:.1f} MiB")
     return out
 
@@ -635,7 +747,7 @@ def profile_warm(name: str, triples, dev, runs: int = 10) -> None:
 # -- phase 7: the generic tier ------------------------------------------
 
 GENERIC_KERNELS = ("fe_mul", "fe_sq", "sha512_padded", "sha512_keyed", "verify_keyed",
-                   "verify_generic")
+                   "verify_generic", "build_tables")
 
 
 def drive_generic(name: str, triples, expected, dev, warm_runs: int, why: str) -> dict:
@@ -947,6 +1059,150 @@ def check_commit_step(triples, expected, dev, heights: int = 4) -> None:
           f"caught), {secs * 1e3:.2f} ms first call, launches {launches}")
 
 
+# -- phases 7-8: the validator-set change -----------------------------
+
+def verify_with_entry(entry, triples) -> list[bool]:
+    """Verdicts of ``triples`` through the keyed path on a given entry
+    (no lookup): the check that an older entry still verifies its set."""
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+
+    pubs = [p for p, _, _ in triples]
+    pub = np.frombuffer(b"".join(pubs), dtype=np.uint8).reshape(-1, 32)
+    sig = np.frombuffer(b"".join(s for _, _, s in triples), dtype=np.uint8).reshape(-1, 64)
+    out = EV.verify_arrays_keyed(entry, entry.key_ids(pubs), pub, sig, [m for _, m, _ in triples])
+    return [bool(v) for v in out]
+
+
+def rotation(name: str, dev, commit, expected, newcomers, new_exp, cap_bytes: int,
+             evicts: bool, prior=None, heights: int = 20) -> dict:
+    """The validator-set change on a fresh KeyTableCache(dev, cap_bytes):
+    ``prior`` (triples, verdicts) first when given, then the commit's
+    set, then ``heights`` heights, height h with validators 0..h-1
+    replaced by newcomers 0..h-1 -- one cold key per height.  At every
+    height: verdicts = the oracle's, one build_tables launch, and
+    ``stats`` as the policy says (every key built once; with ``evicts``,
+    each height evicts exactly one key, none before).  Afterwards the entry taken before the first
+    eviction verifies its own batch.  Returns the one-key cold verify
+    latencies."""
+    import torch
+
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    cache = PR.KeyTableCache(dev, cap_bytes=cap_bytes)
+    built = 0
+    first = None
+    if prior is not None:
+        _, bv, plan, res, _ = run_verify(prior[0], dev, cache)
+        if res != prior[1] or bv.last_tier != "keyed":
+            raise AssertionError(f"{name}: the prior set's verdicts differ")
+        first, first_batch = plan.entry, prior
+        built += len({p for p, _, _ in prior[0]})
+    cold0, bv, plan, res, _ = run_verify(commit, dev, cache)
+    if res != expected or bv.last_tier != "keyed":
+        raise AssertionError(f"{name}: the commit's verdicts differ")
+    built += len({p for p, _, _ in commit})
+    if first is None:
+        first, first_batch = plan.entry, (commit, expected)
+    if cache.stats != {"keys_built": built, "keys_evicted": 0}:
+        raise AssertionError(f"{name}: stats {cache.stats} before the rotations")
+    lat, plan_s = [], []
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    for h in range(1, heights + 1):
+        triples = list(newcomers[:h]) + list(commit[h:])
+        want = list(new_exp[:h]) + list(expected[h:])
+        n0 = _build.LAUNCHES["build_tables"]
+        dt, bv, plan, res, split = run_verify(triples, dev, cache)
+        if res != want or bv.last_tier != "keyed" or plan.entry.window_bits != 8:
+            bad = [i for i, (a, b) in enumerate(zip(res, want)) if a != b]
+            raise AssertionError(f"{name}: height {h} verdicts differ at {bad[:20]} "
+                                 f"(tier {bv.last_tier})")
+        stats = {"keys_built": built + h, "keys_evicted": h if evicts else 0}
+        if cache.stats != stats or _build.LAUNCHES["build_tables"] != n0 + 1:
+            raise AssertionError(f"{name}: height {h}: stats {cache.stats}, expected {stats}; "
+                                 f"build_tables launches {_build.LAUNCHES['build_tables'] - n0}")
+        lat.append(dt)
+        plan_s.append(split[1])
+    launches = dict(_build.LAUNCHES)
+    if launches != dict({k: 0 for k in launches}, build_tables=heights,
+                        sha512_keyed=heights, verify_keyed=heights):
+        raise AssertionError(f"{name}: launches over the heights {launches}")
+    if verify_with_entry(first, first_batch[0]) != list(first_batch[1]):
+        raise AssertionError(f"{name}: the entry taken before the first eviction no longer "
+                             "verifies its own batch")
+    pool = cache._pools[8]
+    torch.cuda.synchronize()
+    out = dict(p50_ms=1e3 * pct(lat, 50), max_ms=1e3 * max(lat),
+               plan_p50_ms=1e3 * pct(plan_s, 50), cold0_s=cold0, stats=dict(cache.stats),
+               cap=pool.cap, launches=launches,
+               peak_above_mb=(torch.cuda.max_memory_allocated() - base) / 2**20)
+    print(f"rotation {name}: cap_bytes {cap_bytes} ({cap_bytes / 2**20:.1f} MiB); the "
+          f"commit's set cold in {cold0:.4f} s; {heights} heights, one new key each: cold "
+          f"verify p50 {out['p50_ms']:.2f} ms, max {out['max_ms']:.2f} ms (table lookup p50 "
+          f"{out['plan_p50_ms']:.2f} ms); = oracle at every height; stats {cache.stats}; "
+          f"8-bit pool {len(pool.slots)} keys in {pool.cap} slots; peak device memory "
+          f"{out['peak_above_mb']:.1f} MiB above the allocation before the heights; launches "
+          f"{launches}; the entry taken before the first height still verifies its own batch")
+    return out
+
+
+def drive_10k(wide, wide_exp, dev, nkeys: int = 10000, nsample: int = 512) -> dict:
+    """commit10k: the first 10000 of generic-wide's triples, two keys
+    replaced by an encoding that does not decode and a small-order point
+    (the oracle decides them), as one set on the keyed tier (4-bit) on a
+    fresh KeyTableCache: cold and warm verifies, the pool's pages of 512
+    keys (the two invalid ones included) held to build_tables_plain, and
+    the build of all 10000 keys timed by CUDA events."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import edwards as E
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    triples = [list(t) for t in wide[:nkeys]]
+    exp = list(wide_exp[:nkeys])
+    bad = next(bytes([j]) + bytes(31) for j in range(2, 255)
+               if E.decode_point(bytes([j]) + bytes(31)) is None)
+    triples[40][0] = bad
+    triples[50][0] = E.small_order_points()[1]
+    triples[50][2] = E.encode_point(E.IDENTITY) + bytes(32)
+    for i in (40, 50):
+        exp[i] = E.verify_zip215(*triples[i])
+    cache = PR.KeyTableCache(dev)
+    out = drive("commit10k", triples, exp, dev, warm_runs=5, window_bits=4, builds=True,
+                cache=cache)
+    entry = out.pop("plan").entry
+    keys = sorted({p for p, _, _ in triples})
+    sample = [bad, triples[50][0]] + [k for k in keys
+                                      if k not in (bad, triples[50][0])][: nsample - 2]
+    want, want_valid = PR.build_tables_plain(key_tensor(sample, dev), 4)
+    idx = torch.as_tensor(np.concatenate(
+        [np.arange(16) + 16 * entry.key_index[k] for k in sample])).to(dev)
+    got = entry.table.index_select(3, idx)
+    got_valid = torch.as_tensor(entry.valid[[entry.key_index[k] for k in sample]]).to(dev)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or not torch.equal(got_valid, want_valid):
+        raise AssertionError("commit10k: the pool's pages differ from build_tables_plain")
+    if want_valid.tolist()[:2] != [False, True]:
+        raise AssertionError("commit10k: the planted keys' validity")
+    del got, want, entry
+    pub = key_tensor(keys, dev)
+    ms = cuda_ms(lambda: PR.build_tables_kernel(pub, 4), 3, warm=1)
+    sweep = {g: cuda_ms(lambda g=g: PR.build_tables_kernel(pub, 4, groups=(0, g)), 2, warm=1)
+             for g in PR.BUILD_GROUPS}
+    bound = bt_bound(len(keys), 4)
+    out.update(build_ms=ms, bound=bound, pool_mb=cache._pools[4].nbytes() / 2**20)
+    print(f"  commit10k pool: {len(cache._pools[4].slots)} keys in {cache._pools[4].cap} "
+          f"slots, {out['pool_mb']:.1f} MiB; the pages of {len(sample)} keys (2 invalid) = "
+          f"build_tables_plain; the build of {len(keys)} keys {ms:.3f} ms (CUDA events), "
+          f"{ms * 1e3 / len(keys):.2f} us per key, bound {bound[0]:.3f} ms ({bound[1]}), "
+          f"share {bound[0] / ms:.4f}; the entry launch at G = "
+          + ", ".join(f"{g}: {t:.3f} ms" for g, t in sweep.items()))
+    cache.clear()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -989,17 +1245,25 @@ def main() -> int:
     print("kernels vs plain versions: tolerance exact (max |kernel - plain| must be 0; "
           "the arithmetic is integer)")
     kres = check_kernels(dev)
+    from cometbft_tpu_torch.ops import precompute as PR
 
-    every = ("fe_mul", "fe_sq", "sha512_keyed", "verify_keyed")
     commit150, exp150 = make_commit(150, b"validator", plant=True)
-    main150 = drive("commit150", commit150, exp150, dev, warm_runs=100,
-                    window_bits=8, cold_kernels=every)
+    commit1k, exp1k = make_commit(1024, b"validator1k", plant=True)
+    keys150 = sorted({p for p, _, _ in commit150})
+    keys1k = sorted({p for p, _, _ in commit1k})
+    bres = check_build(dev, [("commit150", keys150, 8), ("one key, 8-bit", keys150[:1], 8),
+                             ("commit1024", keys1k, 4), ("one key, 4-bit", keys1k[:1], 4)])
+
+    t0 = time.perf_counter()
+    PR.b_comb8()
+    b8_s = time.perf_counter() - t0
+    main150 = drive("commit150", commit150, exp150, dev, warm_runs=100, window_bits=8,
+                    builds=True, b8_s=b8_s)
     profile_warm("commit150", commit150, dev)
     vk150 = check_fused("commit150", main150["plan"], exp150, dev)
 
-    commit1k, exp1k = make_commit(1024, b"validator1k", plant=True)
     main1k = drive("commit1024", commit1k, exp1k, dev, warm_runs=20, window_bits=4,
-                   cold_kernels=every)
+                   builds=True)
     check_fused("commit1024", main1k["plan"], exp1k, dev)
 
     # > 8192 lanes: the 150-validator commit repeated across heights,
@@ -1010,16 +1274,24 @@ def main() -> int:
     for pos in (100, 8192, len(big) - 1):
         big[pos][1] = big[pos][1] + b"!"
         big_exp[pos] = False
-    # the tables are warm from commit150: no field kernel runs here
-    chunked = drive("chunked", big, big_exp, dev, warm_runs=5, window_bits=8,
-                    cold_kernels=("sha512_keyed", "verify_keyed"))
+    # the tables are warm from commit150: nothing is built here
+    chunked = drive("chunked", big, big_exp, dev, warm_runs=5, window_bits=8, builds=False)
     profile_warm("chunked", big, dev, runs=3)
     check_fused("chunked", chunked["plan"], big_exp, dev, prefixes=(512, 2048, 4096))
 
-    # phase 7: the same cells on the generic tier, the tables bypassed by
-    # a table limit of 0 for the phase
-    from cometbft_tpu_torch.ops import precompute as PR
+    # phase 7: the validator-set change; newcomers are generic-wide's keys
+    wide, wide_exp = make_wide(PR.TABLE_MAX_KEYS + 16)
+    kb8 = 32 * 4 * 26 * 256 * 4
+    rot_args = (dev, commit150, exp150, wide[:20], wide_exp[:20])
+    rotation("in place", *rot_args, cap_bytes=PR.TABLE_CACHE_MB << 20, evicts=False)
+    rotation("evict", *rot_args, cap_bytes=200 * kb8, evicts=True)
+    rotation("compact", *rot_args, cap_bytes=256 * kb8, evicts=True,
+             prior=(wide[20:126], wide_exp[20:126]))
+    # phase 8: the largest set in the repo's sources, keyed at 4-bit
+    drive_10k(wide, wide_exp, dev)
 
+    # phase 9: the same cells on the generic tier, the tables bypassed by
+    # a table limit of 0 for the phase
     limit, PR.TABLE_MAX_KEYS = PR.TABLE_MAX_KEYS, 0
     try:
         why = "TABLE_MAX_KEYS set to 0"
@@ -1033,7 +1305,6 @@ def main() -> int:
     finally:
         PR.TABLE_MAX_KEYS = limit
     # a set over the default limit takes the generic tier by itself
-    wide, wide_exp = make_wide(PR.TABLE_MAX_KEYS + 16)
     drive_generic("generic-wide", wide, wide_exp, dev, warm_runs=5,
                   why=f"{len(wide)} distinct keys > TABLE_MAX_KEYS = {PR.TABLE_MAX_KEYS}")
     oracle_floor(commit150)
@@ -1080,6 +1351,16 @@ def main() -> int:
         "max_abs_err": vg150["err"], "ms": vg150["ms"], "plain_ms": vg150["plain_ms"],
         "bound_ms": vg150["bound"][0], "bound_by": vg150["bound"][1],
         "library_ms": None, "shape": list(vg150["shape"]),
+    })
+    b = bres["commit150"]
+    kernels.append({
+        "name": "build_tables", "route": "cuda",
+        "source": "cometbft_tpu_torch/csrc/build_tables.cu",
+        "replaces": "cometbft_tpu/ops/precompute.py:115",
+        "launches": main150["launches"]["build_tables"],
+        "max_abs_err": b["err"], "ms": b["ms"], "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound"][0], "bound_by": b["bound"][1],
+        "library_ms": None, "groups": list(b["choice"]),
     })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(smi_line())

@@ -19,7 +19,8 @@ Layout mirrors the reference:
   ops/scalar.py         arithmetic mod L
   ops/curve.py          edwards25519 point ops, ZIP-215 decompression,
                         the comb of B and window_mul (generic tier)
-  ops/precompute.py     per-validator comb tables + the key-table pool
+  ops/precompute.py     per-validator comb tables (build_tables CUDA
+                        kernel) + the key-table pool
   ops/ed25519_verify.py the keyed and generic verify paths +
                         TorchBatchVerifier
   models/commit.py      commit_verify_step: the generic tier as one step

@@ -28,9 +28,9 @@
 //
 // The arithmetic is field.cuh's register level (mul_regs, sq_regs; the
 // integer semantics are described there), which the fused keyed verify
-// (verify_keyed.cu) shares.  These two kernels serve the per-key table
-// build (ops/precompute.py build_tables_kernel), which still composes
-// field launches from torch.
+// (verify_keyed.cu) shares.  No path launches these two kernels: the
+// table build is its own kernel (build_tables.cu).  They serve the plain
+// versions of the fused kernels on a CUDA tensor.
 
 #include <cstdint>
 #include <cuda_runtime.h>

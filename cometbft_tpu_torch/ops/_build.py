@@ -76,12 +76,19 @@ SOURCES = {
             "verify_generic_smem_bytes": (_I32, _I32),
         },
     ),
+    "build_tables": (
+        "build_tables.cu",
+        {
+            "build_tables_launch": (_VP, _I64, _I32, _VP, _VP, _VP, _I32, _I32, _VP),
+            "build_tables_group": (_I64, _I32),
+        },
+    ),
 }
 
 #: kernel name -> launches since the last reset
 LAUNCHES: dict[str, int] = {
     "fe_mul": 0, "fe_sq": 0, "sha512_padded": 0, "sha512_keyed": 0,
-    "verify_keyed": 0, "verify_generic": 0,
+    "verify_keyed": 0, "verify_generic": 0, "build_tables": 0,
 }
 
 

@@ -10,12 +10,14 @@ output (|limb| < 2^13, so 26 * 2^13 * 2^13 < 2^31).  Lazy limbs may be
 negative; every shift is arithmetic.
 
 The multiply and the square are hand-written CUDA: device functions in
-csrc/field.cuh, which the fused keyed verify (csrc/verify_keyed.cu)
-calls, and the standalone kernels ``fe_mul`` and ``fe_sq``
-(csrc/field.cu) that the table build launches.  Their wrappers take the
-kernel for a CUDA tensor and the plain PyTorch version in this module
-for a CPU tensor; the plain version repeats the kernel's arithmetic
-exactly and is what the tests and chip_smoke.py hold the kernel to.
+csrc/field.cuh, which the fused kernels (verify_keyed, verify_generic,
+build_tables) call, and the standalone kernels ``fe_mul`` and ``fe_sq``
+(csrc/field.cu), which no path launches: on a CUDA tensor they serve the
+plain versions of the fused kernels (the curve formulas).  Their
+wrappers take the kernel for a CUDA tensor and the plain PyTorch
+version in this module for a CPU tensor; the plain version repeats the
+kernel's arithmetic exactly and is what the tests and chip_smoke.py
+hold the kernel to.
 """
 
 from __future__ import annotations
@@ -125,7 +127,7 @@ def _fold_high(cols: torch.Tensor) -> torch.Tensor:
 
 def _columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The 51 schoolbook columns of a*b, one shifted row at a time (no
-    (26, 51, batch) stack: the table build multiplies ~10^6 lanes)."""
+    (26, 51, batch) stack: the plain table build multiplies ~10^6 lanes)."""
     cols = torch.zeros((2 * NLIMBS - 1, *b.shape[1:]), dtype=DTYPE,
                        device=b.device)
     for i in range(NLIMBS):

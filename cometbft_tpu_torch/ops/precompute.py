@@ -1,6 +1,6 @@
 """Device-resident per-validator comb tables for the keyed verify path
-(the port of cometbft_tpu/ops/precompute.py, without the mesh placement
-and without the pool's eviction and compaction).
+(the port of cometbft_tpu/ops/precompute.py, without the mesh
+placements).
 
 Two table families:
 
@@ -10,12 +10,27 @@ Two table families:
 - **Per-key tables** (built on the verify device): for each key A,
   comb entries ``j * (2^wb)^w * (-A)`` in projective Niels form
   (Y+X, Y-X, 2Z, 2dT).  Sets of up to KEY8_MAX keys take 8-bit combs
-  (32 adds per verify, 3.4 MB per key), larger sets 4-bit (64 adds,
-  426 KB per key).
+  (32 adds per verify, 3.25 MiB per key), larger sets 4-bit (64 adds,
+  416 KiB per key).  On the card the build is the build_tables kernel
+  (csrc/build_tables.cu); ``build_tables_plain`` is its plain version.
 
 Tables live per key in a pool (``_KeyPool``), so a set lookup builds
 pages only for keys not already pooled: rotating one validator of 150
-costs one key's build, not the set's.
+costs one key's build, not the set's.  Both pools together are bounded
+by a byte budget (``TABLE_CACHE_MB`` by default): over it, the least
+recently used keys outside the active set are evicted and the pools
+compacted.  Builds run outside the cache lock, one latch per key.
+
+An entry (``KeySetTables``) is a snapshot: it maps its keys to slots of
+the pool tensor as it was at lookup, and stays correct after later
+lookups grow, compact or evict the pool.  The reference gets that from
+immutable arrays; here the pool is a mutable tensor, so a page that an
+entry may still read is never rewritten in place.  A new key's page is
+written in place only into a slot that has held no key since the pool
+tensor was made (no entry can map a key to it); a slot freed by
+eviction is written by copy-on-write, a new pool tensor.  Growth and
+compaction make new tensors too.  An entry held by a caller keeps its
+tensor alive, as a JAX array would.
 """
 
 from __future__ import annotations
@@ -29,14 +44,18 @@ import numpy as np
 import torch
 
 from cometbft_tpu_torch.crypto import edwards as _ref
+from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import curve as C
 from cometbft_tpu_torch.ops import field as F
 
-#: largest set that gets 8-bit per-key combs (3.4 MB/key on device)
+#: largest set that gets 8-bit per-key combs (3.25 MiB/key on device)
 KEY8_MAX = 256
 #: largest set tables are built for at all; a larger one takes the
 #: generic tier (ops/ed25519_verify.py)
 TABLE_MAX_KEYS = 16384
+#: device MiB of both pools before LRU eviction: the default budget of
+#: a KeyTableCache (its ``cap_bytes``)
+TABLE_CACHE_MB = 6144
 
 
 def next_pow2(n: int) -> int:
@@ -106,14 +125,11 @@ _B_AFFINE_X = F.from_int(_BX)
 _B_AFFINE_Y = F.from_int(_BY)
 
 
-def build_tables_kernel(pub: torch.Tensor, window_bits: int):
-    """pub (32, n) uint8 -> (table, valid).
-
-    table: (nwin, 4, 26, n * nent) int32 -- window-major projective
-    Niels entries ``j * (2^wb)^w * (-A_key)``, minor axis ordered
-    (key, entry) so a verify gathers at ``key_id * nent + window``.
-    valid: (n,) bool -- ZIP-215 decompression validity per key; an
-    invalid key gets B's table (harmless) and callers mask it."""
+def build_tables_plain(pub: torch.Tensor, window_bits: int):
+    """The plain PyTorch version of the build_tables kernel: pub (32, n)
+    uint8 -> (table, valid), as :func:`build_tables_kernel`, composed
+    from the curve formulas (whose field products are the fe_mul /
+    fe_sq kernels on a CUDA tensor)."""
     dev = pub.device
     n = pub.shape[-1]
     nwin = 256 // window_bits
@@ -158,6 +174,55 @@ def build_tables_kernel(pub: torch.Tensor, window_bits: int):
     return table, valid
 
 
+#: threads per lane that the build_tables kernel is compiled for
+#: (csrc/build_tables.cu; build_tables_group chooses among them)
+BUILD_GROUPS = (1, 8, 32)
+
+
+def build_tables_kernel(pub: torch.Tensor, window_bits: int, groups=(0, 0)):
+    """pub (32, n) uint8 -> (table, valid).
+
+    table: (nwin, 4, 26, n * nent) int32 -- window-major projective
+    Niels entries ``j * (2^wb)^w * (-A_key)``, minor axis ordered
+    (key, entry) so a verify gathers at ``key_id * nent + window``.
+    valid: (n,) bool -- ZIP-215 decompression validity per key; an
+    invalid key gets B's table (harmless) and callers mask it.
+
+    A CUDA tensor goes through the build_tables kernel (two launches, a
+    lane per key then a lane per (key, window), counted as one;
+    ``groups`` sets each launch's threads per lane, one of BUILD_GROUPS,
+    or 0 for the launcher's choice by lane count), a CPU tensor through
+    :func:`build_tables_plain`."""
+    if window_bits not in (8, 4):
+        raise ValueError(f"build_tables: window_bits must be 8 or 4, got {window_bits}")
+    if pub.dim() != 2 or pub.shape[0] != 32 or pub.dtype != torch.uint8:
+        raise ValueError(f"build_tables: expected (32, n) uint8 keys, got "
+                         f"{tuple(pub.shape)} {pub.dtype}")
+    if any(g != 0 and g not in BUILD_GROUPS for g in groups) or len(groups) != 2:
+        raise ValueError(f"build_tables: groups must be two of 0 or {BUILD_GROUPS}, "
+                         f"got {groups}")
+    if pub.device.type == "cpu":
+        return build_tables_plain(pub, window_bits)
+    if pub.device.type != "cuda":
+        raise ValueError(f"build_tables: unsupported device {pub.device}")
+    n = pub.shape[1]
+    nwin, nent = 256 // window_bits, 1 << window_bits
+    pub = pub.contiguous()
+    table = torch.empty((nwin, 4, F.NLIMBS, n * nent), dtype=F.DTYPE, device=pub.device)
+    valid = torch.empty(n, dtype=torch.bool, device=pub.device)
+    if n == 0:
+        return table, valid
+    bases = torch.empty((nwin, 4, F.NLIMBS, n), dtype=F.DTYPE, device=pub.device)
+    rc = _build.library("build_tables").build_tables_launch(
+        pub.data_ptr(), n, window_bits, bases.data_ptr(), table.data_ptr(),
+        valid.data_ptr(), groups[0], groups[1],
+        torch.cuda.current_stream(pub.device).cuda_stream,
+    )
+    _build.check(rc, "build_tables")
+    _build.LAUNCHES["build_tables"] += 1
+    return table, valid
+
+
 def comb_mul_keyed(table: torch.Tensor, key_ids: torch.Tensor,
                    windows: torch.Tensor, window_bits: int):
     """Per-key comb: table from build_tables_kernel, key_ids (*batch,),
@@ -179,17 +244,18 @@ def comb_mul_keyed(table: torch.Tensor, key_ids: torch.Tensor,
 class KeySetTables:
     """A validator set's view into the device-resident key-table pool.
 
-    ``key_index`` maps each pubkey to its pool slot; ``table`` is the
-    pool tensor at lookup time.  New keys are written into FREE slots
-    of the pool tensor in place (to spare a copy of the whole pool);
-    the pages of keys an entry covers are never rewritten, so an entry
-    stays valid after later lookups."""
+    ``key_index`` maps each pubkey to its pool slot; ``table`` and
+    ``valid`` are the pool as it was at lookup.  The pool never rewrites
+    a page that an entry can read (module docstring), so an entry stays
+    correct after later rotations grow, compact or evict the pool."""
 
     sethash: bytes
     window_bits: int
     key_index: dict[bytes, int]  # pubkey bytes -> pool slot
     table: torch.Tensor          # (nwin, 4, 26, cap*nent) int32
     valid: np.ndarray            # (cap,) bool
+    nbytes: int                  # bytes of ``table`` (the whole pool)
+    set_nbytes: int = 0          # bytes of this set's keys' pages
     _valid_dev: torch.Tensor | None = None
 
     def key_ids(self, pubs: list[bytes]) -> np.ndarray:
@@ -204,9 +270,6 @@ class KeySetTables:
         return self._valid_dev
 
 
-_B_ENC = np.frombuffer(_ref.encode_point(_ref.B_POINT), dtype=np.uint8)
-
-
 def _pool_cap(nkeys: int) -> int:
     """Pool capacities come from a fixed ladder (pow2 up to 4096, then
     2048-slot steps): bounded shape count, without pow2's up-to-2x
@@ -219,55 +282,139 @@ def _pool_cap(nkeys: int) -> int:
 class _KeyPool:
     """One window width's pool of per-key comb pages on one device: the
     minor axis holds ``cap`` pages of ``nent`` entries, a key's page at
-    ``[slot*nent : (slot+1)*nent]``, so slot numbers are key ids."""
+    ``[slot*nent : (slot+1)*nent]``, so slot numbers are key ids.
+    ``version`` changes with every change of the pool (the entry memo's
+    key).  ``held`` is the set of slots that have held a key since
+    ``table`` was made: an entry may read them, so they are written only
+    by copy-on-write."""
 
     def __init__(self, window_bits: int, device: torch.device) -> None:
         self.window_bits = window_bits
         self.device = device
         self.nent = 1 << window_bits
         self.nwin = 256 // window_bits
+        self.key_bytes = self.nwin * 4 * F.NLIMBS * self.nent * 4
         self.cap = 0
         self.table: torch.Tensor | None = None
         self.valid = np.zeros(0, dtype=bool)
-        self.slots: OrderedDict[bytes, int] = OrderedDict()
+        self.slots: OrderedDict[bytes, int] = OrderedDict()  # LRU order
         self.free: list[int] = []
-        # the latest set's view; dropped whenever the pool changes
-        self.entry: KeySetTables | None = None
+        self.version = 0
+        self.held: set[int] = set()
 
-    def ensure_capacity(self, nkeys: int) -> None:
-        """Grow to the ladder capacity for ``nkeys`` (a new zeroed pool
-        tensor with the old pages copied in)."""
+    def nbytes(self) -> int:
+        return self.cap * self.key_bytes
+
+    def _zeros(self, cap: int) -> torch.Tensor:
+        return torch.zeros((self.nwin, 4, F.NLIMBS, cap * self.nent),
+                           dtype=F.DTYPE, device=self.device)
+
+    def stage_growth(self, version: int, table, cap: int, nkeys: int):
+        """The grown pool tensor from a (version, table, cap) snapshot,
+        made WITHOUT the cache lock held (it copies the whole pool), or
+        None when the snapshot needs no growth.  Returns (snapshot
+        version, new cap, grown table); ``ensure_capacity(...,
+        staged=...)`` takes it only if the pool's version is still the
+        snapshot's."""
+        if cap >= nkeys:
+            return None
+        new_cap = _pool_cap(nkeys)
+        grown = self._zeros(new_cap)
+        if table is not None:
+            grown[..., : cap * self.nent] = table
+        return (version, new_cap, grown)
+
+    def ensure_capacity(self, nkeys: int, staged=None) -> None:
+        """Grow to the ladder capacity for ``nkeys``.  Lock held.  A
+        staged tensor (stage_growth) is taken when its snapshot version
+        still matches and it is large enough; otherwise (a concurrent
+        build or compaction moved the pool) the copy runs here."""
         if self.cap >= nkeys:
             return
         new_cap = _pool_cap(nkeys)
-        grown = torch.zeros(
-            (self.nwin, 4, F.NLIMBS, new_cap * self.nent),
-            dtype=F.DTYPE, device=self.device,
-        )
-        if self.table is not None:
-            grown[..., : self.cap * self.nent] = self.table
+        if staged is not None and staged[0] == self.version and staged[1] >= new_cap:
+            new_cap, grown = staged[1], staged[2]
+        else:
+            _, new_cap, grown = self.stage_growth(self.version, self.table, self.cap, nkeys)
         self.table = grown
-        self.valid = np.concatenate(
-            [self.valid, np.zeros(new_cap - self.cap, dtype=bool)]
-        )
+        self.valid = np.concatenate([self.valid, np.zeros(new_cap - self.cap, dtype=bool)])
         self.free.extend(range(self.cap, new_cap))
         self.cap = new_cap
-        self.entry = None
+        self.version += 1
+        self.held = set(self.slots.values())
+
+    def add_keys(self, keys: list[bytes], pages: torch.Tensor,
+                 page_valid: np.ndarray) -> None:
+        """Give ``keys`` free slots (highest free slot first) and write
+        their pages (nwin, 4, 26, len(keys)*nent).  Lock held; capacity
+        already ensured.  In place when no slot has held a key since the
+        tensor was made, else into a copy of the pool."""
+        slots = [self.free.pop() for _ in keys]
+        idx = (np.array(slots, dtype=np.int64)[:, None] * self.nent
+               + np.arange(self.nent)).ravel()
+        idx = torch.as_tensor(idx).to(self.device)
+        if self.held.isdisjoint(slots):
+            self.table.index_copy_(3, idx, pages)
+        else:
+            self.table = self.table.index_copy(3, idx, pages)
+            self.held = set(self.slots.values())
+        self.held.update(slots)
+        for i, (p, s) in enumerate(zip(keys, slots)):
+            self.slots[p] = s
+            self.valid[s] = page_valid[i]
+        self.version += 1
+
+    def compact(self) -> None:
+        """Gather live pages into a fresh ladder-capacity tensor (a
+        device gather, no EC recompute), LRU order kept -- run after
+        eviction freed enough slots that the pool is mostly dead pages."""
+        n_live = len(self.slots)
+        new_cap = _pool_cap(n_live)
+        if new_cap >= self.cap:
+            return
+        order = list(self.slots.items())
+        table = self._zeros(new_cap)
+        if order:
+            gather = (np.array([s for _, s in order], dtype=np.int64)[:, None] * self.nent
+                      + np.arange(self.nent)).ravel()
+            table[..., : len(gather)] = self.table.index_select(
+                3, torch.as_tensor(gather).to(self.device))
+        valid = np.zeros(new_cap, dtype=bool)
+        slots: OrderedDict[bytes, int] = OrderedDict()
+        for i, (p, s) in enumerate(order):
+            slots[p] = i
+            valid[i] = self.valid[s]
+        self.table, self.valid, self.slots = table, valid, slots
+        self.free = list(range(n_live, new_cap))
+        self.cap = new_cap
+        self.version += 1
+        self.held = set(range(n_live))
 
 
 class KeyTableCache:
-    """Per-key pool of comb-table pages on one device, for both window
-    widths.  A set lookup builds pages only for keys not yet pooled."""
+    """Per-key LRU of comb-table pages on one device, for both window
+    widths, bounded by ``cap_bytes`` of pool tensors.  A set lookup
+    builds pages only for keys not yet pooled (rotating 1 of 150 or of
+    10,000 validators builds one key)."""
 
-    def __init__(self, device) -> None:
+    def __init__(self, device, cap_bytes: int = TABLE_CACHE_MB << 20) -> None:
         self.device = torch.device(device)
+        self._cap = cap_bytes
         self._lock = threading.Lock()
         self._pools = {8: _KeyPool(8, self.device), 4: _KeyPool(4, self.device)}
-        self.stats = {"keys_built": 0}
+        # per-key build latches: concurrent misses on overlapping keys
+        # build each key once -- losers wait on the winner's latch
+        self._pending: dict[tuple[int, bytes], threading.Event] = {}
+        # set hash -> (pool version, entry): a repeat lookup of an
+        # unchanged set returns the same entry object
+        self._entries: OrderedDict[bytes, tuple[int, KeySetTables]] = OrderedDict()
+        self.stats = {"keys_built": 0, "keys_evicted": 0}
 
     def _set_key(self, pubs: list[bytes]):
         """(unique keys, window pool, set hash), or None when the
-        unique-key count is out of table policy."""
+        unique-key count is out of table policy: one implementation for
+        peek and lookup_or_build, so the warm probe and the build path
+        never look at different pools."""
         unique = sorted(set(pubs))
         n = len(unique)
         if n == 0 or n > TABLE_MAX_KEYS:
@@ -276,7 +423,9 @@ class KeyTableCache:
         return unique, pool, hashlib.sha256(b"".join(unique)).digest()
 
     def peek(self, pubs: list[bytes]) -> KeySetTables | None:
-        """An entry iff every key is already resident; never builds."""
+        """An entry iff every key is already resident: never builds and
+        never waits on an in-flight build (builds run outside the
+        lock)."""
         sk = self._set_key(pubs)
         if sk is None:
             return None
@@ -289,67 +438,122 @@ class KeyTableCache:
     def lookup_or_build(self, pubs: list[bytes]) -> KeySetTables | None:
         """An entry covering every key in ``pubs``, building pages only
         for keys not yet pooled; None when the unique-key count is out
-        of policy.  Builds run under the cache lock: concurrent lookups
-        wait rather than build a key twice."""
+        of policy.  The build runs outside the lock under per-key
+        latches; a build fault propagates to the caller."""
         sk = self._set_key(pubs)
         if sk is None:
             return None
         unique, pool, h = sk
-        with self._lock:
-            missing = [p for p in unique if p not in pool.slots]
-            if missing:
-                pages, page_valid = self._build_pages(missing, pool.window_bits)
-                pool.ensure_capacity(len(pool.slots) + len(missing))
-                slots = [pool.free.pop() for _ in missing]
-                idx = (
-                    np.array(slots, dtype=np.int64)[:, None] * pool.nent
-                    + np.arange(pool.nent)
-                ).ravel()
-                pool.table.index_copy_(
-                    3, torch.as_tensor(idx).to(self.device),
-                    pages[..., : len(missing) * pool.nent],
-                )
-                pool.entry = None
-                for i, (p, s) in enumerate(zip(missing, slots)):
-                    pool.slots[p] = s
-                    pool.valid[s] = page_valid[i]
-                self.stats["keys_built"] += len(missing)
-            return self._finish_lookup(h, pool, unique)
+        wb = pool.window_bits
+        while True:
+            with self._lock:
+                waits = [self._pending[k] for p in unique if (k := (wb, p)) in self._pending]
+                if not waits:
+                    missing = [p for p in unique if p not in pool.slots]
+                    if not missing:
+                        return self._finish_lookup(h, pool, unique)
+                    for p in missing:
+                        self._pending[(wb, p)] = threading.Event()
+            if waits:
+                for ev in waits:
+                    ev.wait()
+                continue
+            try:
+                pages, page_valid = self._build_pages(missing, wb)
+                # stage any growth outside the lock: it copies the whole
+                # pool, and warm lookups must not queue behind it
+                with self._lock:
+                    snap = (pool.version, pool.table, pool.cap)
+                    need = len(pool.slots) + len(missing)
+                staged = pool.stage_growth(*snap, need)
+                with self._lock:
+                    pool.ensure_capacity(len(pool.slots) + len(missing), staged=staged)
+                    pool.add_keys(missing, pages, page_valid)
+                    self.stats["keys_built"] += len(missing)
+                    self._evict_over_budget(keep=set(unique))
+                    # another lookup's eviction may have dropped keys of
+                    # ours that were resident before this build: loop
+                    if all(p in pool.slots for p in unique):
+                        return self._finish_lookup(h, pool, unique)
+            finally:
+                with self._lock:
+                    for p in missing:
+                        self._pending.pop((wb, p)).set()
 
     def _finish_lookup(self, h: bytes, pool: _KeyPool,
                        unique: list[bytes]) -> KeySetTables:
-        """Touch LRU order and return the set's entry: a repeat lookup
-        of the pool's latest set returns the same object.  Lock held."""
+        """Touch LRU order and return the set's (memoized) entry.  Lock
+        held."""
         for p in unique:
             pool.slots.move_to_end(p)
-        if pool.entry is None or pool.entry.sethash != h:
-            pool.entry = KeySetTables(
-                sethash=h,
-                window_bits=pool.window_bits,
-                key_index={p: pool.slots[p] for p in unique},
-                table=pool.table,
-                valid=pool.valid.copy(),
-            )
-        return pool.entry
+        memo = self._entries.get(h)
+        if memo is not None and memo[0] == pool.version:
+            self._entries.move_to_end(h)
+            return memo[1]
+        # a memoized entry pins its version's pool tensor: drop stale
+        # ones so the memo holds no tensor beyond the live pools
+        self._sweep_stale_entries()
+        entry = KeySetTables(
+            sethash=h,
+            window_bits=pool.window_bits,
+            key_index={p: pool.slots[p] for p in unique},
+            table=pool.table,
+            valid=pool.valid.copy(),
+            nbytes=pool.nbytes(),
+            set_nbytes=len(unique) * pool.key_bytes,
+        )
+        self._entries[h] = (pool.version, entry)
+        while len(self._entries) > 64:
+            self._entries.popitem(last=False)
+        return entry
 
     def _build_pages(self, missing: list[bytes], window_bits: int):
-        """Comb pages for ``missing`` keys, built on the device
-        (pow2-padded with B's encoding)."""
-        n = len(missing)
-        n_pad = next_pow2(n)
-        pub = np.zeros((32, n_pad), dtype=np.uint8)
-        for i, p in enumerate(missing):
-            pub[:, i] = np.frombuffer(p, dtype=np.uint8)
-        if n_pad > n:
-            pub[:, n:] = _B_ENC[:, None]
-        table, valid = build_tables_kernel(
-            torch.from_numpy(pub).to(self.device), window_bits
-        )
-        return table, valid.cpu().numpy()[:n]
+        """Comb pages (nwin, 4, 26, len(missing)*nent) and validity for
+        ``missing`` keys, built on the cache's device into a tensor of
+        their own (the pool is not touched).  Runs outside the lock."""
+        pub = np.stack([np.frombuffer(p, dtype=np.uint8) for p in missing], axis=-1)
+        table, valid = build_tables_kernel(torch.from_numpy(pub).to(self.device), window_bits)
+        return table, valid.cpu().numpy()
+
+    def _sweep_stale_entries(self) -> None:
+        """Drop memoized entries whose pool version moved on.  Lock
+        held."""
+        for k in [k for k, (v, e) in self._entries.items()
+                  if v != self._pools[e.window_bits].version]:
+            del self._entries[k]
+
+    def _evict_over_budget(self, keep: set[bytes]) -> None:
+        """Drop LRU keys (never ones in ``keep``, the active set) until
+        compaction brings the pools under budget, then compact.  Lock
+        held.  Minimal: eviction stops as soon as the compacted
+        footprint fits.  A set larger than the budget stays resident."""
+
+        def compacted_bytes(p: _KeyPool) -> int:
+            return min(p.cap, _pool_cap(len(p.slots))) * p.key_bytes
+
+        self._sweep_stale_entries()
+        if sum(p.nbytes() for p in self._pools.values()) <= self._cap:
+            return
+        changed = False
+        for pool in self._pools.values():
+            for p in [p for p in pool.slots if p not in keep]:  # LRU order
+                if sum(compacted_bytes(q) for q in self._pools.values()) <= self._cap:
+                    break
+                # the page stays until compaction or a copy-on-write
+                s = pool.slots.pop(p)
+                pool.valid[s] = False
+                pool.free.append(s)
+                self.stats["keys_evicted"] += 1
+                changed = True
+        if changed:
+            for pool in self._pools.values():
+                pool.compact()
+            self._sweep_stale_entries()
 
     def clear(self) -> None:
         with self._lock:
             self._pools = {8: _KeyPool(8, self.device), 4: _KeyPool(4, self.device)}
+            self._entries.clear()
 
 
 _caches: dict[str, KeyTableCache] = {}
@@ -389,4 +593,6 @@ def tables_from_jax(table: np.ndarray, valid: np.ndarray,
         key_index=dict(key_index),
         table=torch.tensor(table, device=device),
         valid=valid.copy(),
+        nbytes=table.nbytes,
+        set_nbytes=len(unique) * (table.nbytes // max(len(valid), 1)),
     )

@@ -223,3 +223,61 @@ def test_verify_generic_equals_plain(dev, shape):
     assert torch.equal(ok, want_ok)
     assert torch.equal(q8, want_q8)
     assert ok.tolist() == expected[8:24]
+
+
+def _build_keys(n_valid: int, tag: bytes) -> np.ndarray:
+    """(32, n) uint8 keys: ``n_valid`` valid ones, then one encoding that
+    does not decode and one small-order point."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import edwards as E
+
+    keys = [ed.priv_key_from_secret(tag + b"%d" % i).pub_key().bytes() for i in range(n_valid)]
+    keys.append(next(bytes([j]) + bytes(31) for j in range(2, 255)
+                     if E.decode_point(bytes([j]) + bytes(31)) is None))
+    keys.append(E.small_order_points()[2])
+    return np.stack([np.frombuffer(k, dtype=np.uint8) for k in keys], axis=-1)
+
+
+@pytest.mark.parametrize("groups", [(0, 0), (1, 1), (8, 8), (32, 32), (1, 32), (32, 1)],
+                         ids=lambda g: f"{g[0]}-{g[1]}")
+@pytest.mark.parametrize("window_bits", [8, 4])
+def test_build_tables_equals_plain(dev, window_bits, groups):
+    """The table build against build_tables_plain on the card, every limb
+    and the validity, invalid and small-order keys included; one counted
+    launch per call."""
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    pub = torch.as_tensor(_build_keys(3 if window_bits == 8 else 13, b"gpu-build-")).to(dev)
+    before = _build.LAUNCHES["build_tables"]
+    table, valid = PR.build_tables_kernel(pub, window_bits, groups=groups)
+    assert _build.LAUNCHES["build_tables"] == before + 1
+    torch.cuda.synchronize()
+    want_table, want_valid = PR.build_tables_plain(pub, window_bits)
+    assert torch.equal(valid, want_valid)
+    assert valid.tolist()[-2:] == [False, True]
+    assert torch.equal(table, want_table)
+
+
+def test_key_pool_rotation_on_the_card(dev):
+    """A one-key rotation through the pool on the card builds one page
+    with one build_tables launch, and the entry taken before it keeps
+    its pages."""
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    keys = [bytes(c) for c in _build_keys(6, b"gpu-pool-").T[:6]]
+    cache = PR.KeyTableCache(dev)
+    e1 = cache.lookup_or_build(keys[:5])
+    before = e1.table.clone()
+    n0 = _build.LAUNCHES["build_tables"]
+    e2 = cache.lookup_or_build(keys[1:6])
+    assert _build.LAUNCHES["build_tables"] == n0 + 1
+    assert cache.stats == {"keys_built": 6, "keys_evicted": 0}
+    s = e2.key_index[keys[5]]
+    alone, _ = PR.build_tables_kernel(torch.as_tensor(_build_keys(6, b"gpu-pool-")[:, 5:6]).to(dev),
+                                      8)
+    torch.cuda.synchronize()
+    assert torch.equal(e2.table[..., s * 256 : (s + 1) * 256], alone)
+    for k in keys[:5]:
+        s1 = e1.key_index[k]
+        assert torch.equal(e1.table[..., s1 * 256 : (s1 + 1) * 256],
+                           before[..., s1 * 256 : (s1 + 1) * 256])

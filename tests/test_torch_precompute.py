@@ -1,7 +1,8 @@
 """The port's per-key comb tables and key-table pool
 (cometbft_tpu_torch/ops/precompute.py) against the JAX reference's
-build_tables_kernel and the big-int oracle.  Table entries and validity
-masks must be identical, limb for limb."""
+build_tables_kernel and the big-int oracle: the plain build's table
+entries and validity masks must be identical, limb for limb.  (The
+pool's policy against the reference: test_torch_key_pool.py.)"""
 
 import numpy as np
 import pytest
@@ -47,11 +48,25 @@ def test_tables_match_reference(window_bits, keys):
     want_table, want_valid = jax.jit(
         lambda p: JPR.build_tables_kernel(p, window_bits)
     )(jnp.asarray(pub))
-    table, valid = PR.build_tables_kernel(torch.as_tensor(pub), window_bits)
+    table, valid = PR.build_tables_plain(torch.as_tensor(pub), window_bits)
     np.testing.assert_array_equal(valid.numpy(), np.asarray(want_valid))
     assert not valid.numpy().all()
     assert table.shape == want_table.shape
     np.testing.assert_array_equal(table.numpy(), np.asarray(want_table))
+
+
+def test_build_wrapper_takes_the_plain_version_on_the_cpu(monkeypatch):
+    """A CPU tensor runs build_tables_plain; bad arguments raise before
+    any build."""
+    calls = []
+    monkeypatch.setattr(PR, "build_tables_plain", lambda p, wb: calls.append((p, wb)) or "plain")
+    pub = torch.zeros((32, 3), dtype=torch.uint8)
+    assert PR.build_tables_kernel(pub, 4) == "plain" and calls == [(pub, 4)]
+    for bad in (dict(pub=pub, window_bits=5), dict(pub=pub.to(torch.int32), window_bits=4),
+                dict(pub=pub[:31], window_bits=8), dict(pub=pub, window_bits=4, groups=(2, 0))):
+        with pytest.raises(ValueError):
+            PR.build_tables_kernel(**bad)
+    assert len(calls) == 1
 
 
 def test_tables_from_jax_round_trip():
@@ -134,6 +149,7 @@ def test_rotating_one_key_builds_one_page(monkeypatch):
 
 def test_pool_policy_matches_reference():
     assert PR.KEY8_MAX == JPR.KEY8_MAX and PR.TABLE_MAX_KEYS == JPR.TABLE_MAX_KEYS
+    assert PR.TABLE_CACHE_MB == JPR.TABLE_CACHE_MB
     for n in (1, 2, 150, 1000, 4096, 4097, 10_000):
         assert PR._pool_cap(n) == JPR._pool_cap(n)
     assert PR.KeyTableCache("cpu").lookup_or_build([]) is None
