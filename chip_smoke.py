@@ -15,17 +15,21 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    the host's enqueue cost bounds at these sizes); the table build
    (build_tables) on commit150's 150 keys and one key (8-bit windows)
    and commit1024's 1024 keys and one key (4-bit), limbs and validity,
-   timed by CUDA events beside its bound and the plain version, with
-   the entry launch's group sizes swept;
+   at every compiled launch shape (Q, G) of each launch with the other
+   at the launcher's pick, each timed by CUDA events beside its bound
+   (the pick and the fastest marked) and the plain version;
 4. the main path: keyed commit verification of a 150-validator commit
    through ``create_batch_verifier(...).verify()`` on ``cuda``, with
    planted invalid lanes whose verdicts the big-int oracle decides;
    the cold verify (b_comb8, the host-built comb of B, timed alone just
    before it) must launch build_tables once and sha512_keyed and
    verify_keyed once per slice, and nothing else (fe_mul and fe_sq 0),
-   and is split into its table lookup (plan: the build and the copy
-   into the pool) and the rest; a warm verify must launch sha512_keyed
-   and verify_keyed once per slice and no other kernel; then ten warm
+   and is split into its table lookup (plan) and the rest, and the
+   lookup into its parts (LookupSplit: zeroing, the build, the keys'
+   upload and the validity's copy back, growth, the copy into the pool,
+   compaction) by host clock and CUDA events; a warm verify must launch
+   sha512_keyed and verify_keyed once per slice and no other kernel;
+   then ten warm
    verifies under torch.profiler for the device's busy share;
 5. the same for a 1024-validator commit (the 4-bit comb tables);
 6. a batch of more than 8192 lanes, through the MAX_LAUNCH slicing,
@@ -36,11 +40,12 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    slice by slice: the digests, the verdicts and the limbs of [8]q,
    exactly, on every lane; then each G is timed (CUDA events) beside the
    bound, with nvidia-smi's SM clock sampled, and the launcher's choice
-   marked;
+   marked, and sha512_keyed by CUDA events back to back and by
+   torch.profiler;
 7. the validator-set change: commit150's set on a fresh KeyTableCache,
    then 20 heights that each rotate one validator out and a newcomer in
-   (generic-wide's keys), each a cold one-key verify (p50 and max), three
-   times: the default budget (new pages into never-used slots, in
+   (generic-wide's keys), each a cold one-key verify (p50 and max, and
+   the lookup split's p50), three times: the default budget (new pages into never-used slots, in
    place), a budget under the pool that evicts the key rotated out at
    every height (its slot reused by copy-on-write), and a budget that
    grows, evicts and compacts the pool at every height (after a prior
@@ -50,8 +55,10 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
 8. commit10k: generic-wide's first 10000 triples (two planted invalid
    keys) as one set on the keyed tier, 4-bit, on a fresh cache: cold
    seconds, warm p50, peak memory; the pool's pages of 512 of its keys,
-   the invalid ones included, held to build_tables_plain; the build of
-   all 10000 keys timed by CUDA events beside its bound;
+   the invalid ones included, held to build_tables_plain, and the
+   build of those keys at every shape of each launch; the build of all
+   10000 keys timed by CUDA events at every shape of each launch beside
+   its bound;
 9. the generic tier (no comb tables), with precompute.TABLE_MAX_KEYS
    set to 0 for the phase only, on the same three cells (generic150,
    generic1024, generic-chunked): verdicts = the oracle's, a cold verify
@@ -149,17 +156,22 @@ VG_CHAIN = {
 
 # The table build (csrc/build_tables.cu), per key: A's decompression (20
 # products, 255 squarings), t = xy, (nwin - 1) * wb doublings of 4
-# products and 4 squarings, nwin * (2^wb - 1) additions of 9 products, and
-# 2dT for each of the nwin * 2^wb entries.  Bytes: the key and its
-# validity, and its page written once (the window bases are scratch).
-def bt_counts(window_bits: int) -> tuple[int, int]:
+# products and 4 squarings, nwin * (2^wb - 1) additions of 9 products,
+# and 2dT for each window's last entry: every other entry's 2dT is T 2d,
+# the first product of the addition that follows it (74485 products per
+# 8-bit key, 9733 per 4-bit).  ``every_entry`` counts a 2dT product for
+# each of the nwin * 2^wb entries instead (82645 and 10693).  Bytes:
+# the key and its validity, and its page written once (the window bases
+# are scratch).
+def bt_counts(window_bits: int, every_entry: bool = False) -> tuple[int, int]:
     nwin, nent = 256 // window_bits, 1 << window_bits
     dbl = (nwin - 1) * window_bits
-    return 21 + 4 * dbl + 9 * nwin * (nent - 1) + nwin * nent, 255 + 4 * dbl
+    t2d = nwin * nent if every_entry else nwin
+    return 21 + 4 * dbl + 9 * nwin * (nent - 1) + t2d, 255 + 4 * dbl
 
 
-def bt_bound(nkeys: int, window_bits: int) -> tuple[float, str]:
-    prods, sqs = bt_counts(window_bits)
+def bt_bound(nkeys: int, window_bits: int, every_entry: bool = False) -> tuple[float, str]:
+    prods, sqs = bt_counts(window_bits, every_entry)
     page = (256 // window_bits) * 4 * 26 * (1 << window_bits) * 4
     return bound_ms(nkeys * (32 + 1 + page), nkeys * (prods * MUL_OPS + sqs * SQ_OPS))
 
@@ -376,12 +388,79 @@ def key_tensor(keys: list[bytes], dev):
                                     axis=-1)).to(dev)
 
 
+def bt_choice(lib, n: int, launch: int) -> tuple[int, int]:
+    """The shape build_tables' launcher picks for launch 1 (n keys) or 2
+    (n entry lanes)."""
+    import ctypes
+
+    q, g = ctypes.c_int(), ctypes.c_int()
+    if lib.build_tables_shape(n, launch, ctypes.byref(q), ctypes.byref(g)) != 0:
+        raise AssertionError(f"build_tables_shape refused launch {launch}")
+    return q.value, g.value
+
+
+def bt_variants(pick) -> list:
+    """The launcher's pick, then each launch at every other compiled shape
+    with the other launch at its pick."""
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    return ([pick] + [(s, pick[1]) for s in PR.BUILD_SHAPES if s != pick[0]]
+            + [(pick[0], s) for s in PR.BUILD_SHAPES if s != pick[1]])
+
+
+def check_build_shapes(name: str, pub, wb: int, want_table, want_valid, variants) -> int:
+    """build_tables at every shape pair of ``variants`` against the plain
+    version's table and validity: every limb equal.  Returns max |d|."""
+    import torch
+
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    err = 0
+    for shapes in variants:
+        table, valid = PR.build_tables_kernel(pub, wb, shapes=shapes)
+        torch.cuda.synchronize()
+        e = int((table - want_table).abs().max())
+        if e != 0 or not torch.equal(table, want_table) or not torch.equal(valid, want_valid):
+            raise AssertionError(f"build_tables {shapes} differs from build_tables_plain on "
+                                 f"{name}: max |d| {e}, validity equal: "
+                                 f"{torch.equal(valid, want_valid)}")
+        err = max(err, e)
+        del table
+    return err
+
+
+def sweep_build(pub, wb: int, variants, iters: int) -> tuple[dict, str]:
+    """Each shape pair's time per call (CUDA events; both launches), with
+    nvidia-smi's clock sampled meanwhile."""
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    with SmiSampler() as smi:
+        times = {shapes: cuda_ms(lambda shapes=shapes: PR.build_tables_kernel(pub, wb,
+                                                                             shapes=shapes),
+                                 iters, warm=1)
+                 for shapes in variants}
+    return times, smi.summary()
+
+
+def print_build_sweep(times: dict, pick, bound: float) -> None:
+    """The sweep per launch: each shape's time and bound share, the
+    launcher's pick and the fastest marked."""
+    for side, label in ((0, "bases"), (1, "entries")):
+        row = {shapes[side]: t for shapes, t in times.items()
+               if shapes[1 - side] == pick[1 - side]}
+        best = min(row, key=row.get)
+        print(f"  {label} launch at (Q, G), the other at its pick: " + ", ".join(
+            f"{s}: {t:.3f} ms ({bound / t:.3f})" + (" pick" if s == pick[side] else "")
+            + (" fastest" if s == best else "") for s, t in row.items()))
+
+
 def check_build(dev, cases) -> dict:
     """The build_tables kernel against build_tables_plain on the card:
     ``cases`` are (name, keys, window_bits); every limb of the table and
-    the validity must be equal.  Then the launcher's choice timed by CUDA
-    events beside the bound and the plain version, and the entry
-    launch's other group sizes beside it.  (CUDA events only:
+    the validity must be equal at every compiled shape (Q, G) of each
+    launch, the other launch at the launcher's pick.  Then each of those
+    timed by CUDA events beside the bound (the launcher's pick and the
+    fastest marked) and the plain version.  (CUDA events only:
     torch.profiler read these launches at about a third of their
     time.)"""
     import torch
@@ -394,34 +473,25 @@ def check_build(dev, cases) -> dict:
     for name, keys, wb in cases:
         pub = key_tensor(keys, dev)
         n = pub.shape[1]
-        table, valid = PR.build_tables_kernel(pub, wb)
+        pick = (bt_choice(lib, n, 1), bt_choice(lib, n * (256 // wb), 2))
+        variants = bt_variants(pick)
         want_table, want_valid = PR.build_tables_plain(pub, wb)
-        torch.cuda.synchronize()
-        err = int((table - want_table).abs().max())
-        if err != 0 or not torch.equal(table, want_table) or not torch.equal(valid, want_valid):
-            raise AssertionError(f"build_tables differs from build_tables_plain on {name}: "
-                                 f"max |d| {err}, validity equal: "
-                                 f"{torch.equal(valid, want_valid)}")
-        del table, want_table
-        choice = (lib.build_tables_group(n, 1), lib.build_tables_group(n * (256 // wb), 2))
-        iters = 10 if n <= 150 else 3
-        with SmiSampler() as smi:
-            ms = cuda_ms(lambda: PR.build_tables_kernel(pub, wb), iters)
-            sweep = {g: cuda_ms(lambda g=g: PR.build_tables_kernel(pub, wb, groups=(0, g)),
-                                iters, warm=1)
-                     for g in PR.BUILD_GROUPS if g != choice[1]}
+        err = check_build_shapes(name, pub, wb, want_table, want_valid, variants)
+        del want_table
+        times, clocks = sweep_build(pub, wb, variants, 10 if n <= 150 else 3)
+        ms = times[pick]
         pms = cuda_ms(lambda: PR.build_tables_plain(pub, wb), 1, warm=0)
         bound = bt_bound(n, wb)
-        invalid = int((~valid).sum())
+        invalid = int((~want_valid).sum())
         print(f"build_tables {name}: {n} keys, window_bits {wb} ({invalid} invalid): exact "
-              f"against build_tables_plain (every limb, validity); {ms:.3f} ms per call (CUDA "
-              f"events, groups {choice}), {ms * 1e3 / n:.2f} us per key; plain {pms:.3f} ms; "
-              f"bound {bound[0]:.4f} ms ({bound[1]}), share {bound[0] / ms:.4f}")
-        print("  entry launch at G = " + ", ".join(
-            f"{g}: {t:.3f} ms" for g, t in sorted(sweep.items()))
-              + f" (choice {choice[1]}: {ms:.3f} ms); {smi.summary()}")
+              f"against build_tables_plain (every limb, validity) at {len(variants)} shape "
+              f"pairs; {ms:.3f} ms per call at the pick {pick} (CUDA events), "
+              f"{ms * 1e3 / n:.2f} us per key; plain {pms:.3f} ms; bound {bound[0]:.4f} ms "
+              f"({bound[1]}; with a 2dT per entry {bt_bound(n, wb, True)[0]:.4f}), share "
+              f"{bound[0] / ms:.4f}; {clocks}")
+        print_build_sweep(times, pick, bound[0])
         res[name] = dict(err=err, ms=ms, plain_ms=pms, bound=bound, n=n, wb=wb,
-                         choice=choice, sweep=sweep)
+                         choice=pick, sweep=times)
     _build.reset_launches()
     return res
 
@@ -500,6 +570,93 @@ def run_verify(triples, dev, cache=None):
     return t3 - t0, bv, plan, results, (t1 - t0, t2 - t1, t3 - t2)
 
 
+class LookupSplit:
+    """The table lookup's parts while the block runs, each by host clock
+    and by CUDA events on the current stream (the stream's span over the
+    part: its kernels, copies and the gaps the host leaves): allocation
+    and zeroing of pool tensors (_KeyPool._zeros), the build
+    (build_tables_kernel), the rest of the page build (_build_pages: the
+    keys' upload and the validity's copy back, which waits for the
+    build), growth (stage_growth), the copy of the pages into the pool
+    (add_keys: in place, or a copy-on-write of the pool) and compaction
+    (compact); each part less the parts it calls.  It wraps those
+    functions of ops/precompute.py for the block only; the port is
+    unchanged.  ``take()`` returns {part: (host ms, stream ms)} of the
+    calls since the last take."""
+
+    PARTS = ("zeroing", "build", "upload/copy back", "growth", "pool copy", "compaction")
+
+    def __init__(self):
+        from cometbft_tpu_torch.ops import precompute as PR
+
+        self.targets = [(PR._KeyPool, "_zeros", "zeroing"),
+                        (PR, "build_tables_kernel", "build"),
+                        (PR.KeyTableCache, "_build_pages", "upload/copy back"),
+                        (PR._KeyPool, "stage_growth", "growth"),
+                        (PR._KeyPool, "add_keys", "pool copy"),
+                        (PR._KeyPool, "compact", "compaction")]
+        self.saved, self.stack, self.calls = [], [], []
+
+    def _wrap(self, fn, part):
+        import torch
+
+        def timed(*args, **kw):
+            rec = dict(part=part, kids=[], ev=[torch.cuda.Event(enable_timing=True)
+                                              for _ in range(2)])
+            (self.stack[-1]["kids"] if self.stack else self.calls).append(rec)
+            self.stack.append(rec)
+            rec["ev"][0].record()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                rec["host"] = time.perf_counter() - t0
+                rec["ev"][1].record()
+                self.stack.pop()
+        return timed
+
+    def __enter__(self):
+        for owner, attr, part in self.targets:
+            fn = getattr(owner, attr)
+            self.saved.append((owner, attr, fn))
+            setattr(owner, attr, self._wrap(fn, part))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, attr, fn in self.saved:
+            setattr(owner, attr, fn)
+
+    def take(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out = {p: [0.0, 0.0] for p in self.PARTS}
+
+        def walk(rec):
+            host, dev = 1e3 * rec["host"], rec["ev"][0].elapsed_time(rec["ev"][1])
+            for kid in rec["kids"]:
+                kh, kd = walk(kid)
+                out[rec["part"]][0] -= kh
+                out[rec["part"]][1] -= kd
+            out[rec["part"]][0] += host
+            out[rec["part"]][1] += dev
+            return host, dev
+
+        for rec in self.calls:
+            walk(rec)
+        self.calls = []
+        return {p: tuple(v) for p, v in out.items()}
+
+
+def split_line(parts: dict, plan_ms: float) -> str:
+    """The lookup split as one line: each part's host ms / stream ms, and
+    the rest of the lookup on the host (key dedup, hashing, latches, the
+    entry)."""
+    rest = plan_ms - sum(h for h, _ in parts.values())
+    return ", ".join(f"{p} {h:.3f} / {d:.3f}" for p, (h, d) in parts.items() if h or d) + (
+        f"; the rest of the lookup {rest:.3f} ms on the host")
+
+
 def drive(name: str, triples, expected, dev, warm_runs: int, window_bits: int,
           builds: bool, cache=None, b8_s: float | None = None) -> dict:
     """Cold verify with launch counts -- build_tables once where the set
@@ -521,8 +678,10 @@ def drive(name: str, triples, expected, dev, warm_runs: int, window_bits: int,
     want.update(verify_keyed=slices, sha512_keyed=slices)
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    cold, bv, plan, results, cold_split = run_verify(triples, dev, cache)
+    with LookupSplit() as ls:
+        cold, bv, plan, results, cold_split = run_verify(triples, dev, cache)
     launches = dict(_build.LAUNCHES)
+    lookup = ls.take()
     peak = torch.cuda.max_memory_allocated()
     if bv.last_tier != "keyed":
         raise AssertionError(f"{name}: ran on tier {bv.last_tier}, not keyed")
@@ -566,6 +725,8 @@ def drive(name: str, triples, expected, dev, warm_runs: int, window_bits: int,
           + f"table lookup (plan: build_tables, growth and the copy into the pool) "
           f"{plan_s:.4f} s, the rest {add_s + exec_s:.4f} s (add {add_s:.4f}, execute "
           f"{exec_s:.4f})")
+    print(f"  table lookup split, host ms / stream ms (CUDA events): "
+          + split_line(lookup, 1e3 * plan_s))
     print(f"  warm VerifyCommit over {warm_runs} runs: p50 {out['p50_ms']:.2f} ms, "
           f"p90 {out['p90_ms']:.2f} ms, p95 {out['p95_ms']:.2f} ms; "
           f"{out['sigs_per_s']:.0f} sigs/s")
@@ -705,14 +866,22 @@ def check_fused(name: str, plan, expected, dev, prefixes=()) -> dict:
     sha_bytes = int((64 + msglen + 4 + 64).sum())
     sha_bound = bound_ms(sha_bytes, SHA_BLOCK_OPS * int(blocks.sum()))
     digest_fn = lambda: EV.keyed_digest(rows, bucket, nblocks)
-    sms = cuda_ms(digest_fn, 200)
+    # back to back by CUDA events: the wrapper's host path (checks, the
+    # output's allocation; ~20 us) is longer than the kernel, so the
+    # kernel's time is taken from its C launcher called with one output
+    sha_lib = _build.library("sha512")
+    out = torch.empty((64, n), dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launch = lambda: sha_lib.sha512_keyed_launch(rows.data_ptr(), rows.stride(0), bucket, nblocks,
+                                                 out.data_ptr(), n, stream)
+    sms, wms = cuda_ms(launch, 200), cuda_ms(digest_fn, 200)
     spfms = device_ms(digest_fn, 200)
     spms = device_ms(lambda: EV.keyed_digest_plain(rows, bucket, nblocks), 3)
     print(f"sha512_keyed {name}: exact against keyed_digest's plain route on every slice; "
-          f"device {spfms * 1e3:8.2f} us/launch (torch.profiler; back-to-back "
-          f"{sms * 1e3:8.2f} us) at {n} lanes of {int(blocks.min())}-{int(blocks.max())} "
-          f"blocks; plain {spms * 1e3:9.2f} us; bound {sha_bound[0] * 1e3:.4f} us "
-          f"({sha_bound[1]})")
+          f"device {spfms * 1e3:8.2f} us/launch (torch.profiler); back to back (CUDA events) "
+          f"{sms * 1e3:8.2f} us from the C launcher, {wms * 1e3:8.2f} us through the wrapper; at "
+          f"{n} lanes of {int(blocks.min())}-{int(blocks.max())} blocks; plain "
+          f"{spms * 1e3:9.2f} us; bound {sha_bound[0] * 1e3:.4f} us ({sha_bound[1]})")
     return dict(err=err, ms=sweep[chosen], plain_ms=pms, bound=bound, lanes=n, group=chosen,
                 sweep=sweep, sha=dict(err=sha_err, ms=spfms, plain_ms=spms, bound=sha_bound))
 
@@ -1106,7 +1275,7 @@ def rotation(name: str, dev, commit, expected, newcomers, new_exp, cap_bytes: in
         first, first_batch = plan.entry, (commit, expected)
     if cache.stats != {"keys_built": built, "keys_evicted": 0}:
         raise AssertionError(f"{name}: stats {cache.stats} before the rotations")
-    lat, plan_s = [], []
+    lat, plan_s, parts = [], [], []
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -1114,7 +1283,9 @@ def rotation(name: str, dev, commit, expected, newcomers, new_exp, cap_bytes: in
         triples = list(newcomers[:h]) + list(commit[h:])
         want = list(new_exp[:h]) + list(expected[h:])
         n0 = _build.LAUNCHES["build_tables"]
-        dt, bv, plan, res, split = run_verify(triples, dev, cache)
+        with LookupSplit() as ls:
+            dt, bv, plan, res, split = run_verify(triples, dev, cache)
+        parts.append(ls.take())
         if res != want or bv.last_tier != "keyed" or plan.entry.window_bits != 8:
             bad = [i for i, (a, b) in enumerate(zip(res, want)) if a != b]
             raise AssertionError(f"{name}: height {h} verdicts differ at {bad[:20]} "
@@ -1134,6 +1305,8 @@ def rotation(name: str, dev, commit, expected, newcomers, new_exp, cap_bytes: in
                              "verifies its own batch")
     pool = cache._pools[8]
     torch.cuda.synchronize()
+    split_p50 = {p: (pct([x[p][0] for x in parts], 50), pct([x[p][1] for x in parts], 50))
+                 for p in LookupSplit.PARTS}
     out = dict(p50_ms=1e3 * pct(lat, 50), max_ms=1e3 * max(lat),
                plan_p50_ms=1e3 * pct(plan_s, 50), cold0_s=cold0, stats=dict(cache.stats),
                cap=pool.cap, launches=launches,
@@ -1145,6 +1318,8 @@ def rotation(name: str, dev, commit, expected, newcomers, new_exp, cap_bytes: in
           f"8-bit pool {len(pool.slots)} keys in {pool.cap} slots; peak device memory "
           f"{out['peak_above_mb']:.1f} MiB above the allocation before the heights; launches "
           f"{launches}; the entry taken before the first height still verifies its own batch")
+    print(f"  table lookup split per height, p50, host ms / stream ms (CUDA events): "
+          + split_line(split_p50, out["plan_p50_ms"]))
     return out
 
 
@@ -1154,10 +1329,13 @@ def drive_10k(wide, wide_exp, dev, nkeys: int = 10000, nsample: int = 512) -> di
     (the oracle decides them), as one set on the keyed tier (4-bit) on a
     fresh KeyTableCache: cold and warm verifies, the pool's pages of 512
     keys (the two invalid ones included) held to build_tables_plain, and
-    the build of all 10000 keys timed by CUDA events."""
+    the build of those keys at every shape pair of each launch held to it
+    too, and the build of all 10000 keys timed by CUDA events at every
+    shape of each launch."""
     import torch
 
     from cometbft_tpu_torch.crypto import edwards as E
+    from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.ops import precompute as PR
 
     triples = [list(t) for t in wide[:nkeys]]
@@ -1176,7 +1354,8 @@ def drive_10k(wide, wide_exp, dev, nkeys: int = 10000, nsample: int = 512) -> di
     keys = sorted({p for p, _, _ in triples})
     sample = [bad, triples[50][0]] + [k for k in keys
                                       if k not in (bad, triples[50][0])][: nsample - 2]
-    want, want_valid = PR.build_tables_plain(key_tensor(sample, dev), 4)
+    sample_pub = key_tensor(sample, dev)
+    want, want_valid = PR.build_tables_plain(sample_pub, 4)
     idx = torch.as_tensor(np.concatenate(
         [np.arange(16) + 16 * entry.key_index[k] for k in sample])).to(dev)
     got = entry.table.index_select(3, idx)
@@ -1186,19 +1365,27 @@ def drive_10k(wide, wide_exp, dev, nkeys: int = 10000, nsample: int = 512) -> di
         raise AssertionError("commit10k: the pool's pages differ from build_tables_plain")
     if want_valid.tolist()[:2] != [False, True]:
         raise AssertionError("commit10k: the planted keys' validity")
-    del got, want, entry
+    del got, entry
+    lib = _build.library("build_tables")
+    sample_pick = (bt_choice(lib, nsample, 1), bt_choice(lib, nsample * 64, 2))
+    check_build_shapes("commit10k's sample", sample_pub, 4, want, want_valid,
+                       bt_variants(sample_pick))
+    del want
     pub = key_tensor(keys, dev)
-    ms = cuda_ms(lambda: PR.build_tables_kernel(pub, 4), 3, warm=1)
-    sweep = {g: cuda_ms(lambda g=g: PR.build_tables_kernel(pub, 4, groups=(0, g)), 2, warm=1)
-             for g in PR.BUILD_GROUPS}
+    pick = (bt_choice(lib, len(keys), 1), bt_choice(lib, len(keys) * 64, 2))
+    times, clocks = sweep_build(pub, 4, bt_variants(pick), 2)
+    ms = times[pick]
     bound = bt_bound(len(keys), 4)
     out.update(build_ms=ms, bound=bound, pool_mb=cache._pools[4].nbytes() / 2**20)
     print(f"  commit10k pool: {len(cache._pools[4].slots)} keys in {cache._pools[4].cap} "
           f"slots, {out['pool_mb']:.1f} MiB; the pages of {len(sample)} keys (2 invalid) = "
-          f"build_tables_plain; the build of {len(keys)} keys {ms:.3f} ms (CUDA events), "
-          f"{ms * 1e3 / len(keys):.2f} us per key, bound {bound[0]:.3f} ms ({bound[1]}), "
-          f"share {bound[0] / ms:.4f}; the entry launch at G = "
-          + ", ".join(f"{g}: {t:.3f} ms" for g, t in sweep.items()))
+          f"build_tables_plain, and the build of those keys at every shape pair of each "
+          f"launch (pick {sample_pick}); the build of {len(keys)} keys {ms:.3f} ms (CUDA "
+          f"events) at the pick {pick}, {ms * 1e3 / len(keys):.2f} us per key, bound "
+          f"{bound[0]:.3f} ms ({bound[1]}; with a 2dT per entry "
+          f"{bt_bound(len(keys), 4, True)[0]:.3f}), "
+          f"share {bound[0] / ms:.4f}; {clocks}")
+    print_build_sweep(times, pick, bound[0])
     cache.clear()
     return out
 
@@ -1225,6 +1412,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(built)} sources "
           "(nvcc in parallel)")
     from cometbft_tpu_torch.ops import ed25519_verify as EV
+    from cometbft_tpu_torch.ops import precompute as PR
 
     vk_lib = _build.library("verify_keyed")
     for g in EV.GROUPS:
@@ -1236,17 +1424,28 @@ def main() -> int:
         print(f"  verify_generic (Q, G) = ({q}, {g}): {vg_lib.verify_generic_smem_bytes(q, g)} "
               f"bytes of dynamic shared memory per {threads}-thread block "
               f"({threads // (q * g)} lanes)")
+    bt_lib = _build.library("build_tables")
+    for q, g in PR.BUILD_SHAPES:
+        threads = max(32, q * g)
+        print(f"  build_tables (Q, G) = ({q}, {g}): {bt_lib.build_tables_smem_bytes(1, q, g)} / "
+              f"{bt_lib.build_tables_smem_bytes(2, q, g)} bytes of dynamic shared memory per "
+              f"{threads}-thread block for the bases / the entries ({threads // (q * g)} lanes)")
+    spills = []
     for b in built.values():
         print(f"  {b.name}: nvcc {b.seconds:.2f} s -> {b.path}")
+        entry = None
         for line in b.ptxas.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"    {line.strip()}")
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+                spills.append(f"{entry}: {line.strip()}")
+    print("ptxas spills: " + ("none" if not spills else "; ".join(spills)))
 
     print("kernels vs plain versions: tolerance exact (max |kernel - plain| must be 0; "
           "the arithmetic is integer)")
     kres = check_kernels(dev)
-    from cometbft_tpu_torch.ops import precompute as PR
-
     commit150, exp150 = make_commit(150, b"validator", plant=True)
     commit1k, exp1k = make_commit(1024, b"validator1k", plant=True)
     keys150 = sorted({p for p, _, _ in commit150})
@@ -1360,7 +1559,7 @@ def main() -> int:
         "launches": main150["launches"]["build_tables"],
         "max_abs_err": b["err"], "ms": b["ms"], "plain_ms": b["plain_ms"],
         "bound_ms": b["bound"][0], "bound_by": b["bound"][1],
-        "library_ms": None, "groups": list(b["choice"]),
+        "library_ms": None, "shapes": [list(x) for x in b["choice"]],
     })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(smi_line())

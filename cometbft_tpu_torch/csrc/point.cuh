@@ -2,8 +2,8 @@
 // field elements in shared memory, asynchronous copies of table entries,
 // the point formulas, ZIP-215 decompression, the canonical-S check and
 // the digest reduction mod L; and the group size both kernels launch
-// with and their launcher.  verify_keyed.cu (the keyed tier) and
-// verify_generic.cu (the generic tier) include it.
+// with and their launcher.  verify_keyed.cu (the keyed tier),
+// verify_generic.cu (the generic tier) and build_tables.cu include it.
 //
 // Every step mirrors its plain PyTorch version operation for operation
 // (ops/curve.py pt_add / pt_add_niels / pt_add_pniels / pt_double /
@@ -16,12 +16,13 @@
 // the layout both kernels use (R, the two accumulators, four
 // temporaries); a kernel that needs more slots takes them after those.
 //
-// The generic kernel also runs a lane on Q quarters of G threads (a
-// Team; the four-way formulas pt_double_q, pt_add_q and pt_madd_q), so
-// that a formula's independent products run side by side.  The keyed
-// kernel keeps the one-group steps (pt_double, pt_add, pt_madd) and its
-// launch shapes (pick_group): the two kernels now differ by design, and
-// each has its own chooser.
+// The generic kernel and the table build (build_tables.cu) run a lane on
+// Q quarters of G threads (a Team; the four-way formulas pt_double_q,
+// pt_add_q, pt_madd_q, and the build's pt_add_q_niels), so that a
+// formula's independent products run side by side.  The keyed kernel
+// keeps the one-group steps (pt_double, pt_add, pt_madd) and its launch
+// shapes (pick_group): the kernels differ by design, and each has its
+// own chooser.
 // The file compiles as plain C++ too (see field.cuh).
 
 #pragma once
@@ -533,6 +534,49 @@ FE_HD FE_NOINLINE void pt_add_q(Team<Q, G> t, Lane<NS>* L, const Consts& k, int 
   });
   stage<1>(t, [&](int) { fe::mul(t.g, t1, t1, t2); });
   efgh(t, L, p, s2, [&](int i) { return static_cast<int32_t>(static_cast<uint32_t>(z1[i]) * 2u); });
+  ext_products(t, L, p);
+}
+
+// p += q as pt_add_q, for the table build, which also wants p's own
+// projective Niels form (Y+X, Y-X, 2Z, 2dT) as table entry `j`: the
+// first limb step's Y1+X1 and Y1-X1 and 2Z1, and stage 1's T1 2d, copied
+// to out[c * NL + i][j] (coordinate c, limb i) before they are spent.
+// c = (T1 2d) T2 goes to a spent temporary (T1's slot), so T1 2d stays
+// until the limb step that forms e, f, g and h copies it.  The same
+// operations on the same operands as pt_add_q: p's limbs are its limbs,
+// and the entry's are the plain build's (its 2dT is T 2d).
+template <int Q, int G, int NS>
+FE_HD FE_NOINLINE void pt_add_q_niels(Team<Q, G> t, Lane<NS>* L, const Consts& k, int p,
+                                      const int32_t* x2, const int32_t* y2, const int32_t* z2,
+                                      const int32_t* t2, int32_t (*out)[8], int j) {
+  int32_t *x1 = L->s[p], *y1 = L->s[p + 1], *z1 = L->s[p + 2], *t1 = L->s[p + 3];
+  int32_t *s0 = L->s[T0], *s1 = L->s[T1], *s2 = L->s[T2], *s3 = L->s[T3];
+  limbs(t, [&](int i) {
+    const int32_t xa = x1[i], ya = y1[i], xb = x2[i], yb = y2[i], za = z1[i];
+    const int32_t minus = sub32(ya, xa), plus = add32(ya, xa);
+    s0[i] = minus;
+    s1[i] = sub32(yb, xb);
+    s2[i] = plus;
+    s3[i] = add32(yb, xb);
+    out[i][j] = plus;
+    out[NL + i][j] = minus;
+    out[2 * NL + i][j] = static_cast<int32_t>(static_cast<uint32_t>(za) * 2u);
+  });
+  stage<4>(t, [&](int j4) {
+    int32_t* o = pick(j4, s0, s2, t1, z1);
+    fe::mul(t.g, o, o, pick<const int32_t*>(j4, s1, s3, k[K_TWO_D], z2));
+  });
+  stage<1>(t, [&](int) { fe::mul(t.g, s1, t1, t2); });
+  // e, f, g, h as efgh, with c in T1's slot; the entry's 2dT out
+  limbs(t, [&](int i) {
+    const int32_t a = s0[i], b = s2[i], c = s1[i], td = t1[i];
+    const int32_t d = static_cast<int32_t>(static_cast<uint32_t>(z1[i]) * 2u);
+    s0[i] = sub32(b, a);
+    s1[i] = sub32(d, c);
+    s2[i] = add32(d, c);
+    s3[i] = add32(b, a);
+    out[3 * NL + i][j] = td;
+  });
   ext_products(t, L, p);
 }
 

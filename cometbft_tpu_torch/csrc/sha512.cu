@@ -23,12 +23,10 @@
 // hash the same way: R, A, the message and its length sit at the same
 // rows in both layouts, and the key-id rows are never read.  The
 // message is R (rows 32:64) || A (rows 0:32) || M (rows
-// 96:96+msglen); each 64-bit word of a block is assembled in registers
-// with the padding exactly where build_padded_input puts it: 0x80 at
-// byte 64 + msglen, the big-endian bit length in the last 8 bytes of the
-// lane's own last block, nothing past it (a lane that needs fewer blocks
-// than the bucket's stops early).  That replaces the ~20 torch ops that
-// built the padded input on the device and the buffer they wrote.
+// 96:96+msglen), with the padding exactly where build_padded_input puts
+// it: 0x80 at byte 64 + msglen, the big-endian bit length in the last 8
+// bytes of the lane's own last block, nothing past it (a lane that needs
+// fewer blocks than the bucket's stops early).
 //
 // Both write (64, n) uint8, the big-endian digest bytes, and share one
 // compression function.
@@ -36,16 +34,39 @@
 // Bound on the H100: per block a lane reads at most 128 bytes and needs
 // about 2.7k 64-bit operations, 5.4k 32-bit ones (a rotate is two funnel
 // shifts, an add an add and an add-with-carry), so both kernels are
-// bound by operations.  The design keeps the 8-word state and the
-// 16-word schedule window in registers and the round constants in
-// __constant__ memory (every lane reads the same K[t] at the same time,
-// which the constant cache broadcasts).  Byte loads are strided by the
-// row stride, so neighbouring threads read neighbouring bytes:
-// coalesced.
+// bound by operations.  But at the main path's 256 to 8192 lanes the
+// card holds at most one warp per SM partition, so a launch takes one
+// lane's latency: its loads, then two blocks of 80 dependent rounds.
 //
-// The per-lane body of sha512_keyed compiles as plain C++ too:
-// `sha512_keyed_host` runs it on the host for a check where there is no
-// card.
+// sha512_keyed's design.  A block is two warps for 32 lanes.  The
+// schedule warp copies, for each 128-byte block of the message, the rows
+// it covers, 32 bytes of each (its lanes' columns), into shared memory:
+// 16-byte cp.async where the rows' bytes are 16-byte aligned, 4-byte
+// cp.async where they are 4-byte aligned, byte loads otherwise (an odd
+// row stride, a slice at an odd column, the last block's lanes past n);
+// rows past the bucket are not read.  The first copy also takes the 4
+// length rows.  A lane's 16 words are built from 8 shared bytes each
+// with __byte_perm, the padding placed by word: the data bytes kept by
+// one mask, the 0x80 byte by one shift, the length as a whole word.  The
+// schedule warp then runs the message schedule (W[16..79]) ahead and
+// writes every W[t] to shared memory, 16 at a time, while the rounds warp
+// runs the 80 rounds on them, its 8 working variables in registers and
+// the round constants in __constant__ memory (every lane reads the same
+// K[t] at the same time, which the constant cache broadcasts); named
+// barriers pass each 16 words, two schedule buffers let the schedule run
+// a block ahead, and the next block's copy is in flight meanwhile.  One
+// thread per lane ran the schedule and the rounds in one instruction
+// stream: at these lane counts a warp is alone on its SM partition, so
+// a block took its instructions' issue time; taking the schedule's third
+// of them off the rounds' stream cut 32 lanes alone from 13.3 to 10.3 us
+// a launch (tools/torch_product_cycles.py on an H100: 18808 cycles for
+// one warp's two blocks).  Every unrolled round and schedule step keeps
+// its words in registers or at constant shared addresses.
+//
+// The per-lane steps of sha512_keyed and its staging compile as plain
+// C++ too: `sha512_keyed_host` runs them on the host, 32 lanes' copy and
+// then their words, schedule and rounds in turn, for a check where there
+// is no card.
 
 #include <cstdint>
 #ifdef __CUDACC__
@@ -111,33 +132,52 @@ const uint64_t kIV_h[8] = SHA512_IV_INIT;
 
 SH_HD SH_INLINE uint64_t rotr(uint64_t x, int s) { return (x >> s) | (x << (64 - s)); }
 
-// One block: the state st absorbs the 16 words w (w is clobbered).
-SH_HD SH_INLINE void compress(uint64_t (&st)[8], uint64_t (&w)[16]) {
-  uint64_t a = st[0], b = st[1], c = st[2], d = st[3];
-  uint64_t e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll 16
-  for (int t = 0; t < 80; ++t) {
-    uint64_t wt;
-    if (t < 16) {
-      wt = w[t & 15];
-    } else {
-      const uint64_t w1 = w[(t + 1) & 15], w14 = w[(t + 14) & 15];
-      const uint64_t s0 = rotr(w1, 1) ^ rotr(w1, 8) ^ (w1 >> 7);
-      const uint64_t s1 = rotr(w14, 19) ^ rotr(w14, 61) ^ (w14 >> 6);
-      wt = w[t & 15] + s0 + w[(t + 9) & 15] + s1;
-      w[t & 15] = wt;
-    }
+// W[16c] .. W[16c + 15] of the message schedule, in place over the 16
+// words before them (w[i] holds W[16(c - 1) + i] on entry).
+SH_HD SH_INLINE void schedule16(uint64_t (&w)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const uint64_t w1 = w[(i + 1) & 15], w14 = w[(i + 14) & 15];
+    const uint64_t s0 = rotr(w1, 1) ^ rotr(w1, 8) ^ (w1 >> 7);
+    const uint64_t s1 = rotr(w14, 19) ^ rotr(w14, 61) ^ (w14 >> 6);
+    w[i] += s0 + w[(i + 9) & 15] + s1;
+  }
+}
+
+// Rounds 16c .. 16c + 15 on the working variables v = (a, ..., h), round
+// 16c + i taking the word word(i).  Inlined with c a constant, so every
+// K[t] is a constant address.
+template <class Word>
+SH_HD SH_INLINE void rounds16(uint64_t (&v)[8], int c, Word word) {
+  uint64_t a = v[0], b = v[1], cc = v[2], d = v[3], e = v[4], f = v[5], g = v[6], h = v[7];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
     const uint64_t ch = (e & f) ^ (~e & g);
-    const uint64_t maj = (a & b) ^ (a & c) ^ (b & c);
+    const uint64_t maj = (a & b) ^ (a & cc) ^ (b & cc);
     const uint64_t big0 = rotr(a, 28) ^ rotr(a, 34) ^ rotr(a, 39);
     const uint64_t big1 = rotr(e, 14) ^ rotr(e, 18) ^ rotr(e, 41);
-    const uint64_t t1 = h + big1 + ch + SH_K[t] + wt;
+    const uint64_t t1 = h + big1 + ch + SH_K[16 * c + i] + word(i);
     const uint64_t t2 = big0 + maj;
     h = g; g = f; f = e; e = d + t1;
-    d = c; c = b; b = a; a = t1 + t2;
+    d = cc; cc = b; b = a; a = t1 + t2;
   }
-  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+  v[0] = a; v[1] = b; v[2] = cc; v[3] = d; v[4] = e; v[5] = f; v[6] = g; v[7] = h;
+}
+
+// One block: the state st absorbs the 16 words w (w is clobbered).
+// Fully unrolled, so every index into w is a constant and the schedule
+// stays in registers.
+SH_HD SH_INLINE void compress(uint64_t (&st)[8], uint64_t (&w)[16]) {
+  uint64_t v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = st[i];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+    if (c > 0) schedule16(w);
+    rounds16(v, c, [&](int i) { return w[i]; });
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) st[i] += v[i];
 }
 
 SH_HD SH_INLINE void store_digest(const uint64_t (&st)[8], uint8_t* out, int64_t n) {
@@ -148,48 +188,152 @@ SH_HD SH_INLINE void store_digest(const uint64_t (&st)[8], uint8_t* out, int64_t
   }
 }
 
-// SHA-512(R || A || M) of the lane whose column starts at col (rows ld
-// bytes apart), written to out[0], out[n], ...: build_padded_input's
-// bytes, absorbed for min(nblocks, the lane's own block count) blocks.
-// msglen is read as build_padded_input's caller reads it (a signed
-// little-endian int32), so any row content hashes as the plain version
-// hashes it.
-SH_HD SH_INLINE void keyed_lane(const uint8_t* col, int64_t ld, int bucket, int nblocks,
-                                uint8_t* out, int64_t n) {
-  const uint8_t* lb = col + static_cast<int64_t>(96 + bucket) * ld;
-  const int32_t msglen = static_cast<int32_t>(
-      static_cast<uint32_t>(lb[0]) | (static_cast<uint32_t>(lb[ld]) << 8) |
-      (static_cast<uint32_t>(lb[2 * ld]) << 16) | (static_cast<uint32_t>(lb[3 * ld]) << 24));
-  const int64_t total = 64 + static_cast<int64_t>(msglen);
-  const int64_t own = (total + 17 + 127) >> 7;  // floor division by 128
-  const int used = own < nblocks ? (own < 0 ? 0 : static_cast<int>(own)) : nblocks;
-  const int64_t last = own * 128 - 1;  // the lane's last padded byte
-  const int64_t bits = total * 8;
-  const int64_t content = 64 + bucket;
-  uint64_t st[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) st[i] = SH_IV[i];
-  const int64_t data_end = total < content ? total : content;
-  for (int blk = 0; blk < used; ++blk) {
-    uint64_t w[16];
-#pragma unroll
-    for (int t = 0; t < 16; ++t) {
-      uint64_t v = 0;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int64_t p = static_cast<int64_t>(blk) * 128 + t * 8 + k;
-        const int64_t row = p < 32 ? 32 + p : p < 64 ? p - 32 : 32 + p;
-        uint32_t byte = p < data_end ? col[row * ld] : 0u;
-        byte = p == total ? 0x80u : byte;
-        const uint64_t from_end = static_cast<uint64_t>(last - p);
-        byte = from_end < 8 ? static_cast<uint32_t>((bits >> (8 * from_end)) & 0xFF) : byte;
-        v = (v << 8) | byte;
-      }
-      w[t] = v;
-    }
-    compress(st, w);
+// -- sha512_keyed: 32 lanes' rows staged in shared memory ---------------
+
+constexpr int LANES = 32;       // lanes of a block (its schedule warp and its rounds warp)
+constexpr int SROWS = 128 + 4;  // a message block's bytes, then the length rows
+
+// The packed row that holds byte p of R || A || M.
+SH_HD SH_INLINE int64_t src_row(int64_t p) { return p < 32 ? 32 + p : p < 64 ? p - 32 : 32 + p; }
+
+#ifdef __CUDA_ARCH__
+__device__ SH_INLINE void copy_async(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
   }
-  store_digest(st, out, n);
+}
+__device__ SH_INLINE void copy_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+#else
+inline void copy_async(void* dst, const void* src, int bytes) {
+  for (int k = 0; k < bytes; ++k) static_cast<uint8_t*>(dst)[k] = static_cast<const uint8_t*>(src)[k];
+}
+inline void copy_wait() {}
+#endif
+
+// 16 staged bytes of one row: `have` of them belong to lanes below n.
+SH_HD SH_INLINE void copy16(uint8_t* dst, const uint8_t* src, int64_t have) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
+  if (have >= 16 && at % 16 == 0) {
+    copy_async(dst, src, 16);
+  } else if (have >= 16 && at % 4 == 0) {
+    for (int k = 0; k < 16; k += 4) copy_async(dst + k, src + k, 4);
+  } else {
+    for (int k = 0; k < 16; ++k) dst[k] = k < have ? src[k] : 0;
+  }
+}
+
+// Thread `tid`'s part (of 32) of staging message block `blk` of the 32
+// lanes from lane0: stage row r < 128 is byte 128 blk + r of R || A || M
+// for those lanes (rows past the bucket are left as they are: the
+// padding masks them), and, for block 0, rows 128-131 the length rows.
+// Each row is two 16-byte chunks, thread tid takes chunks tid, tid + 32,
+// ...
+SH_HD SH_INLINE void stage_block(uint8_t* stage, const uint8_t* buf, int64_t ld, int bucket,
+                                 int64_t lane0, int64_t n, int blk, int tid) {
+  const int chunks = 2 * (blk == 0 ? SROWS : 128);
+  for (int c = tid; c < chunks; c += LANES) {
+    const int r = c >> 1, half = c & 1;
+    int64_t row;
+    if (r < 128) {
+      const int64_t p = static_cast<int64_t>(blk) * 128 + r;
+      if (p >= 64 + bucket) continue;
+      row = src_row(p);
+    } else {
+      row = 96 + bucket + (r - 128);
+    }
+    const int64_t first = lane0 + 16 * half;
+    copy16(stage + r * LANES + 16 * half, buf + row * ld + first, n - first);
+  }
+}
+
+// (b0 << 24) | (b1 << 16) | (b2 << 8) | b3
+SH_HD SH_INLINE uint32_t be32(uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3) {
+#ifdef __CUDA_ARCH__
+  return __byte_perm(__byte_perm(b3, b2, 0x0040), __byte_perm(b1, b0, 0x0040), 0x5410);
+#else
+  return (b0 << 24) | (b1 << 16) | (b2 << 8) | b3;
+#endif
+}
+
+// The first n bytes (0 to 4, clamped) of a big-endian 32-bit word.
+SH_HD SH_INLINE uint32_t head_mask(int n) {
+  n = n < 0 ? 0 : n > 4 ? 4 : n;
+#ifdef __CUDA_ARCH__
+  return __funnelshift_rc(0u, 0xffffffffu, 8 * n);
+#else
+  return static_cast<uint32_t>(0xffffffff00000000ull >> (8 * n));
+#endif
+}
+
+// One lane's hash in progress: where its data, its 0x80 byte and its
+// length word fall, how many blocks it absorbs, and the state.
+struct KeyedLane {
+  int64_t data_end;  // bytes below it are R || A || M
+  int64_t total;     // the 0x80 byte: 64 + msglen
+  int64_t len_word;  // the first byte of the big-endian bit length
+  uint64_t bits;
+  int used;          // blocks absorbed: min(nblocks, the lane's own count)
+  uint64_t st[8];
+};
+
+// x - base as an offset into a 128-byte block, clamped to [-8, 136]: the
+// padding's positions in 32-bit arithmetic.
+SH_HD SH_INLINE int block_offset(int64_t x, int64_t base) {
+  const int64_t d = x - base;
+  return static_cast<int>(d < -8 ? -8 : d > 136 ? 136 : d);
+}
+
+// A lane's plan from its staged length bytes (rows 128-131 of block 0's
+// stage).  msglen is read as build_padded_input's caller reads it (a
+// signed little-endian int32), so any row content hashes as the plain
+// version hashes it.
+SH_HD SH_INLINE KeyedLane keyed_begin(const uint8_t* stage, int lane, int bucket, int nblocks) {
+  const uint8_t* lb = stage + 128 * LANES + lane;
+  const int32_t msglen = static_cast<int32_t>(
+      static_cast<uint32_t>(lb[0]) | (static_cast<uint32_t>(lb[LANES]) << 8) |
+      (static_cast<uint32_t>(lb[2 * LANES]) << 16) | (static_cast<uint32_t>(lb[3 * LANES]) << 24));
+  KeyedLane s;
+  s.total = 64 + static_cast<int64_t>(msglen);
+  const int64_t content = 64 + bucket;
+  s.data_end = s.total < content ? s.total : content;
+  const int64_t own = (s.total + 17 + 127) >> 7;  // floor division by 128
+  s.used = own < nblocks ? (own < 0 ? 0 : static_cast<int>(own)) : nblocks;
+  s.len_word = own * 128 - 8;
+  s.bits = static_cast<uint64_t>(s.total * 8);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s.st[i] = SH_IV[i];
+  return s;
+}
+
+// The 16 words of block blk of the lane's padded message, from the
+// stage.  The padding goes in by word, without a branch: the data
+// bytes kept by a mask, the 0x80 byte or'ed in, the length word in place
+// of the word.
+SH_HD SH_INLINE void keyed_words(const KeyedLane& s, const uint8_t* stage, int lane, int blk,
+                                 uint64_t (&w)[16]) {
+  const int64_t base = static_cast<int64_t>(blk) * 128;
+  const int data = block_offset(s.data_end, base), mark = block_offset(s.total, base);
+  const int len = block_offset(s.len_word, base);
+  const uint32_t bits_hi = static_cast<uint32_t>(s.bits >> 32);
+  const uint32_t bits_lo = static_cast<uint32_t>(s.bits);
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const uint8_t* b = stage + 8 * t * LANES + lane;
+    uint32_t hi = be32(b[0], b[LANES], b[2 * LANES], b[3 * LANES]);
+    uint32_t lo = be32(b[4 * LANES], b[5 * LANES], b[6 * LANES], b[7 * LANES]);
+    const int o = 8 * t;
+    hi &= head_mask(data - o);
+    lo &= head_mask(data - o - 4);
+    const int at = mark - o;  // the 0x80 byte's place in the word
+    hi |= static_cast<unsigned>(at) < 4u ? 0x80u << ((24 - 8 * at) & 31) : 0u;
+    lo |= static_cast<unsigned>(at - 4) < 4u ? 0x80u << ((56 - 8 * at) & 31) : 0u;
+    hi = len == o ? bits_hi : hi;
+    lo = len == o ? bits_lo : lo;
+    w[t] = (static_cast<uint64_t>(hi) << 32) | lo;
+  }
 }
 
 }  // namespace
@@ -226,12 +370,88 @@ sha512_padded_kernel(const uint8_t* __restrict__ buf, int nblocks,
   store_digest(st, out + lane, n);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Two warps for 32 lanes: the schedule warp stages the rows, builds
+// each block's 16 words and runs the message schedule ahead, writing
+// W[0..79] to shared memory 16 words at a time; the rounds warp runs the
+// 80 rounds on them.  Named barriers pair them: CHUNK + 5p + c when
+// chunk c of a block in schedule buffer p is written (bar.arrive by the
+// schedule warp, bar.sync by the rounds warp), FREE + p when the rounds
+// warp is done with buffer p, which the schedule warp waits for before
+// it writes the block two after.  A barrier id is never arrived at twice
+// before it completes: a warp reaches buffer p's barriers again only
+// after FREE + p.
+constexpr int SPLIT = 2 * LANES;
+constexpr int CHUNK = 1, FREE = CHUNK + 10;  // ids 1-12; 0 is __syncthreads
+
+__device__ SH_INLINE void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(SPLIT) : "memory");
+}
+__device__ SH_INLINE void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(SPLIT) : "memory");
+}
+
+__global__ void __launch_bounds__(SPLIT)
 sha512_keyed_kernel(const uint8_t* __restrict__ buf, int64_t ld, int bucket, int nblocks,
                     uint8_t* __restrict__ out, int64_t n) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (lane >= n) return;
-  keyed_lane(buf + lane, ld, bucket, nblocks, out + lane, n);
+  __shared__ __align__(16) uint8_t stage[SROWS * LANES];
+  __shared__ uint64_t sched[2][80][LANES];
+  const int tid = threadIdx.x % LANES;
+  const bool rounds_warp = threadIdx.x < LANES;
+  const int64_t lane0 = static_cast<int64_t>(blockIdx.x) * LANES, lane = lane0 + tid;
+  if (!rounds_warp) {
+    stage_block(stage, buf, ld, bucket, lane0, n, 0, tid);
+    copy_wait();
+  }
+  __syncthreads();
+  KeyedLane s = keyed_begin(stage, tid, bucket, nblocks);
+  if (lane >= n) s.used = 0;
+  const int blocks = __reduce_max_sync(0xffffffffu, s.used);
+  if (rounds_warp) {
+    for (int blk = 0; blk < blocks; ++blk) {
+      const bool active = blk < s.used;
+      const int p = blk & 1;
+      uint64_t v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = s.st[i];
+#pragma unroll
+      for (int c = 0; c < 5; ++c) {
+        bar_sync(CHUNK + 5 * p + c);
+        if (active) rounds16(v, c, [&](int i) { return sched[p][16 * c + i][tid]; });
+      }
+      if (blk + 2 < blocks) bar_arrive(FREE + p);
+      if (active) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s.st[i] += v[i];
+      }
+    }
+    if (lane < n) store_digest(s.st, out + lane, n);
+  } else {
+    for (int blk = 0; blk < blocks; ++blk) {
+      const bool active = blk < s.used;
+      const int p = blk & 1;
+      if (blk >= 2) bar_sync(FREE + p);
+      uint64_t w[16];
+      if (active) {
+        keyed_words(s, stage, tid, blk, w);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) sched[p][i][tid] = w[i];
+      }
+      __syncwarp();  // the stage is read: the next block's copy may land
+      if (blk + 1 < blocks) stage_block(stage, buf, ld, bucket, lane0, n, blk + 1, tid);
+      bar_arrive(CHUNK + 5 * p);
+#pragma unroll
+      for (int c = 1; c < 5; ++c) {
+        if (active) {
+          schedule16(w);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) sched[p][16 * c + i][tid] = w[i];
+        }
+        bar_arrive(CHUNK + 5 * p + c);
+      }
+      copy_wait();
+      __syncwarp();
+    }
+  }
 }
 
 unsigned grid_for(int64_t n) { return static_cast<unsigned>((n + THREADS - 1) / THREADS); }
@@ -254,7 +474,8 @@ extern "C" int sha512_padded_launch(const void* buf, int nblocks,
 extern "C" int sha512_keyed_launch(const void* buf, int64_t ld, int bucket, int nblocks,
                                    void* out, int64_t n, void* stream) {
   if (n > 0) {
-    sha512_keyed_kernel<<<grid_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    const unsigned grid = static_cast<unsigned>((n + LANES - 1) / LANES);
+    sha512_keyed_kernel<<<grid, SPLIT, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(buf), ld, bucket, nblocks, static_cast<uint8_t*>(out), n);
   }
   return static_cast<int>(cudaGetLastError());
@@ -263,12 +484,37 @@ extern "C" int sha512_keyed_launch(const void* buf, int64_t ld, int bucket, int 
 #else  // a host C++ compiler: sha512_keyed's per-lane body on the CPU
 
 // Host check of the kernel source: the same arguments on host memory,
-// lanes one after another.
+// 32 lanes at a time as the kernel's two warps take them: the stage
+// copied as the schedule warp copies it, then each lane's words, its
+// schedule 16 words at a time and the rounds on them, block by block
+// (the same helpers; the warps' barriers have no host counterpart).
 extern "C" int sha512_keyed_host(const void* buf, int64_t ld, int bucket, int nblocks,
                                  void* out, int64_t n) {
-  for (int64_t lane = 0; lane < n; ++lane) {
-    keyed_lane(static_cast<const uint8_t*>(buf) + lane, ld, bucket, nblocks,
-               static_cast<uint8_t*>(out) + lane, n);
+  const uint8_t* rows = static_cast<const uint8_t*>(buf);
+  static thread_local uint8_t stage[SROWS * LANES];
+  for (int64_t lane0 = 0; lane0 < n; lane0 += LANES) {
+    for (int tid = 0; tid < LANES; ++tid) stage_block(stage, rows, ld, bucket, lane0, n, 0, tid);
+    KeyedLane s[LANES];
+    int blocks = 0;
+    for (int tid = 0; tid < LANES; ++tid) {
+      s[tid] = keyed_begin(stage, tid, bucket, nblocks);
+      if (lane0 + tid >= n) s[tid].used = 0;
+      blocks = s[tid].used > blocks ? s[tid].used : blocks;
+    }
+    for (int blk = 0; blk < blocks; ++blk) {
+      for (int tid = 0; tid < LANES; ++tid) {
+        if (blk >= s[tid].used) continue;
+        uint64_t w[16];
+        keyed_words(s[tid], stage, tid, blk, w);
+        compress(s[tid].st, w);
+      }
+      if (blk + 1 < blocks) {
+        for (int tid = 0; tid < LANES; ++tid)
+          stage_block(stage, rows, ld, bucket, lane0, n, blk + 1, tid);
+      }
+    }
+    for (int tid = 0; tid < LANES && lane0 + tid < n; ++tid)
+      store_digest(s[tid].st, static_cast<uint8_t*>(out) + lane0 + tid, n);
   }
   return 0;
 }

@@ -79,8 +79,10 @@ SOURCES = {
     "build_tables": (
         "build_tables.cu",
         {
-            "build_tables_launch": (_VP, _I64, _I32, _VP, _VP, _VP, _I32, _I32, _VP),
-            "build_tables_group": (_I64, _I32),
+            "build_tables_launch": (_VP, _I64, _I32, _VP, _VP, _VP, _I32, _I32, _I32, _I32,
+                                    _VP),
+            "build_tables_shape": (_I64, _I32, _PI32, _PI32),
+            "build_tables_smem_bytes": (_I32, _I32, _I32),
         },
     ),
 }

@@ -174,12 +174,14 @@ def build_tables_plain(pub: torch.Tensor, window_bits: int):
     return table, valid
 
 
-#: threads per lane that the build_tables kernel is compiled for
-#: (csrc/build_tables.cu; build_tables_group chooses among them)
-BUILD_GROUPS = (1, 8, 32)
+#: launch shapes (quarters, threads per quarter) that each launch of the
+#: build_tables kernel is compiled for: a lane on Q groups of G threads,
+#: a point formula's independent products side by side when Q = 4
+#: (csrc/build_tables.cu; build_tables_shape chooses among them)
+BUILD_SHAPES = ((1, 1), (1, 8), (1, 32), (4, 1), (4, 8), (4, 32))
 
 
-def build_tables_kernel(pub: torch.Tensor, window_bits: int, groups=(0, 0)):
+def build_tables_kernel(pub: torch.Tensor, window_bits: int, shapes=((0, 0), (0, 0))):
     """pub (32, n) uint8 -> (table, valid).
 
     table: (nwin, 4, 26, n * nent) int32 -- window-major projective
@@ -190,17 +192,18 @@ def build_tables_kernel(pub: torch.Tensor, window_bits: int, groups=(0, 0)):
 
     A CUDA tensor goes through the build_tables kernel (two launches, a
     lane per key then a lane per (key, window), counted as one;
-    ``groups`` sets each launch's threads per lane, one of BUILD_GROUPS,
-    or 0 for the launcher's choice by lane count), a CPU tensor through
+    ``shapes`` sets each launch's shape, one of BUILD_SHAPES, or (0, 0)
+    for the launcher's choice by lane count), a CPU tensor through
     :func:`build_tables_plain`."""
     if window_bits not in (8, 4):
         raise ValueError(f"build_tables: window_bits must be 8 or 4, got {window_bits}")
     if pub.dim() != 2 or pub.shape[0] != 32 or pub.dtype != torch.uint8:
         raise ValueError(f"build_tables: expected (32, n) uint8 keys, got "
                          f"{tuple(pub.shape)} {pub.dtype}")
-    if any(g != 0 and g not in BUILD_GROUPS for g in groups) or len(groups) != 2:
-        raise ValueError(f"build_tables: groups must be two of 0 or {BUILD_GROUPS}, "
-                         f"got {groups}")
+    shapes = tuple(tuple(s) for s in shapes)
+    if len(shapes) != 2 or any(s != (0, 0) and s not in BUILD_SHAPES for s in shapes):
+        raise ValueError(f"build_tables: shapes must be two of (0, 0) or {BUILD_SHAPES}, "
+                         f"got {shapes}")
     if pub.device.type == "cpu":
         return build_tables_plain(pub, window_bits)
     if pub.device.type != "cuda":
@@ -215,7 +218,7 @@ def build_tables_kernel(pub: torch.Tensor, window_bits: int, groups=(0, 0)):
     bases = torch.empty((nwin, 4, F.NLIMBS, n), dtype=F.DTYPE, device=pub.device)
     rc = _build.library("build_tables").build_tables_launch(
         pub.data_ptr(), n, window_bits, bases.data_ptr(), table.data_ptr(),
-        valid.data_ptr(), groups[0], groups[1],
+        valid.data_ptr(), *shapes[0], *shapes[1],
         torch.cuda.current_stream(pub.device).cuda_stream,
     )
     _build.check(rc, "build_tables")

@@ -18,6 +18,7 @@ import torch
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import ed25519_verify as EV
 from cometbft_tpu_torch.ops import field as F
+from cometbft_tpu_torch.ops import precompute as PR
 from cometbft_tpu_torch.ops import sha512 as SH
 
 pytestmark = pytest.mark.gpu
@@ -155,11 +156,12 @@ def test_verify_keyed_equals_plain(dev, window_bits, group, monkeypatch):
     assert ok.tolist() == expected
 
 
-def test_sha512_keyed_equals_plain(dev):
+@pytest.mark.parametrize("offset", [8, 5])
+def test_sha512_keyed_equals_plain(dev, offset):
     """sha512_keyed on packed rows (a slice of a wider buffer, so the
-    row stride is not the lane count) against keyed_digest's plain
-    route and hashlib, message lengths on both sides of each block
-    edge."""
+    row stride is not the lane count; at offset 5 the rows' bytes are
+    not 4-byte aligned) against keyed_digest's plain route and hashlib,
+    message lengths on both sides of each block edge."""
     rs = np.random.RandomState(SEED + 5)
     lens = [0, 46, 47, 48, 110, 111, 112, 175, 176, 256] * 4
     n = len(lens)
@@ -168,15 +170,15 @@ def test_sha512_keyed_equals_plain(dev):
     msgs = [rs.randint(0, 256, ln).astype(np.uint8).tobytes() for ln in lens]
     packed, bucket = EV.pack_inputs(pub, sig, msgs, key_ids=np.arange(n))
     nblocks = EV.nblocks_for_bucket(bucket)
-    rows = torch.as_tensor(packed).to(dev)[:, 8:]
+    rows = torch.as_tensor(packed).to(dev)[:, offset:]
     before = _build.LAUNCHES["sha512_keyed"]
     got = EV.keyed_digest(rows, bucket, nblocks)
     assert _build.LAUNCHES["sha512_keyed"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, EV.keyed_digest_plain(rows, bucket, nblocks))
     host = got.cpu().numpy()
-    for j in range(n - 8):
-        i = j + 8
+    for j in range(n - offset):
+        i = j + offset
         want = hashlib.sha512(bytes(sig[i, :32]) + bytes(pub[i]) + msgs[i]).digest()
         assert bytes(host[:, j]) == want
 
@@ -238,18 +240,23 @@ def _build_keys(n_valid: int, tag: bytes) -> np.ndarray:
     return np.stack([np.frombuffer(k, dtype=np.uint8) for k in keys], axis=-1)
 
 
-@pytest.mark.parametrize("groups", [(0, 0), (1, 1), (8, 8), (32, 32), (1, 32), (32, 1)],
-                         ids=lambda g: f"{g[0]}-{g[1]}")
-@pytest.mark.parametrize("window_bits", [8, 4])
-def test_build_tables_equals_plain(dev, window_bits, groups):
-    """The table build against build_tables_plain on the card, every limb
-    and the validity, invalid and small-order keys included; one counted
-    launch per call."""
-    from cometbft_tpu_torch.ops import precompute as PR
+# each launch at every compiled shape with the other at the launcher's
+# choice, and both at the choice
+_PICK = (0, 0)
+_BUILD_PAIRS = ([(_PICK, _PICK)] + [(s, _PICK) for s in PR.BUILD_SHAPES]
+                + [(_PICK, s) for s in PR.BUILD_SHAPES])
 
+
+@pytest.mark.parametrize("shapes", _BUILD_PAIRS,
+                         ids=lambda p: f"{p[0][0]}x{p[0][1]}-{p[1][0]}x{p[1][1]}")
+@pytest.mark.parametrize("window_bits", [8, 4])
+def test_build_tables_equals_plain(dev, window_bits, shapes):
+    """The table build against build_tables_plain on the card, every limb
+    and the validity, invalid and small-order keys included, at each
+    launch shape; one counted launch per call."""
     pub = torch.as_tensor(_build_keys(3 if window_bits == 8 else 13, b"gpu-build-")).to(dev)
     before = _build.LAUNCHES["build_tables"]
-    table, valid = PR.build_tables_kernel(pub, window_bits, groups=groups)
+    table, valid = PR.build_tables_kernel(pub, window_bits, shapes=shapes)
     assert _build.LAUNCHES["build_tables"] == before + 1
     torch.cuda.synchronize()
     want_table, want_valid = PR.build_tables_plain(pub, window_bits)

@@ -63,7 +63,9 @@ def test_build_wrapper_takes_the_plain_version_on_the_cpu(monkeypatch):
     pub = torch.zeros((32, 3), dtype=torch.uint8)
     assert PR.build_tables_kernel(pub, 4) == "plain" and calls == [(pub, 4)]
     for bad in (dict(pub=pub, window_bits=5), dict(pub=pub.to(torch.int32), window_bits=4),
-                dict(pub=pub[:31], window_bits=8), dict(pub=pub, window_bits=4, groups=(2, 0))):
+                dict(pub=pub[:31], window_bits=8),
+                dict(pub=pub, window_bits=4, shapes=((2, 1), (0, 0))),
+                dict(pub=pub, window_bits=4, shapes=((0, 0),))):
         with pytest.raises(ValueError):
             PR.build_tables_kernel(**bad)
     assert len(calls) == 1

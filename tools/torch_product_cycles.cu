@@ -1,8 +1,9 @@
 // Cycles per GF(2^255-19) product of the verify kernels' group-level
 // multiply (cometbft_tpu_torch/csrc/field.cuh, fe::mul<G>) on one warp,
-// of the register-level product one thread per lane, and per point
-// formula of a lane on Q quarters of G threads (csrc/point.cuh's Team and
-// four-way formulas), on an NVIDIA GPU.  Built and run by
+// of the register-level product one thread per lane, per point formula
+// of a lane on Q quarters of G threads (csrc/point.cuh's Team and
+// four-way formulas), and of sha512_keyed's two-block chain for a lone
+// warp (csrc/sha512.cu), on an NVIDIA GPU.  Built and run by
 // tools/torch_product_cycles.py.
 //
 // One block of one warp runs `kReps` dependent products on operands in
@@ -17,6 +18,7 @@
 
 #include "../cometbft_tpu_torch/csrc/field.cuh"
 #include "../cometbft_tpu_torch/csrc/point.cuh"
+#include "../cometbft_tpu_torch/csrc/sha512.cu"
 
 namespace {
 
@@ -147,6 +149,79 @@ int report(const char* name, Kernel kernel, int smem_bytes) {
   return 0;
 }
 
+// sha512_keyed's latency floor: one warp of 32 lanes alone on the card
+// (as at a few hundred lanes, one warp per SM partition), its two
+// message blocks staged as the kernel stages them, then the cycles of
+// the two blocks' words and compression on one warp, one after the other
+// in a loop (two inlined copies of the unrolled compression ran 1.5 times
+// slower): the chain a lane on one thread cannot beat.  report_sha also
+// times the kernel itself (its schedule warp ahead of its rounds warp)
+// for one block of 32 lanes alone.
+__global__ void sha_chain(const uint8_t* buf, int64_t ld, int bucket, int nblocks,
+                          long long* cycles, uint8_t* out) {
+  __shared__ __align__(16) uint8_t stage[2][SROWS * LANES];
+  const int tid = threadIdx.x;
+  stage_block(stage[0], buf, ld, bucket, 0, LANES, 0, tid);
+  stage_block(stage[1], buf, ld, bucket, 0, LANES, 1, tid);
+  copy_wait();
+  __syncwarp();
+  KeyedLane s = keyed_begin(stage[0], tid, bucket, nblocks);
+  __syncwarp();
+  const long long t0 = clock64();
+#pragma unroll 1
+  for (int blk = 0; blk < s.used; ++blk) {
+    uint64_t w[16];
+    keyed_words(s, stage[blk & 1], tid, blk, w);
+    compress(s.st, w);
+  }
+  __syncwarp();
+  const long long t1 = clock64();
+  store_digest(s.st, out + tid, LANES);
+  if (tid == 0) cycles[0] = t1 - t0;
+}
+
+int report_sha() {
+  constexpr int bucket = 128, rows = 104 + bucket;  // the keyed rows of commit150
+  uint8_t host[rows * LANES];
+  for (int i = 0; i < rows * LANES; ++i) host[i] = static_cast<uint8_t>(i * 131 + 7);
+  for (int j = 0; j < LANES; ++j) {  // 120-byte messages: two blocks each
+    host[(96 + bucket) * LANES + j] = 120;
+    for (int k = 1; k < 4; ++k) host[(96 + bucket + k) * LANES + j] = 0;
+  }
+  uint8_t *d_buf = nullptr, *d_out = nullptr;
+  long long* d_cycles = nullptr;
+  long long cycles = 0;
+  if (cudaMalloc(&d_buf, sizeof(host)) != cudaSuccess || cudaMalloc(&d_out, 64 * LANES) != cudaSuccess ||
+      cudaMalloc(&d_cycles, sizeof(long long)) != cudaSuccess)
+    return 1;
+  cudaMemcpy(d_buf, host, sizeof(host), cudaMemcpyHostToDevice);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0);
+  cudaEventCreate(&e1);
+  for (int run = 0; run < 3; ++run) sha_chain<<<1, LANES>>>(d_buf, LANES, bucket, 2, d_cycles, d_out);
+  cudaEventRecord(e0);
+  for (int run = 0; run < 100; ++run) sha_chain<<<1, LANES>>>(d_buf, LANES, bucket, 2, d_cycles, d_out);
+  cudaEventRecord(e1);
+  if (cudaDeviceSynchronize() != cudaSuccess || cudaGetLastError() != cudaSuccess) return 1;
+  float ms = 0, kms = 0;
+  cudaEventElapsedTime(&ms, e0, e1);
+  cudaMemcpy(&cycles, d_cycles, sizeof(cycles), cudaMemcpyDeviceToHost);
+  for (int run = 0; run < 3; ++run) sha512_keyed_kernel<<<1, SPLIT>>>(d_buf, LANES, bucket, 2, d_out, LANES);
+  cudaEventRecord(e0);
+  for (int run = 0; run < 100; ++run) sha512_keyed_kernel<<<1, SPLIT>>>(d_buf, LANES, bucket, 2, d_out, LANES);
+  cudaEventRecord(e1);
+  if (cudaDeviceSynchronize() != cudaSuccess || cudaGetLastError() != cudaSuccess) return 1;
+  cudaEventElapsedTime(&kms, e0, e1);
+  printf("sha512_keyed, a lone warp: two blocks' words and compression %lld cycles on one "
+         "warp; that lone-warp launch (staging included) %.2f us back to back; the kernel "
+         "(schedule and rounds on two warps) on 32 lanes alone %.2f us back to back\n",
+         cycles, 1e3 * ms / 100, 1e3 * kms / 100);
+  cudaFree(d_buf);
+  cudaFree(d_out);
+  cudaFree(d_cycles);
+  return 0;
+}
+
 }  // namespace
 
 int main() {
@@ -166,5 +241,6 @@ int main() {
   bad |= report_formulas<0, 1>();
   bad |= report_formulas<1, 1>();
   bad |= report_formulas<4, 1>();
+  bad |= report_sha();
   return bad;
 }

@@ -9,7 +9,8 @@ build/torch_tools/ and runs it: one warp runs 2000 dependent products
 (fe::mul<G> for G = 32, 8, 1, and the one-thread register-level
 product); then one lane alone on the card runs 200 point doublings, 200
 point additions, 200 lane barriers and 200 limb-parallel steps on each
-generic-kernel shape (Q, G) and on the keyed kernel's one-group formulas.
+generic-kernel shape (Q, G) and on the keyed kernel's one-group formulas;
+then sha512_keyed's two-block chain for one warp alone on the card.
 Prints SM cycles for each, with the card's name and power limit.  Needs
 nvcc and a card; exits non-zero without them.
 """
