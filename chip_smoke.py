@@ -30,7 +30,9 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    compaction) by host clock and CUDA events; a warm verify must launch
    sha512_keyed and verify_keyed once per slice and no other kernel;
    then ten warm
-   verifies under torch.profiler for the device's busy share;
+   verifies under torch.profiler for the device's busy share, and
+   twenty unprofiled ones after them (the cost model learns from every
+   verify);
 5. the same for a 1024-validator commit (the 4-bit comb tables);
 6. a batch of more than 8192 lanes, through the MAX_LAUNCH slicing,
    with a profiled warm verify too;
@@ -74,11 +76,43 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    (the route these batches took before the generic tier), and
    ``models.commit.commit_verify_step`` on a (4, 150) batch against the
    oracle;
-10. a ``kernels`` JSON line, then the last line
+10. the dispatch ladder and the host tier, after the link's threshold
+   (``_measure_link_rtt`` and ``runtime_device_min_batch``, printed
+   after the build; commit150 takes the device unless n* > 150): the
+   host cells (host2, a 2-signature evidence check; host16 and host63,
+   commit150's first votes, one RLC check each; host63-invalid, one
+   altered message, so every lane is re-verified; host-bigmsg, 150
+   votes with one 5000-byte message) each take the host tier with its
+   reason, verdicts = the oracle's, wall and RLC-call time per
+   signature; CpuBatchVerifier alone on 150, 1024 and 4096 valid lanes
+   beside the keyed tier's warm p50 on the same lanes; the ladder's
+   bookkeeping on a warm commit150 verify (plan() beside the bare
+   lookup, execute() beside verify_arrays_keyed, and execute() with the
+   watchdog stubbed and with no-op metrics, in an order that rotates
+   every run, after printing what the cost model learned); then the
+   chaos phase: with demote_after 1 and a 1 s cool-down on an injected
+   clock, a device loss on keyed (generic answers), on keyed and
+   generic (host answers), a clean half-open trial past the cool-down
+   (keyed again), and a launch hang on keyed under a 1 s watchdog
+   budget (device_hangs_total counts 1, generic answers), every
+   batch's verdicts the oracle's and the transitions as expected.
+   After every phase but the chaos phase the ladder must hold no
+   demotion and no recorded fault, and the cost model must rank keyed
+   first for commit150's and commit1024's shape buckets;
+11. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
+    python3 chip_smoke.py --warm150 [TREE]
+
+builds the kernels of the port in TREE (default: this script's
+directory) and prints, as one JSON line, commit150's warm
+VerifyCommit p50 and its add / plan / execute split over 200 runs
+through ``create_batch_verifier``: run it on two trees in one call,
+in the order A, B, B, A, to compare them on one card.
+
 Imports torch, numpy and the port only.  Exits non-zero, printing no
-result, when no CUDA device is available.
+result, when no CUDA device is available.  The launch watchdog's
+daemon thread is stopped before it returns.
 """
 
 from __future__ import annotations
@@ -886,17 +920,24 @@ def check_fused(name: str, plan, expected, dev, prefixes=()) -> dict:
                 sweep=sweep, sha=dict(err=sha_err, ms=spfms, plain_ms=spms, bound=sha_bound))
 
 
-def profile_warm(name: str, triples, dev, runs: int = 10) -> None:
+def profile_warm(name: str, triples, dev, runs: int = 10, settle: int = 20) -> None:
     """``runs`` warm verifies under torch.profiler, per verify: the
     device's busy share (kernel and copy time over the wall), the
     kernels that take it, and the host operations that take the wall.
     (A window of one warm verify holds only ~4 events on the card, which
-    the profiler may not flush; ten hold enough.)"""
+    the profiler may not flush; ten hold enough.)  The profiler's
+    per-operation recording slows the host part of every verify it
+    records, and the dispatch ladder's cost model learns from those
+    verifies too, so ``settle`` unprofiled warm verifies follow: the
+    model's estimate (an EWMA, alpha 0.2) keeps ~1 % of the profiled
+    runs after 20."""
     from torch.profiler import ProfilerActivity, profile
 
     run_verify(triples, dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = sum(run_verify(triples, dev)[0] for _ in range(runs)) / runs
+    for _ in range(settle):
+        run_verify(triples, dev)
     dev_events, host = _split_events(prof)
     dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / runs
     if dev_ms <= 0:
@@ -1390,13 +1431,452 @@ def drive_10k(wide, wide_exp, dev, nkeys: int = 10000, nsample: int = 512) -> di
     return out
 
 
+# -- phase 10: the dispatch ladder and the host tier -------------------
+
+def check_ladder(phase: str) -> None:
+    """Outside the chaos phase the dispatch ladder must hold no fault:
+    no tier demoted, no transition recorded.  And the cost model must
+    rank keyed first for commit150's and commit1024's shape buckets (256
+    and 1024): no adopted order there puts another tier first, and no
+    tier's learned estimate beats keyed's by the reorder margin."""
+    from cometbft_tpu_torch.crypto import dispatch as D
+
+    snap = D.LADDER.snapshot()
+    demoted = [t for t, st in snap["tiers"].items() if st["demoted"] or st.get("demotions")]
+    if demoted or snap["transitions"]:
+        raise AssertionError(f"{phase}: the dispatch ladder recorded a fault outside the "
+                             f"chaos phase: demoted {demoted}, transitions "
+                             f"{snap['transitions']}")
+    cost = D.LADDER.cost_snapshot()
+    margin = 1.0 + cost["policy"]["margin"]
+    for bucket in (256, 1024):
+        est = {r["tier"]: r["sigs_per_sec"] for r in cost["table"]
+               if r["bucket"] == bucket and r["participating"]}
+        orders = [r["order"] for r in cost["orders"]
+                  if r["bucket"] == bucket and "keyed" in r["candidates"]]
+        faster = [t for t, v in est.items() if "keyed" in est and v > est["keyed"] * margin]
+        if faster or any(o[0] != "keyed" for o in orders):
+            raise AssertionError(f"{phase}: the cost model does not rank keyed first for "
+                                 f"bucket {bucket}: estimates (sigs/s) {est}, adopted "
+                                 f"orders {orders}")
+
+
+def threshold_phase(dev) -> int:
+    """The calibrated device threshold: the link's round trip
+    (_measure_link_rtt) and runtime_device_min_batch from it.  A batch
+    of commit150's 150 lanes must take the device unless n* > 150."""
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+
+    rtt = EV._measure_link_rtt(dev)
+    threshold = EV.runtime_device_min_batch(dev)
+    n_star = rtt / (EV._DEFAULT_T_CPU_SIG - EV._DEFAULT_T_DEV_SIG)
+    print(f"threshold: link round trip {rtt * 1e6:.1f} us (least of 3 8-byte round trips), "
+          f"n* = rtt / (t_cpu - t_dev) = {n_star:.2f} with t_cpu "
+          f"{EV._DEFAULT_T_CPU_SIG * 1e6:.0f} us and t_dev {EV._DEFAULT_T_DEV_SIG * 1e6:.0f} us "
+          f"per signature: {EV.crossover_batch(rtt)}; runtime_device_min_batch (its own "
+          f"probe) = {threshold}")
+    if threshold > 150:
+        print(f"  n* exceeds commit150's 150 lanes: the round trip alone costs more than the "
+              f"host tier's {150 * EV._DEFAULT_T_CPU_SIG * 1e3:.2f} ms for 150 signatures, so "
+              f"commit150 takes the host tier and the keyed phases below fail")
+    return threshold
+
+
+def valid_commit(nval: int, tag: bytes):
+    """make_commit's votes without the planted lanes and without the
+    oracle pass (every signature valid by construction)."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+
+    rs = np.random.RandomState(SEED + nval)
+    privs = [ed.priv_key_from_secret(tag + b"-%d" % i) for i in range(nval)]
+    triples = []
+    for i, priv in enumerate(privs):
+        head = b"vote|h=1|r=0|val=%05d|" % i
+        msg = head + rs.randint(0, 256, 120 - len(head)).astype(np.uint8).tobytes()
+        triples.append([priv.pub_key().bytes(), msg, priv.sign(msg)])
+    return triples, privs
+
+
+def host_rlc_ms(triples, reps: int) -> tuple[float, float]:
+    """p50 ms of one ``rlc_verify`` call on ``triples`` (the Python
+    scalars and the C check), and of its C check alone."""
+    from cometbft_tpu_torch.crypto import ed25519_native as nat
+
+    class Timed:
+        """The library, with its one call timed."""
+
+        def __init__(self, lib):
+            self.lib, self.secs = lib, 0.0
+
+        def cmt_ed25519_rlc_verify(self, *args):
+            t0 = time.perf_counter()
+            rc = self.lib.cmt_ed25519_rlc_verify(*args)
+            self.secs = time.perf_counter() - t0
+            return rc
+
+    lib = Timed(nat.load())
+    entries = [tuple(t) for t in triples]
+    lat, c_lat = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        nat.rlc_verify(lib, entries)
+        lat.append(time.perf_counter() - t0)
+        c_lat.append(lib.secs)
+    return 1e3 * pct(lat, 50), 1e3 * pct(c_lat, 50)
+
+
+def host_cells(dev, threshold: int) -> dict:
+    """Batches under the threshold, or with a message over 4096 bytes,
+    through the entry point: each takes the host tier with the reason
+    expected, verdicts = the oracle's on every lane; wall ms and us per
+    signature through the verifier and for the RLC call alone."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import ed25519_native as nat
+    from cometbft_tpu_torch.crypto import edwards as E
+    from cometbft_tpu_torch.ops import _build
+
+    valid, privs = valid_commit(150, b"validator")
+    # duplicate-vote evidence: one validator's two conflicting votes
+    pa, pb = b"vote|h=7|r=0|block=A", b"vote|h=7|r=0|block=B"
+    evidence = [[privs[9].pub_key().bytes(), m, privs[9].sign(m)] for m in (pa, pb)]
+    invalid63 = [list(t) for t in valid[:63]]
+    invalid63[17][1] = invalid63[17][1][:-1] + bytes([invalid63[17][1][-1] ^ 1])
+    big = [list(t) for t in valid]
+    big_msg = b"vote|h=1|r=0|val=00042|" + bytes(5000 - 23)
+    big[42] = [privs[42].pub_key().bytes(), big_msg, privs[42].sign(big_msg)]
+    cells = [
+        ("host2", evidence, "batch_size", 20),
+        ("host16", valid[:16], "batch_size", 20),
+        ("host63", valid[:63], "batch_size", 20),
+        ("host63-invalid", invalid63, "batch_size", 3),
+        ("host-bigmsg", big, "msg_too_large" if threshold <= 150 else "batch_size", 10),
+    ]
+    out = {}
+    for name, triples, reason, reps in cells:
+        expected = [E.verify_zip215(*t) for t in triples]
+        rlc_on = len(triples) >= ed.CpuBatchVerifier.NATIVE_MIN_BATCH
+        lat = []
+        _build.reset_launches()
+        for _ in range(reps):
+            dt, bv, plan, results, _ = run_verify(triples, dev)
+            if bv.last_tier != "host" or plan.route != "host" or plan.reason != reason:
+                raise AssertionError(f"{name}: tier {bv.last_tier}, route {plan.route}, "
+                                     f"reason {plan.reason}; expected host, {reason}")
+            if results != expected:
+                raise AssertionError(f"{name}: verdicts differ from the oracle")
+            lat.append(dt)
+        if any(_build.LAUNCHES.values()):
+            raise AssertionError(f"{name}: the host tier launched {_build.LAUNCHES}")
+        torch.cuda.synchronize()
+        p50 = 1e3 * pct(lat, 50)
+        rlc, c_ms = host_rlc_ms(triples, reps) if rlc_on else (None, None)
+        n = len(triples)
+        out[name] = dict(n=n, p50_ms=p50, rlc_ms=rlc, c_ms=c_ms)
+        print(f"{name}: {n} lanes ({n - sum(expected)} invalid), tier host ({reason}), = "
+              f"oracle; p50 {p50:.3f} ms over {reps} verifies, {1e3 * p50 / n:.1f} us per "
+              f"signature; " + (f"rlc_verify alone {rlc:.3f} ms, {1e3 * rlc / n:.1f} us per "
+                               f"signature, its C check {c_ms:.3f} ms" if rlc is not None else
+                               f"under NATIVE_MIN_BATCH = {ed.CpuBatchVerifier.NATIVE_MIN_BATCH}"
+                               ": the per-signature oracle only"))
+    if nat.rlc_verify(nat.load(), [tuple(t) for t in invalid63]) is not False:
+        raise AssertionError("host63-invalid: the RLC check accepted an altered message")
+    return out
+
+
+def host_at_device_sizes(dev, commit150, exp150, p50_150, p50_1k, wide) -> dict:
+    """CpuBatchVerifier alone at the device tiers' sizes, beside the
+    keyed tier's warm p50 on the same lanes: the crossover the cost
+    model learns.  All-valid batches are one RLC check; commit150 with
+    its planted lanes also pays the per-signature re-verify."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    def host_ms(triples, reps):
+        lat = []
+        for _ in range(reps):
+            cpu = ed.CpuBatchVerifier()
+            for p, m, s in triples:
+                cpu.add(ed.Ed25519PubKey(p), m, s)
+            t0 = time.perf_counter()
+            ok, results = cpu.verify()
+            lat.append(time.perf_counter() - t0)
+        return 1e3 * pct(lat, 50), results
+
+    valid150, _ = valid_commit(150, b"validator")
+    valid1k, _ = valid_commit(1024, b"validator1k")
+    wide4k = [list(t) for t in wide[:4096]]
+    wide4k[100][1] = wide4k[100][1][:-1]          # make_wide's altered lane, restored
+    cache = PR.KeyTableCache(dev)
+    run_verify(wide4k, dev, cache)
+    lat = []
+    for _ in range(10):
+        dt, bv, _, results, _ = run_verify(wide4k, dev, cache)
+        if bv.last_tier != "keyed" or not all(results):
+            raise AssertionError(f"wide4096: tier {bv.last_tier} or verdicts")
+        lat.append(dt)
+    p50_4k = 1e3 * pct(lat, 50)
+    cache.clear()
+    out = {}
+    for name, triples, keyed_ms, reps in (("commit150", valid150, p50_150, 10),
+                                          ("commit1024", valid1k, p50_1k, 5),
+                                          ("wide4096", wide4k, p50_4k, 3)):
+        ms, results = host_ms(triples, reps)
+        if not all(results):
+            raise AssertionError(f"host tier at {name}: a valid signature rejected")
+        rlc, c_ms = host_rlc_ms(triples, reps)
+        n = len(triples)
+        out[name] = dict(n=n, host_ms=ms, rlc_ms=rlc, c_ms=c_ms, keyed_ms=keyed_ms)
+        print(f"host tier at device size, {name} ({n} lanes, all valid): CpuBatchVerifier "
+              f"{ms:.3f} ms, {1e3 * ms / n:.2f} us per signature (rlc_verify alone {rlc:.3f} "
+              f"ms, its C check {c_ms:.3f} ms); keyed tier warm p50 {keyed_ms:.3f} ms, "
+              f"{1e3 * keyed_ms / n:.2f} us per "
+              f"signature; host / keyed {ms / keyed_ms:.2f}x")
+    ms, results = host_ms(commit150, 1)
+    if results != exp150:
+        raise AssertionError("host tier on commit150: verdicts differ from the oracle")
+    out["commit150-planted"] = dict(n=len(commit150), host_ms=ms)
+    print(f"host tier on commit150 with its planted lanes: {ms:.1f} ms ({1e3 * ms / 150:.0f} us "
+          f"per signature): the RLC check fails and every lane is re-verified by the oracle")
+    return out
+
+
+def walk_overhead(dev, commit150, exp150, runs: int = 300) -> dict:
+    """The ladder's bookkeeping on a warm commit150 verify: plan() beside
+    the bare lookup it wraps, and execute() beside verify_arrays_keyed on
+    the same plan, and beside itself with the launch watchdog stubbed
+    out and with the metrics sinks set to no-ops; each ends in a
+    synchronize, and their order rotates every run, so no variant always
+    follows the same one.  Then the whole verify's p50 (add, plan,
+    execute).  The cost model's estimates for commit150's shape bucket
+    are printed first; the ladder is not reset."""
+    import torch
+
+    from cometbft_tpu_torch import metrics as M
+    from cometbft_tpu_torch.crypto import dispatch as D
+    from cometbft_tpu_torch.crypto import health as H
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    cost = D.LADDER.cost_snapshot()
+    learned = [(r["tier"], round(r["sigs_per_sec"]), r["samples"]) for r in cost["table"]
+               if r["bucket"] == 256]
+    orders = [r["order"] for r in cost["orders"] if r["bucket"] == 256]
+    print(f"cost model before the walk phase, bucket 256: (tier, sigs/s, samples) {learned}; "
+          f"adopted orders {orders or 'static'}")
+    pubs = [p for p, _, _ in commit150]
+    cache = PR.table_cache(dev)
+    _, bv, plan, _, _ = run_verify(commit150, dev)
+    cm, hm = M.crypto_metrics(), M.health_metrics()
+    times = {k: [] for k in ("plan", "bare_plan", "execute", "no_watchdog", "no_metrics",
+                             "direct", "whole")}
+    phases = []
+    p = bv.plan()
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[key].append(time.perf_counter() - t0)
+        return out
+
+    def bare():
+        entry = cache.lookup_or_build(pubs)
+        entry.key_ids(pubs)
+        np.frombuffer(b"".join(pubs), dtype=np.uint8).reshape(-1, 32)
+        np.frombuffer(b"".join(s for _, _, s in commit150), dtype=np.uint8).reshape(-1, 64)
+
+    def walk(key):
+        ok, res = timed(key, lambda: bv.execute(p))
+        if res != exp150 or bv.last_tier != "keyed":
+            raise AssertionError(f"walk overhead ({key}): tier {bv.last_tier} of walk "
+                                 f"{p.tiers}, verdicts = oracle {res == exp150}; cost model "
+                                 f"{D.LADDER.cost_snapshot()}")
+
+    def no_watchdog():
+        H.WATCHDOG.arm = lambda tier, batch=0: 0
+        H.WATCHDOG.disarm = lambda token: False
+        try:
+            walk("no_watchdog")
+        finally:
+            del H.WATCHDOG.arm, H.WATCHDOG.disarm
+
+    def no_metrics():
+        M.install_crypto_metrics(None)
+        M.install_health_metrics(None)
+        try:
+            walk("no_metrics")
+        finally:
+            M.install_crypto_metrics(cm)
+            M.install_health_metrics(hm)
+
+    def direct():
+        out = timed("direct", lambda: EV.verify_arrays_keyed(p.entry, p.key_ids, p.pub, p.sig,
+                                                             p.msgs))
+        if out.tolist() != exp150:
+            raise AssertionError("walk overhead: verify_arrays_keyed differs from the oracle")
+
+    def whole():
+        dt, bv2, _, res, split = run_verify(commit150, dev)
+        if res != exp150 or bv2.last_tier != "keyed":
+            raise AssertionError(f"walk overhead: a whole verify ran {bv2.last_tier}")
+        times["whole"].append(dt)
+        phases.append(split)
+
+    variants = [lambda: timed("plan", bv.plan), lambda: timed("bare_plan", bare),
+                lambda: walk("execute"), no_watchdog, no_metrics, direct, whole]
+    for r in range(runs):
+        for k in range(len(variants)):
+            variants[(r + k) % len(variants)]()
+    out = {k: 1e3 * pct(v, 50) for k, v in times.items()}
+    add_ms, plan_ms, exec_ms = (1e3 * pct([s[j] for s in phases], 50) for j in range(3))
+    print(f"walk overhead, commit150 warm, {runs} runs, order rotated, p50: plan "
+          f"{out['plan']:.3f} ms vs the bare lookup {out['bare_plan']:.3f} ms "
+          f"(+{out['plan'] - out['bare_plan']:.3f}); execute {out['execute']:.3f} ms vs "
+          f"verify_arrays_keyed {out['direct']:.3f} ms (+{out['execute'] - out['direct']:.3f}); "
+          f"the ladder's bookkeeping "
+          f"{1e3 * (out['plan'] - out['bare_plan'] + out['execute'] - out['direct']):.0f} us "
+          f"per verify; execute with the watchdog stubbed {out['no_watchdog']:.3f} ms, with "
+          f"no-op metrics {out['no_metrics']:.3f} ms")
+    print(f"  warm VerifyCommit through the ladder: p50 {out['whole']:.3f} ms (add {add_ms:.3f}"
+          f" / plan {plan_ms:.3f} / execute {exec_ms:.3f}); the tree before the ladder: "
+          f"chip_smoke.py --warm150 on it, in the same call")
+    return out
+
+
+def warm150(runs: int = 200) -> int:
+    """commit150's warm VerifyCommit p50 and its add / plan / execute
+    split, through create_batch_verifier, on the port found first on
+    sys.path, as one JSON line.  Uses only what every tree of the port
+    has since the keyed tier."""
+    import torch
+
+    from cometbft_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import cometbft_tpu_torch
+
+    dev = torch.device("cuda", 0)
+    _build.build_all()
+    commit, expected = make_commit(150, b"validator", plant=True)
+    lat, phases = [], []
+    for i in range(runs + 5):
+        dt, bv, _, results, split = run_verify(commit, dev)
+        if results != expected or bv.last_tier != "keyed":
+            raise AssertionError(f"warm150: run {i} tier {bv.last_tier}, verdicts = oracle "
+                                 f"{results == expected}")
+        if i >= 5:
+            lat.append(dt)
+            phases.append(split)
+    add_ms, plan_ms, exec_ms = (1e3 * pct([s[j] for s in phases], 50) for j in range(3))
+    print(json.dumps({"tree": os.path.dirname(os.path.abspath(cometbft_tpu_torch.__file__)),
+                      "runs": runs, "p50_ms": 1e3 * pct(lat, 50), "add_ms": add_ms,
+                      "plan_ms": plan_ms, "execute_ms": exec_ms, "smi": smi_line()}))
+    return 0
+
+
+def chaos_phase(dev, commit150, exp150) -> list:
+    """The ladder under planted faults, with demote_after 1 and a 1 s
+    cool-down on an injected clock: a device loss on keyed (generic
+    answers), then on generic too (host answers); past the cool-down a
+    clean half-open trial re-admits keyed; a launch hang on keyed under a
+    1 s watchdog budget (the watchdog fires, device_hangs_total counts 1,
+    generic answers).  Every batch's verdicts = the oracle's.  The
+    ladder and chaos are reset before and after."""
+    from cometbft_tpu_torch import metrics as M
+    from cometbft_tpu_torch.crypto import dispatch as D
+    from cometbft_tpu_torch.crypto import health as H
+
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    clock = Clock()
+    D.LADDER.reset(demote_after=1, cooldown_s=1.0, cooldown_max_s=8.0, clock=clock)
+    hangs0 = M.health_metrics().device_hangs_total.labels().get()
+    budget = H.WATCHDOG.budget_s
+    steps = []
+    try:
+        def step(what, want_tier):
+            t0 = time.perf_counter()
+            _, bv, plan, results, _ = run_verify(commit150, dev)
+            secs = time.perf_counter() - t0
+            if bv.last_tier != want_tier or results != exp150:
+                raise AssertionError(f"chaos, {what}: tier {bv.last_tier} (expected "
+                                     f"{want_tier}), verdicts = oracle {results == exp150}")
+            steps.append((what, plan.tiers, bv.last_tier, secs))
+            print(f"  chaos, {what}: walk {plan.tiers}, answered by {bv.last_tier} in "
+                  f"{secs * 1e3:.1f} ms, = oracle")
+
+        D.CHAOS.load(D.ChaosPlan.parse("device_loss@0-3600"), tiers=("keyed",))
+        step("device_loss on keyed", "generic")
+        keyed = D.LADDER.snapshot()["tiers"]["keyed"]
+        if not keyed["demoted"] or keyed["last_reason"] != "chaos:device_loss":
+            raise AssertionError(f"chaos: keyed not demoted as expected: {keyed}")
+        D.CHAOS.load(D.ChaosPlan.parse("device_loss@0-3600"), tiers=("keyed", "generic"))
+        step("device_loss on keyed and generic", "host")
+        clock.t += 1.5
+        D.CHAOS.load(None)
+        step("clean, past the cool-down (half-open trial)", "keyed")
+        step("clean, next verify", "keyed")
+        H.WATCHDOG.budget_s = 1.0
+        D.CHAOS.load(D.ChaosPlan.parse("launch_hang@0-3600"), tiers=("keyed",))
+        step("launch_hang on keyed, 1 s watchdog budget", "generic")
+        deadline = time.time() + 10
+        while M.health_metrics().device_hangs_total.labels().get() == hangs0:
+            if time.time() > deadline:
+                raise AssertionError("chaos: the watchdog never counted the hang")
+            time.sleep(0.01)
+        hangs = M.health_metrics().device_hangs_total.labels().get() - hangs0
+        snap = D.LADDER.snapshot()
+        trail = [(e["kind"], e["from"], e["to"], e["reason"]) for e in snap["transitions"]]
+        want = [("demote", "keyed", "generic", "chaos:device_loss"),
+                ("demote", "generic", "host", "chaos:device_loss"),
+                ("promote", "keyed", "keyed", "trial_success"),
+                ("demote", "keyed", "generic", "watchdog"),
+                ("demote", "keyed", "generic", "chaos:launch_hang"),
+                ("promote", "generic", "generic", "trial_success")]
+        # one back-off step for the hang: 1 s, doubled at the first demotion
+        # and again at the watchdog's, not at the chaos fault's duplicate
+        if trail != want or hangs != 1 or snap["tiers"]["keyed"]["next_cooldown_s"] != 4.0:
+            raise AssertionError(f"chaos: transitions {trail}, hangs {hangs}, keyed "
+                                 f"{snap['tiers']['keyed']}")
+        print(f"chaos: transitions {trail}; device_hangs_total +{hangs:.0f}; keyed "
+              f"next_cooldown_s {snap['tiers']['keyed']['next_cooldown_s']}")
+    finally:
+        H.WATCHDOG.budget_s = budget
+        D.CHAOS.load(None)
+        D.LADDER.reset()
+    return steps
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--warm150"]:
+        if len(sys.argv) > 2:
+            sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        return warm150()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from cometbft_tpu_torch.crypto import health as H
+
+    try:
+        return run_all(torch)
+    finally:
+        H.WATCHDOG.stop()
+
+
+def run_all(torch) -> int:
+    from cometbft_tpu_torch import metrics as M
     from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.utils.metrics import Registry
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1442,6 +1922,10 @@ def main() -> int:
             elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                 spills.append(f"{entry}: {line.strip()}")
     print("ptxas spills: " + ("none" if not spills else "; ".join(spills)))
+    registry = Registry()
+    M.install_crypto_metrics(M.CryptoMetrics(registry))
+    M.install_health_metrics(M.HealthMetrics(registry))
+    threshold = threshold_phase(dev)
 
     print("kernels vs plain versions: tolerance exact (max |kernel - plain| must be 0; "
           "the arithmetic is integer)")
@@ -1458,11 +1942,13 @@ def main() -> int:
     b8_s = time.perf_counter() - t0
     main150 = drive("commit150", commit150, exp150, dev, warm_runs=100, window_bits=8,
                     builds=True, b8_s=b8_s)
+    check_ladder("commit150")
     profile_warm("commit150", commit150, dev)
     vk150 = check_fused("commit150", main150["plan"], exp150, dev)
 
     main1k = drive("commit1024", commit1k, exp1k, dev, warm_runs=20, window_bits=4,
                    builds=True)
+    check_ladder("commit1024")
     check_fused("commit1024", main1k["plan"], exp1k, dev)
 
     # > 8192 lanes: the 150-validator commit repeated across heights,
@@ -1475,6 +1961,7 @@ def main() -> int:
         big_exp[pos] = False
     # the tables are warm from commit150: nothing is built here
     chunked = drive("chunked", big, big_exp, dev, warm_runs=5, window_bits=8, builds=False)
+    check_ladder("chunked")
     profile_warm("chunked", big, dev, runs=3)
     check_fused("chunked", chunked["plan"], big_exp, dev, prefixes=(512, 2048, 4096))
 
@@ -1486,8 +1973,10 @@ def main() -> int:
     rotation("evict", *rot_args, cap_bytes=200 * kb8, evicts=True)
     rotation("compact", *rot_args, cap_bytes=256 * kb8, evicts=True,
              prior=(wide[20:126], wide_exp[20:126]))
+    check_ladder("rotations")
     # phase 8: the largest set in the repo's sources, keyed at 4-bit
     drive_10k(wide, wide_exp, dev)
+    check_ladder("commit10k")
 
     # phase 9: the same cells on the generic tier, the tables bypassed by
     # a table limit of 0 for the phase
@@ -1503,11 +1992,27 @@ def main() -> int:
                       prefixes=(256, 512, 1024, 2048, 4096))
     finally:
         PR.TABLE_MAX_KEYS = limit
+    check_ladder("generic150, generic1024, generic-chunked")
     # a set over the default limit takes the generic tier by itself
     drive_generic("generic-wide", wide, wide_exp, dev, warm_runs=5,
                   why=f"{len(wide)} distinct keys > TABLE_MAX_KEYS = {PR.TABLE_MAX_KEYS}")
+    check_ladder("generic-wide")
     oracle_floor(commit150)
     check_commit_step(commit150, exp150, dev)
+
+    # phase 10: the host tier and the dispatch ladder
+    host_cells(dev, threshold)
+    check_ladder("host cells")
+    host_at_device_sizes(dev, commit150, exp150, main150["p50_ms"], main1k["p50_ms"], wide)
+    check_ladder("host tier at device sizes")
+    walk_overhead(dev, commit150, exp150)
+    check_ladder("walk overhead")
+    chaos_phase(dev, commit150, exp150)
+    check_ladder("after the chaos phase")
+    for line in registry.expose().splitlines():
+        if line.startswith(("cometbft_crypto_dispatch_tier", "cometbft_crypto_dispatch_decisions",
+                            "cometbft_crypto_device_hangs_total", "cometbft_crypto_key_pool")):
+            print(f"  metric {line}")
 
     kernels = []
     for kname, key in (("fe_mul", ("fe_mul", 256)), ("fe_sq", ("fe_sq", 256, 1)),

@@ -10,10 +10,19 @@ own copy.
 Layout mirrors the reference:
 
   utils/env.py          env readers + the device resolver
+  utils/metrics.py      Prometheus registry and text exposition
+  utils/flight.py       the flight recorder (recent events)
+  metrics/__init__.py   CryptoMetrics, HealthMetrics and their sinks
   crypto/edwards.py     pure-Python big-int oracle (host constants, signing)
-  crypto/ed25519.py     Ed25519 key types over the oracle
+  crypto/ed25519.py     Ed25519 key types over the oracle; CpuBatchVerifier,
+                        the host tier
+  crypto/ed25519_native.py  ctypes binding of the host RLC check
+                        (csrc/host/ed25519_batch.cpp, built with g++)
+  crypto/dispatch.py    the dispatch ladder, chaos plan and cost model
+  crypto/health.py      the launch watchdog and busy/idle accounting
   crypto/batch.py       create_batch_verifier -- the entry point
-  ops/_build.py         nvcc build of csrc/*.cu, loaded with ctypes
+  ops/_build.py         nvcc build of csrc/*.cu and g++ build of
+                        csrc/host/*.cpp, loaded with ctypes
   ops/field.py          GF(2^255-19) limbs; fe_mul / fe_sq CUDA kernels
   ops/sha512.py         SHA-512; sha512_padded CUDA kernel
   ops/scalar.py         arithmetic mod L
@@ -22,7 +31,8 @@ Layout mirrors the reference:
   ops/precompute.py     per-validator comb tables (build_tables CUDA
                         kernel) + the key-table pool
   ops/ed25519_verify.py the keyed and generic verify paths +
-                        TorchBatchVerifier
+                        TorchBatchVerifier (the ladder's walk) and the
+                        calibrated device threshold
   models/commit.py      commit_verify_step: the generic tier as one step
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -1,0 +1,180 @@
+"""The crypto plane's metrics structs: ``CryptoMetrics`` and
+``HealthMetrics`` with their process-wide sinks (a copy of
+cometbft_tpu/metrics/__init__.py:630-1027, the series the port writes).
+
+Each struct takes a ``utils.metrics.Registry``, or None for no-op
+metrics (the reference's NopMetrics).  The sinks are no-ops until a
+caller installs a real struct (``install_crypto_metrics``,
+``install_health_metrics``); the last one installed wins.  Names and
+labels are the reference's, so a dashboard reads both packages alike.
+"""
+
+from __future__ import annotations
+
+from cometbft_tpu_torch.utils.metrics import DEFAULT_TIME_BUCKETS, Registry
+
+
+class _Nop:
+    def inc(self, amount: float = 1.0) -> None:
+        pass
+
+    def set(self, value: float) -> None:
+        pass
+
+    def observe(self, value: float) -> None:
+        pass
+
+    def labels(self, **kv):
+        return self
+
+    def child(self, *values):
+        return self
+
+
+_NOP = _Nop()
+
+
+class CryptoMetrics:
+    """What the verify path did: launches, routing decisions, the
+    dispatch ladder's tiers and transitions, kernel and host-verify
+    wall time, and the key-table pool's occupancy.  The verify queue's
+    series (``verify_queue_*``) stay no-ops until the queue is ported."""
+
+    def __init__(self, reg: Registry | None = None):
+        self.verify_queue_depth = self.verify_queue_inflight = _NOP
+        self.verify_queue_submitted = self.verify_queue_batch_size = _NOP
+        self.verify_queue_spec_cache = self.verify_queue_prefetch_depth = _NOP
+        if reg is None:
+            self.batch_verify_launches = _NOP
+            self.batch_verify_batch_size = _NOP
+            self.dispatch_decisions = _NOP
+            self.dispatch_tier = _NOP
+            self.dispatch_route = _NOP
+            self.route_reorders_total = _NOP
+            self.dispatch_demotions_total = _NOP
+            self.dispatch_promotions_total = _NOP
+            self.dispatch_current_tier = _NOP
+            self.kernel_time_seconds = _NOP
+            self.host_verify_time_seconds = _NOP
+            self.key_pool_keys = self.key_pool_capacity = _NOP
+            self.key_pool_builds = self.key_pool_evictions = _NOP
+            return
+        s = "crypto"
+        self.batch_verify_launches = reg.counter(
+            s, "batch_verify_launches",
+            "Batch-verify launches by kernel (host_rlc: one native RLC check).",
+            labels=("kernel",))
+        self.batch_verify_batch_size = reg.histogram(
+            s, "batch_verify_batch_size", "Signatures per batch-verify call.",
+            buckets=(8, 16, 32, 64, 128, 256, 512, 1024, 4096, 16384))
+        self.dispatch_decisions = reg.counter(
+            s, "dispatch_decisions",
+            "Device-vs-host routing decisions, by route and reason "
+            "(calibration | batch_size | keyed_warm | msg_too_large | ladder_demoted).",
+            labels=("route", "reason"))
+        self.dispatch_tier = reg.counter(
+            s, "dispatch_tier",
+            "Dispatch-ladder tier that answered each batch (keyed | generic | host | "
+            "python), recorded at the ladder's one per-batch accounting point.",
+            labels=("tier",))
+        self.dispatch_route = reg.counter(
+            s, "dispatch_route",
+            "The tier plan() placed first in the walk, per pow2 shape bucket, and "
+            "where that placement came from (static | learned | resample).",
+            labels=("tier", "bucket", "source"))
+        self.route_reorders_total = reg.counter(
+            s, "route_reorders_total",
+            "Cost-model order adoptions per shape bucket.",
+            labels=("bucket",))
+        self.dispatch_demotions_total = reg.counter(
+            s, "dispatch_demotions_total",
+            "Dispatch-ladder demotions: `from` the demoted tier, `to` the next "
+            "admissible rung, `reason` the failure class (watchdog | probe_failures | "
+            "chaos:<kind> | launch:<ExcType> | table_lookup:<ExcType>).",
+            labels=("from", "to", "reason"))
+        self.dispatch_promotions_total = reg.counter(
+            s, "dispatch_promotions_total",
+            "Dispatch-ladder re-admissions of a demoted tier.",
+            labels=("tier",))
+        self.dispatch_current_tier = reg.gauge(
+            s, "dispatch_current_tier",
+            "One-hot gauge of the best currently admissible tier known to this process.",
+            labels=("tier",))
+        self.kernel_time_seconds = reg.histogram(
+            s, "kernel_time_seconds",
+            "Wall seconds per device batch verification (launch through the "
+            "verdicts' copy to the host).",
+            buckets=DEFAULT_TIME_BUCKETS)
+        self.host_verify_time_seconds = reg.histogram(
+            s, "host_verify_time_seconds", "Wall seconds per host batch verification.",
+            buckets=DEFAULT_TIME_BUCKETS)
+        self.key_pool_keys = reg.gauge(
+            s, "key_pool_keys", "Validator keys resident in the device comb-table pool.",
+            labels=("window_bits",))
+        self.key_pool_capacity = reg.gauge(
+            s, "key_pool_capacity", "Slot capacity of the device comb-table pool.",
+            labels=("window_bits",))
+        self.key_pool_builds = reg.counter(
+            s, "key_pool_builds", "Per-key comb-table pages built on the device.")
+        self.key_pool_evictions = reg.counter(
+            s, "key_pool_evictions", "Key pages evicted from the device comb-table pool.")
+
+
+class HealthMetrics:
+    """Whether the device is healthy enough to keep verifying: launch
+    watchdog overruns, busy and idle time between launches and the
+    queue-wait half of the launch split.  (The canary prober's series
+    come with the prober.)"""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.device_hangs_total = _NOP
+            self.device_busy_seconds_total = _NOP
+            self.device_idle_seconds_total = _NOP
+            self.launch_queue_wait_seconds = _NOP
+            return
+        s = "crypto"
+        self.device_hangs_total = reg.counter(
+            s, "device_hangs_total",
+            "Device launches that exceeded the launch watchdog's budget.")
+        self.device_busy_seconds_total = reg.counter(
+            s, "device_busy_seconds_total",
+            "Wall seconds inside batch-verify launches (launch through the verdicts' "
+            "copy to the host), per device.",
+            labels=("device",))
+        self.device_idle_seconds_total = reg.counter(
+            s, "device_idle_seconds_total",
+            "Wall seconds the device sat idle between batch-verify launches, per device.",
+            labels=("device",))
+        self.launch_queue_wait_seconds = reg.histogram(
+            s, "launch_queue_wait_seconds",
+            "Host seconds between a batch's plan and its device launch.",
+            buckets=DEFAULT_TIME_BUCKETS)
+
+
+_CRYPTO = CryptoMetrics(None)
+_HEALTH = HealthMetrics(None)
+
+
+def crypto_metrics() -> CryptoMetrics:
+    """The installed crypto-plane sink (never None)."""
+    return _CRYPTO
+
+
+def install_crypto_metrics(metrics: CryptoMetrics | None) -> None:
+    """Install ``metrics`` as the process-wide crypto sink (None resets
+    to the no-op)."""
+    global _CRYPTO
+    _CRYPTO = metrics if metrics is not None else CryptoMetrics(None)
+
+
+def health_metrics() -> HealthMetrics:
+    """The installed device-health sink (never None)."""
+    return _HEALTH
+
+
+def install_health_metrics(metrics: HealthMetrics | None) -> None:
+    """Install ``metrics`` as the process-wide health sink (None resets
+    to the no-op)."""
+    global _HEALTH
+    _HEALTH = metrics if metrics is not None else HealthMetrics(None)

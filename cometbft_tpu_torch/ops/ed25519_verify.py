@@ -29,16 +29,30 @@ padded to a power-of-two batch and a message-length bucket.  Batches
 wider than MAX_LAUNCH run as a loop of MAX_LAUNCH-lane slices; the
 slices' results are concatenated on the device and come back with one
 copy per batch.
+
+``TorchBatchVerifier`` routes each batch down the dispatch ladder
+(crypto/dispatch.py): keyed, generic, then the host tier (one native
+RLC check, crypto/ed25519.py ``CpuBatchVerifier``) and the
+per-signature oracle as the floor.  Below the calibrated device
+threshold (``runtime_device_min_batch``), or with a message over 4096
+bytes, a batch takes the host tier.  Only a typed tier fault (a chaos
+fault, a launch the watchdog declared hung) moves a batch down the
+walk; a kernel that fails to build or to launch raises to the caller.
 """
 
 from __future__ import annotations
+
+import functools
+import time
 
 import numpy as np
 import torch
 
 from cometbft_tpu_torch.crypto import BatchVerifier, PubKey
+from cometbft_tpu_torch.crypto import dispatch as _dispatch
 from cometbft_tpu_torch.crypto import ed25519 as _ed
-from cometbft_tpu_torch.crypto import edwards as _ref
+from cometbft_tpu_torch.crypto import health as _health
+from cometbft_tpu_torch.metrics import crypto_metrics as _crypto_metrics
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import curve as C
 from cometbft_tpu_torch.ops import field as F
@@ -56,7 +70,7 @@ _MIN_BATCH = 8
 MAX_LAUNCH = 8192
 
 #: Smallest batch that takes the device when its tables are already
-#: warm; below it the per-signature floor runs.
+#: warm, and the least calibrated threshold; below it the host tier runs.
 DEVICE_MIN_BATCH = 64
 
 #: Threads per lane that the verify_keyed kernel is compiled for
@@ -399,16 +413,73 @@ def verify_arrays(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes],
     return out.cpu().numpy()[: len(msgs)]
 
 
+#: the threshold's per-signature costs: the host tier's (t_cpu), 48.4 us
+#: on commit150's 150 valid lanes on the host CPU of an H100 80GB HBM3
+#: machine, and the warm keyed tier's (t_dev), 7.4 us on the card at the
+#: same batch (chip_smoke.py's host-tier phase).  With them n* stays
+#: under DEVICE_MIN_BATCH until the link's round trip passes 2.6 ms.
+_DEFAULT_T_CPU_SIG = 48.4e-6
+_DEFAULT_T_DEV_SIG = 7.4e-6
+
+#: the CPU "device": the device tiers' plain versions are slower than
+#: the host tier at every size, so nothing is routed to them
+CPU_SENTINEL = 1 << 30
+
+def _measure_link_rtt(device) -> float:
+    """The least of 3 round trips of an 8-byte tensor, host -> ``device``
+    -> host, each ending in the copy back: the fixed cost every
+    synchronous launch pays."""
+    probe = torch.zeros(8, dtype=torch.uint8)
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        probe.to(device).cpu()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def crossover_batch(rtt: float, t_cpu: float = _DEFAULT_T_CPU_SIG,
+                    t_dev: float = _DEFAULT_T_DEV_SIG) -> int:
+    """The batch from which the device beats the host, n* = rtt /
+    (t_cpu - t_dev), rounded up to a power of two from DEVICE_MIN_BATCH
+    and capped at 16384."""
+    n_star = rtt / max(t_cpu - t_dev, 1e-9)
+    threshold = DEVICE_MIN_BATCH
+    while threshold < n_star and threshold < 16384:
+        threshold <<= 1
+    return threshold
+
+
+def runtime_device_min_batch(device=None) -> int:
+    """The dispatch threshold for ``device``: :func:`crossover_batch` of
+    the link's measured round trip, measured once per device (CPU_SENTINEL
+    on the CPU).  A failed probe raises."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return CPU_SENTINEL
+    return _calibrated(str(dev))
+
+
+@functools.lru_cache(maxsize=None)
+def _calibrated(device: str) -> int:
+    return crossover_batch(_measure_link_rtt(torch.device(device)))
+
+
+#: device tiers that have run in this process: a tier's first run pays
+#: its kernels' module loads and is kept out of the cost model
+_RAN_TIERS: set[str] = set()
+
+
 class _VerifyPlan:
     """Output of :meth:`TorchBatchVerifier.plan`: the route and what
     :meth:`TorchBatchVerifier.execute` needs to run it."""
 
     __slots__ = ("n", "route", "reason", "entry", "key_ids", "pub", "sig",
-                 "msgs", "pubs", "sigs")
+                 "msgs", "pubs", "sigs", "t_plan", "tiers")
 
     def __init__(self) -> None:
         self.n = 0
-        self.route = "empty"      # "empty" | "keyed" | "generic" | "python"
+        self.route = "empty"      # "empty" | "device" | "host"
         self.reason = "batch_size"
         self.entry = None
         self.key_ids = None
@@ -417,33 +488,51 @@ class _VerifyPlan:
         self.msgs: list[bytes] = []
         self.pubs: list[bytes] = []
         self.sigs: list[bytes] = []
+        self.t_plan = 0.0
+        #: the admissible tiers, best first, ending in the host/python
+        #: floor; execute() walks them top-down
+        self.tiers: list[str] = []
 
 
 class TorchBatchVerifier(BatchVerifier):
     """BatchVerifier on the device (the counterpart of cometbft_tpu's
     TpuBatchVerifier, reference slot crypto/ed25519/ed25519.go:190).
 
-    Routing (``plan``), the reference's keyed-then-generic order without
-    its ladder: a batch of at least ``device_min_batch`` signatures looks
-    up -- building if needed -- its key set's tables and takes the keyed
-    tier; when the set has no table entry (more than TABLE_MAX_KEYS
-    unique keys) it takes the generic tier.  A batch of DEVICE_MIN_BATCH or more but below
-    ``device_min_batch`` takes the keyed tier only when its tables are
-    already warm (``peek``).  Anything else, or a message over 4096
-    bytes, runs the per-signature oracle floor.  ``last_tier`` records
-    the tier that ran: "keyed", "generic" or "python".
+    ``plan`` routes as the reference does.  While the ladder admits the
+    keyed tier, a batch of at least ``device_min_batch`` signatures
+    looks up -- building if needed -- its key set's tables; a batch of
+    DEVICE_MIN_BATCH or more but below the threshold takes the keyed
+    tier only when its tables are already warm (``peek``).  A set with
+    no table entry (more than TABLE_MAX_KEYS unique keys) is eligible
+    for the generic tier only.  The eligible tiers that the ladder
+    admits, plus the host rung, are ordered by the cost model; with
+    none, the batch takes the host tier, with its reason: batch_size,
+    msg_too_large (over 4096 bytes), calibration (the CPU sentinel) or
+    ladder_demoted.
 
-    A fault in a device launch propagates to the caller; it is never
-    caught and re-run on the floor."""
+    ``execute`` walks the plan's tiers.  A tier that raises a typed
+    fault (``TierFault``, ``TierUnavailable``) is demoted on the ladder
+    with its reason and the batch goes one rung down; any other
+    exception reaches the caller, as does any exception of the python
+    floor.  ``last_tier`` is the tier that answered.  A device tier's
+    first run in the process, and the keyed tier's first run on a new
+    table entry (its pool copies still in flight), are not given to the
+    cost model: they time one-off work, not the tier.
 
-    def __init__(self, device=None, device_min_batch: int = DEVICE_MIN_BATCH,
+    ``device_min_batch=None`` takes the calibrated threshold
+    (:func:`runtime_device_min_batch`)."""
+
+    def __init__(self, device=None, device_min_batch: int | None = None,
                  cache: PR.KeyTableCache | None = None) -> None:
         self.device = resolve_device(device)
+        if device_min_batch is None:
+            device_min_batch = runtime_device_min_batch(self.device)
         self._device_min_batch = device_min_batch
         self._cache = cache if cache is not None else PR.table_cache(self.device)
         self._pubs: list[bytes] = []
         self._msgs: list[bytes] = []
         self._sigs: list[bytes] = []
+        self._max_msg = 0
         self.last_tier: str | None = None
 
     def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
@@ -454,60 +543,179 @@ class TorchBatchVerifier(BatchVerifier):
         self._pubs.append(pub_key.bytes())
         self._msgs.append(bytes(msg))
         self._sigs.append(bytes(sig))
+        self._max_msg = max(self._max_msg, len(msg))
 
     def __len__(self) -> int:
         return len(self._pubs)
 
     def plan(self) -> _VerifyPlan:
-        """Host phase: the route (table lookup or warm peek, else the
-        generic tier) and the packed pub/sig arrays."""
+        """Host phase: the ladder's route (table lookup or warm peek for
+        the keyed tier) and the packed pub/sig arrays."""
         plan = _VerifyPlan()
+        plan.t_plan = time.perf_counter()
         n = plan.n = len(self._pubs)
         if n == 0:
             return plan
         plan.pubs, plan.msgs, plan.sigs = self._pubs, self._msgs, self._sigs
+        cm = _crypto_metrics()
+        ladder = _dispatch.LADDER
+        device_usable = self._device_min_batch < CPU_SENTINEL
+        msg_fits = self._max_msg <= _BUCKETS[-1]
         entry = None
-        if max(len(m) for m in self._msgs) > _BUCKETS[-1]:
-            plan.reason = "msg_too_large"
-        elif n >= self._device_min_batch:
-            entry = self._cache.lookup_or_build(self._pubs)
-            plan.route = "keyed" if entry is not None else "generic"
-            plan.reason = "batch_size" if entry is not None else "table_policy"
-        elif n >= DEVICE_MIN_BATCH:
-            entry = self._cache.peek(self._pubs)
-            if entry is not None:
-                plan.route, plan.reason = "keyed", "keyed_warm"
-        if plan.route == "empty":
-            plan.route = "python"
-            return plan
+        reason = "batch_size"
+        # with the keyed tier demoted the lookup is skipped: a dead device
+        # must not stall the plan behind a build no admissible tier uses
+        if device_usable and msg_fits and ladder.active("keyed"):
+            try:
+                if n >= self._device_min_batch:
+                    entry = self._cache.lookup_or_build(self._pubs)
+                elif n >= DEVICE_MIN_BATCH:
+                    # warm tables take the keyed tier below the threshold
+                    # (the threshold models a cold launch); peek never
+                    # builds
+                    entry = self._cache.peek(self._pubs)
+                    if entry is not None:
+                        reason = "keyed_warm"
+            except (_dispatch.TierFault, _dispatch.TierUnavailable) as exc:
+                # the recorded escalation: a typed fault of the lookup is
+                # a keyed-tier fault; the batch walks on from the generic
+                # tier (a build that fails otherwise raises to the caller)
+                ladder.tier_fault("keyed", reason=f"table_lookup:{type(exc).__name__}",
+                                  batch=n)
+                entry = None
+        eligible: list[str] = []
         if entry is not None:
-            plan.entry = entry
+            eligible.append("keyed")
+        if device_usable and msg_fits and n >= self._device_min_batch:
+            eligible.append("generic")
+        admissible = ladder.admissible(eligible)
+        if not admissible:
+            if eligible:
+                reason = "ladder_demoted"
+            elif n >= self._device_min_batch:
+                reason = "msg_too_large"
+            elif not device_usable:
+                reason = "calibration"
+            elif not msg_fits:
+                reason = "msg_too_large"
+            else:
+                reason = "batch_size"
+            cm.dispatch_decisions.labels(route="host", reason=reason).inc()
+            plan.route, plan.reason = "host", reason
+            plan.tiers = ["host", _dispatch.FLOOR_TIER]
+            ladder.note_route("host", n)
+            return plan
+        cm.dispatch_decisions.child("device", reason).inc()
+        cm.batch_verify_batch_size.observe(n)
+        plan.route, plan.reason = "device", reason
+        plan.entry = entry
+        plan.tiers = ladder.route(admissible, n) + [_dispatch.FLOOR_TIER]
+        if entry is not None:
             plan.key_ids = entry.key_ids(self._pubs)
         plan.pub = np.frombuffer(b"".join(self._pubs), dtype=np.uint8).reshape(n, 32)
         plan.sig = np.frombuffer(b"".join(self._sigs), dtype=np.uint8).reshape(n, 64)
         return plan
 
     def execute(self, plan: _VerifyPlan) -> tuple[bool, list[bool]]:
-        """Run the planned route; ``verify()`` is ``execute(plan())``."""
-        self.last_tier = None
+        """Walk the plan's tiers top-down; ``verify()`` is
+        ``execute(plan())``."""
         if plan.route == "empty":
             return False, []
-        if plan.route == "keyed":
-            out = verify_arrays_keyed(
-                plan.entry, plan.key_ids, plan.pub, plan.sig, plan.msgs
-            )
-            results = [bool(v) for v in out]
-        elif plan.route == "generic":
-            out = verify_arrays(plan.pub, plan.sig, plan.msgs, self.device)
-            results = [bool(v) for v in out]
-        else:
-            results = [
-                _ref.verify_zip215(p, m, s)
-                for p, m, s in zip(plan.pubs, plan.msgs, plan.sigs)
-            ]
-        self.last_tier = plan.route
-        return all(results), results
+        ladder = _dispatch.LADDER
+        n = plan.n
+        self.last_tier = None
+        queue_wait_noted = False
+        for tier in plan.tiers:
+            if tier not in ("host", _dispatch.FLOOR_TIER) and not ladder.active(tier):
+                continue  # demoted since the plan was made
+            t_tier = time.perf_counter()
+            try:
+                if tier == _dispatch.FLOOR_TIER:
+                    ok, results = self._run_python(plan)
+                elif tier == "host":
+                    ok, results = self._run_host(plan)
+                else:
+                    # flag before the launch: a faulting tier must not
+                    # make the next rung count the queue wait again
+                    note_qw = not queue_wait_noted
+                    queue_wait_noted = True
+                    results = self._launch_tier(tier, plan, note_queue_wait=note_qw)
+                    ok = all(results)
+                    _crypto_metrics().kernel_time_seconds.observe(time.perf_counter() - t_tier)
+            except (_dispatch.TierFault, _dispatch.TierUnavailable) as exc:
+                # the escalation seam: a tier's typed fault is recorded on
+                # the ladder and the batch goes one rung down; the floor
+                # re-raises (a fault there is a bug)
+                if tier == _dispatch.FLOOR_TIER:
+                    raise
+                ladder.tier_fault(tier, reason=_dispatch.fault_reason(exc), batch=n,
+                                  duplicate=getattr(exc, "_ladder_watchdog_fired", False))
+                continue
+            seconds = time.perf_counter() - t_tier
+            if tier in _dispatch.DEVICE_TIERS:
+                cold = tier not in _RAN_TIERS
+                _RAN_TIERS.add(tier)
+                if tier == "keyed":
+                    cold = cold or not plan.entry.launched
+                    plan.entry.launched = True
+                if cold:
+                    seconds = None
+            self.last_tier = tier
+            ladder.note_batch(tier, batch=n, seconds=seconds)
+            return ok, results
+        raise RuntimeError("dispatch ladder exhausted without a floor tier")
 
     def verify(self) -> tuple[bool, list[bool]]:
         return self.execute(self.plan())
 
+    def _launch_tier(self, tier: str, plan: _VerifyPlan,
+                     note_queue_wait: bool = True) -> list[bool]:
+        """One device-tier attempt under the launch watchdog, with chaos
+        injected inside its armed window, the queue wait and busy/idle
+        accounting over the launch's wall (to the verdicts' copy).  A
+        launch the watchdog declared hung that then raises is a typed
+        fault, marked so the back-off advances once; any other
+        exception propagates as it is."""
+        t_launch = time.perf_counter()
+        if note_queue_wait:
+            _health.USAGE.note_queue_wait(t_launch - plan.t_plan)
+        wd = _health.WATCHDOG
+        token = wd.arm(tier, batch=plan.n)
+        try:
+            # a launch_hang fault sleeps past the budget while the
+            # watchdog watches, so the overrun fires first
+            _dispatch.CHAOS.inject(tier)
+            out = self._run_tier(tier, plan)
+        except Exception as exc:
+            if not wd.disarm(token):
+                raise
+            # the watchdog already demoted this launch's tier
+            if isinstance(exc, _dispatch.TierFault):
+                exc._ladder_watchdog_fired = True
+                raise
+            fault = _dispatch.TierFault(tier, _dispatch.fault_reason(exc))
+            fault._ladder_watchdog_fired = True
+            raise fault from exc
+        wd.disarm(token)
+        _health.USAGE.launch_end(t_launch)
+        return out.tolist()
+
+    def _run_tier(self, tier: str, plan: _VerifyPlan) -> np.ndarray:
+        if tier == "keyed":
+            return verify_arrays_keyed(plan.entry, plan.key_ids, plan.pub, plan.sig, plan.msgs)
+        if tier == "generic":
+            return verify_arrays(plan.pub, plan.sig, plan.msgs, self.device)
+        raise _dispatch.TierUnavailable(tier, "no runner on this seam")
+
+    def _run_host(self, plan: _VerifyPlan) -> tuple[bool, list[bool]]:
+        """The host tier: one native RLC check, per-signature on failure."""
+        cpu = _ed.CpuBatchVerifier()
+        for p, m, s in zip(plan.pubs, plan.msgs, plan.sigs):
+            cpu.add(_ed.Ed25519PubKey(p), m, s)
+        return cpu.verify()
+
+    def _run_python(self, plan: _VerifyPlan) -> tuple[bool, list[bool]]:
+        """The floor: the per-signature oracle."""
+        results = [_ed.Ed25519PubKey(p).verify_signature(m, s)
+                   for p, m, s in zip(plan.pubs, plan.msgs, plan.sigs)]
+        return all(results), results

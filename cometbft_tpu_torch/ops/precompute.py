@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from cometbft_tpu_torch.crypto import edwards as _ref
+from cometbft_tpu_torch.metrics import crypto_metrics as _crypto_metrics
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import curve as C
 from cometbft_tpu_torch.ops import field as F
@@ -260,6 +261,9 @@ class KeySetTables:
     nbytes: int                  # bytes of ``table`` (the whole pool)
     set_nbytes: int = 0          # bytes of this set's keys' pages
     _valid_dev: torch.Tensor | None = None
+    #: a verify has run on this entry (its first one also waits for the
+    #: pool copies the lookup queued)
+    launched: bool = False
 
     def key_ids(self, pubs: list[bytes]) -> np.ndarray:
         return np.fromiter(
@@ -473,7 +477,9 @@ class KeyTableCache:
                     pool.ensure_capacity(len(pool.slots) + len(missing), staged=staged)
                     pool.add_keys(missing, pages, page_valid)
                     self.stats["keys_built"] += len(missing)
+                    _crypto_metrics().key_pool_builds.inc(len(missing))
                     self._evict_over_budget(keep=set(unique))
+                    self._update_pool_gauges()
                     # another lookup's eviction may have dropped keys of
                     # ours that were resident before this build: loop
                     if all(p in pool.slots for p in unique):
@@ -547,16 +553,25 @@ class KeyTableCache:
                 pool.valid[s] = False
                 pool.free.append(s)
                 self.stats["keys_evicted"] += 1
+                _crypto_metrics().key_pool_evictions.inc()
                 changed = True
         if changed:
             for pool in self._pools.values():
                 pool.compact()
             self._sweep_stale_entries()
 
+    def _update_pool_gauges(self) -> None:
+        """The pools' occupancy and capacity gauges.  Lock held."""
+        cm = _crypto_metrics()
+        for wb, pool in self._pools.items():
+            cm.key_pool_keys.labels(window_bits=str(wb)).set(len(pool.slots))
+            cm.key_pool_capacity.labels(window_bits=str(wb)).set(pool.cap)
+
     def clear(self) -> None:
         with self._lock:
             self._pools = {8: _KeyPool(8, self.device), 4: _KeyPool(4, self.device)}
             self._entries.clear()
+            self._update_pool_gauges()
 
 
 _caches: dict[str, KeyTableCache] = {}

@@ -201,7 +201,7 @@ def test_set_over_table_max_keys_takes_generic(lanes, monkeypatch):
     cache = PR.KeyTableCache("cpu")
     bv = _verifier(both, device_min_batch=0, cache=cache)
     plan = bv.plan()
-    assert plan.route == "generic" and plan.entry is None
+    assert plan.route == "device" and plan.tiers[0] == "generic" and plan.entry is None
     ok, results = bv.execute(plan)
     assert bv.last_tier == "generic" and calls == [8, 8]
     assert results == expected + expected[4:] + expected[:4] and ok is False
@@ -229,25 +229,25 @@ def test_disable_precompute_takes_generic(lanes, warm_cache, monkeypatch):
     assert cold.stats["keys_built"] == 0
     built = warm_cache.stats["keys_built"]
     plan = _verifier(triples, device_min_batch=0, cache=warm_cache).plan()
-    assert plan.route == "generic" and plan.entry is None
+    assert plan.tiers[0] == "generic" and plan.entry is None
     monkeypatch.setattr(PR, "TABLE_MAX_KEYS", 16384)
-    assert _verifier(triples, device_min_batch=0, cache=warm_cache).plan().route == "keyed"
+    assert _verifier(triples, device_min_batch=0, cache=warm_cache).plan().tiers[0] == "keyed"
     assert warm_cache.stats["keys_built"] == built
 
 
 def test_routes_that_stay(lanes, warm_cache, monkeypatch):
     """A warm set keeps the keyed tier; below DEVICE_MIN_BATCH, and with
-    a message over 4096 bytes, the batch stays on the oracle floor even
-    when it has no table entry."""
+    a message over 4096 bytes, the batch takes the host tier even when
+    it has no table entry."""
     triples, expected, _ = lanes
     bv = _verifier(triples, device_min_batch=0, cache=warm_cache)
     assert bv.verify()[1] == expected and bv.last_tier == "keyed"
     monkeypatch.setattr(PR, "TABLE_MAX_KEYS", 0)
-    bv = _verifier(triples, cache=warm_cache)   # 8 lanes < DEVICE_MIN_BATCH
-    assert bv.verify()[1] == expected and bv.last_tier == "python"
+    bv = _verifier(triples, device_min_batch=64, cache=warm_cache)   # 8 lanes < 64
+    assert bv.verify()[1] == expected and bv.last_tier == "host"
     big = [list(t) for t in triples]
     big[0][1] = bytes(4097)
     bv = _verifier(big, device_min_batch=0, cache=warm_cache)
     plan = bv.plan()
     assert plan.reason == "msg_too_large"
-    assert bv.execute(plan)[1][1:] == expected[1:] and bv.last_tier == "python"
+    assert bv.execute(plan)[1][1:] == expected[1:] and bv.last_tier == "host"

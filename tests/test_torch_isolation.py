@@ -38,6 +38,13 @@ _CHILD = textwrap.dedent(
         expected.append(i != 5)
     ok, results = bv.verify()
     assert results == expected and bv.last_tier == "keyed", results
+    host = TorchBatchVerifier(device="cpu")   # the CPU sentinel: the host tier
+    for p, m, s in zip(bv._pubs, bv._msgs, bv._sigs):
+        host.add(ed.Ed25519PubKey(p), m, s)
+    assert host.verify() == (False, expected) and host.last_tier == "host"
+    for name in ("crypto.dispatch", "crypto.health", "crypto.ed25519_native", "metrics",
+                 "utils.flight", "utils.metrics"):
+        assert "cometbft_tpu_torch." + name in sys.modules, name
     leaked = sorted(m for m in sys.modules
                     if m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
     assert not leaked, leaked

@@ -77,7 +77,7 @@ def reference(commit16):
     assert plan.entry is not None
     _, verdicts = bv.execute(plan)
     assert bv._last_tier == "keyed"
-    return verdicts, plan.entry, plan.key_ids
+    return verdicts, plan.entry, plan.key_ids, (plan.route, plan.reason, plan.tiers)
 
 
 def _verifier(triples, **kw):
@@ -89,9 +89,11 @@ def _verifier(triples, **kw):
 
 def test_commit_matches_reference_and_oracle(commit16, reference, monkeypatch):
     """The entry point on the CPU: with its tables warm, the 16-vote
-    commit takes the keyed tier (the warm floor lowered to 8 lanes)."""
+    commit takes the keyed tier (the warm floor lowered to 8 lanes, and
+    a threshold of 64 in place of the CPU's sentinel)."""
     triples, expected = commit16
     monkeypatch.setattr(EV, "DEVICE_MIN_BATCH", 8)
+    monkeypatch.setattr(EV, "runtime_device_min_batch", lambda device=None: 64)
     PR.table_cache("cpu").lookup_or_build([p for p, _, _ in triples])
     bv = create_batch_verifier(ed.Ed25519PubKey(triples[0][0]), device="cpu")
     for p, m, s in triples:
@@ -107,7 +109,7 @@ def test_port_kernel_on_reference_table(commit16, reference):
     table gives the JAX kernel's verdict vector, padded lanes included; and the port
     builds the same pages for these keys."""
     triples, _ = commit16
-    _, jentry, key_ids = reference
+    _, jentry, key_ids, _ = reference
     table = np.asarray(jentry.table)
     entry = PR.tables_from_jax(table, jentry.valid, jentry.key_index,
                                jentry.window_bits, "cpu")
@@ -141,6 +143,16 @@ def test_port_kernel_on_reference_table(commit16, reference):
         )
 
 
+def test_keyed_plan_matches_reference(commit16, reference):
+    """plan() of the commit with its tables takes the reference's route,
+    reason and tier list: the keyed tier first, then generic, the host
+    rung and the floor."""
+    triples, _ = commit16
+    plan = _verifier(triples, device_min_batch=0).plan()
+    assert (plan.route, plan.reason, plan.tiers) == reference[3] == (
+        "device", "batch_size", ["keyed", "generic", "host", "python"])
+
+
 def test_bucket_128_commit_matches_oracle():
     triples, expected = _commit(12, b"verify12-", [120, 0, 7, 128])
     bv = _verifier(triples, device_min_batch=0)
@@ -163,24 +175,24 @@ def test_chunk_loop(commit16, monkeypatch):
 def test_routing(commit16, monkeypatch):
     triples, expected = commit16
     small = triples[:8]
-    # below device_min_batch and DEVICE_MIN_BATCH: the oracle floor
-    bv = _verifier(small)
-    assert bv.verify()[1] == expected[:8] and bv.last_tier == "python"
+    # below device_min_batch and DEVICE_MIN_BATCH: the host tier
+    bv = _verifier(small, device_min_batch=64)
+    assert bv.verify()[1] == expected[:8] and bv.last_tier == "host"
     # between the two thresholds: keyed only when the tables are warm
     monkeypatch.setattr(EV, "DEVICE_MIN_BATCH", 4)
     cache = PR.KeyTableCache("cpu")
     bv = _verifier(small, device_min_batch=1000, cache=cache)
-    assert bv.verify()[1] == expected[:8] and bv.last_tier == "python"
+    assert bv.verify()[1] == expected[:8] and bv.last_tier == "host"
     cache.lookup_or_build([p for p, _, _ in small])
     bv = _verifier(small, device_min_batch=1000, cache=cache)
     plan = bv.plan()
     assert plan.reason == "keyed_warm"
     assert bv.execute(plan)[1] == expected[:8] and bv.last_tier == "keyed"
-    # a message over the largest bucket takes the floor
+    # a message over the largest bucket takes the host tier
     big = [list(t) for t in small]
     big[0][1] = bytes(4097)
     bv = _verifier(big, device_min_batch=0)
-    assert bv.verify()[1][1:] == expected[1:8] and bv.last_tier == "python"
+    assert bv.verify()[1][1:] == expected[1:8] and bv.last_tier == "host"
     # empty batch
     empty = EV.TorchBatchVerifier(device="cpu")
     assert empty.verify() == (False, []) and empty.last_tier is None
@@ -233,7 +245,7 @@ def test_fused_two_slices_on_reference_table(commit16, reference, monkeypatch):
     """MAX_LAUNCH = 8: verify_arrays_keyed calls verify_keyed_fused once
     per slice, on the JAX-built table, and returns the JAX verdicts."""
     triples, _ = commit16
-    verdicts, jentry, key_ids = reference
+    verdicts, jentry, key_ids, _ = reference
     entry = PR.tables_from_jax(np.asarray(jentry.table), jentry.valid,
                                jentry.key_index, jentry.window_bits, "cpu")
     monkeypatch.setattr(EV, "MAX_LAUNCH", 8)
