@@ -96,10 +96,33 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    (keyed again), and a launch hang on keyed under a 1 s watchdog
    budget (device_hangs_total counts 1, generic answers), every
    batch's verdicts the oracle's and the transitions as expected.
-   After every phase but the chaos phase the ladder must hold no
-   demotion and no recorded fault, and the cost model must rank keyed
-   first for commit150's and commit1024's shape buckets;
-11. a ``kernels`` JSON line, then the last line
+   After every phase but the chaos and prober phases the ladder must
+   hold no demotion and no recorded fault, and the cost model must rank
+   keyed first for commit150's and commit1024's shape buckets;
+11. the verify-ahead plane, each part with the launch counters at 0 at
+   its start, failing on a wrong verdict or a thread left behind:
+   stream150 (64 warm commit150 jobs, each with one S byte flipped,
+   through ``verify_stream`` over a ``verify_arrays_keyed_async``
+   closure, max_in_flight 8), stream-chunked (8 jobs of 8250 lanes) and
+   stream-generic1024 (16 commit1024 jobs on the generic tier), each
+   beside a synchronous loop over the same jobs (sigs/s, busy share,
+   host ms and launches per job); queue: a ``VerifyQueue`` with the
+   default factory, installed, fed at once by four submitter threads
+   (consensus vote pairs, 8 re-signed commit1024 prefetch blocks, 4
+   re-signed commit150 light-client headers, 512 one-signature CheckTx
+   submissions), every future = the oracle's, the consensus wait beside
+   a prefetch launch's wall, the coalesced sizes, the spec cache on a
+   header submitted again, the overlap ratio, the
+   ``crypto_verify_queue_*`` series and a clean ``stop()``, then four
+   warm mixes, prefetch buffers capped and uncapped in turn, and the
+   same work without a queue for its sigs/s; prober: a
+   ``HealthProber`` at 0.5 s with the default canaries (host, keyed,
+   generic) demotes keyed under a chaos device_loss and promotes it with
+   reason ``probes`` after it; seed: each tier's single-batch rows at
+   150 and 1024 lanes appended to the port's perf ledger
+   (``build/perf_ledger.json``) and a fresh subprocess whose seeded
+   cost model must rank keyed first for buckets 256 and 1024;
+12. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --warm150 [TREE]
@@ -122,6 +145,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -765,6 +789,7 @@ def drive(name: str, triples, expected, dev, warm_runs: int, window_bits: int,
           f"p90 {out['p90_ms']:.2f} ms, p95 {out['p95_ms']:.2f} ms; "
           f"{out['sigs_per_s']:.0f} sigs/s")
     add_ms, plan_ms, exec_ms = (1e3 * pct([p[j] for p in phases], 50) for j in range(3))
+    out["exec_ms"] = exec_ms
     print(f"  warm phases, p50: add {add_ms:.3f} ms (create_batch_verifier + add x {n}), "
           f"plan {plan_ms:.3f} ms (key lookup, key ids), execute {exec_ms:.3f} ms "
           "(pack, copy in, sha512_keyed, verify_keyed, copy out)")
@@ -1013,6 +1038,7 @@ def drive_generic(name: str, triples, expected, dev, warm_runs: int, why: str) -
           f"p90 {out['p90_ms']:.2f} ms, p95 {out['p95_ms']:.2f} ms; "
           f"{out['sigs_per_s']:.0f} sigs/s")
     add_ms, plan_ms, exec_ms = (1e3 * pct([p[j] for p in phases], 50) for j in range(3))
+    out["exec_ms"] = exec_ms
     print(f"  warm phases, p50: add {add_ms:.3f} ms, plan {plan_ms:.3f} ms, execute "
           f"{exec_ms:.3f} ms (pack, copy in, sha512_keyed, verify_generic, copy out); "
           f"{slices} slice(s)")
@@ -1855,6 +1881,669 @@ def chaos_phase(dev, commit150, exp150) -> list:
     return steps
 
 
+# -- phase 11: the verify-ahead plane ---------------------------------
+
+#: commit150's planted lanes (make_commit), the same in every copy
+PLANTED = (3, 10, 20, 30, 40, 50)
+
+
+def live_threads() -> set[str]:
+    """Names of the live threads but the launch watchdog's (a
+    process-wide daemon, stopped when the script ends)."""
+    return {t.name for t in threading.enumerate() if t.name != "crypto-watchdog"}
+
+
+def end_phase(name: str, threads_before: set[str]) -> dict:
+    """The phase's launch counts; fails if it left a thread behind."""
+    from cometbft_tpu_torch.ops import _build
+
+    deadline = time.time() + 10
+    while live_threads() - threads_before and time.time() < deadline:
+        time.sleep(0.01)
+    left = live_threads() - threads_before
+    if left:
+        raise AssertionError(f"{name}: threads left behind: {sorted(left)}")
+    return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+
+def resign(commit, tag: bytes, height: int, alter: int):
+    """``commit``'s validators (the seeds make_commit derives from
+    ``tag``) signing new 120-byte votes at ``height``.  Each key's
+    scalar comes from its seed (edwards.secret_expand) and the nonces
+    are r0 + i, so R costs one point addition per vote instead of a
+    scalar multiplication: valid Ed25519 signatures whose nonces are not
+    RFC 8032's.  Lane ``alter`` gets one byte of S flipped."""
+    from cometbft_tpu_torch.crypto import edwards as E
+
+    rs = np.random.RandomState(SEED + 7919 * height + len(commit))
+    r0 = int.from_bytes(rs.bytes(32), "little") % E.L
+    r_pt = E.pt_mul(r0, E.B_POINT)
+    out = []
+    for i in range(len(commit)):
+        seed = hashlib.sha256(tag + b"-%d" % i).digest()
+        a, _ = E.secret_expand(seed)
+        pub = commit[i][0] if i not in (40, 50) else E.public_key(seed)
+        head = b"vote|h=%d|r=0|val=%05d|" % (height, i)
+        msg = head + rs.bytes(120 - len(head))
+        r_enc = E.encode_point(r_pt)
+        k = int.from_bytes(hashlib.sha512(r_enc + pub + msg).digest(), "little") % E.L
+        sig = r_enc + ((r0 + i + k * a) % E.L).to_bytes(32, "little")
+        if i == alter:
+            sig = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+        out.append((pub, msg, sig))
+        r_pt = E.pt_add(r_pt, E.B_POINT)
+    return out
+
+
+def arrays(triples):
+    pub = np.stack([np.frombuffer(p, dtype=np.uint8) for p, _, _ in triples])
+    sig = np.stack([np.frombuffer(s, dtype=np.uint8) for _, _, s in triples])
+    return pub, sig, [m for _, m, _ in triples]
+
+
+def altered_jobs(triples, expected, njobs: int, start: int):
+    """``njobs`` copies of the batch, copy j with one byte of S flipped
+    on one valid, unplanted lane (from ``start`` on; the messages keep
+    their lengths, so packing takes the path the main cells take) ->
+    (jobs as (pub, sig, msgs), each job's oracle verdicts)."""
+    from cometbft_tpu_torch.crypto import edwards as E
+
+    pub, sig, msgs = arrays(triples)
+    lanes = [i for i in range(start, len(triples))
+             if expected[i] and i % 150 not in PLANTED][:njobs]
+    jobs, want = [], []
+    for lane in lanes:
+        s = sig.copy()
+        s[lane, 40] ^= 1
+        w = list(expected)
+        w[lane] = E.verify_zip215(triples[lane][0], msgs[lane], s[lane].tobytes())
+        jobs.append((pub, s, msgs))
+        want.append(w)
+    return jobs, want
+
+
+def job_device_ms(job, dev, entry=None, key_ids=None, iters: int = 20) -> float:
+    """The device time of one job's work alone: its rows packed once into
+    pinned memory, then the copy in and the slices' launches (keyed on
+    ``entry``, else generic) back to back under CUDA events (``cuda_ms``;
+    their enqueue is far shorter than the work)."""
+    import torch
+
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+    from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.ops import field as F
+
+    pub, sig, msgs = job
+    packed, bucket = EV.pack_inputs(pub, sig, msgs, key_ids=key_ids)
+    host = torch.from_numpy(packed).pin_memory()
+    nblocks = EV.nblocks_for_bucket(bucket)
+    if entry is not None:
+        key_valid, b_table = entry.valid_device(), F.const(PR.b_comb8(), dev)
+
+    def work():
+        buf = host.to(dev, non_blocking=True)
+        if entry is None:
+            return EV.verify_generic_rows(buf, bucket)
+        for s in range(0, buf.shape[1], EV.MAX_LAUNCH):
+            rows = buf[:, s: s + EV.MAX_LAUNCH]
+            EV.verify_keyed_fused(rows, EV.keyed_digest(rows, bucket, nblocks), entry.table,
+                                  key_valid, b_table, bucket, entry.window_bits)
+
+    return cuda_ms(work, iters)
+
+
+def stream_cell(name: str, jobs, want, dispatch, dev_ms: float, smi: str,
+                max_in_flight: int = 8) -> dict:
+    """``verify_stream`` over ``jobs`` beside a synchronous loop
+    (``_finish(dispatch(job))`` one job at a time) on the same jobs:
+    sigs/s, the busy share (``dev_ms``, a job's device time from
+    ``job_device_ms``, times the jobs, over each wall), the host's
+    dispatch ms per job (packing, the copy's and the launches' enqueue)
+    and launches per job; every verdict = the oracle's and the two
+    paths' equal."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    nj, n = len(jobs), len(jobs[0][2])
+    # a first stream run allocates the pinned blocks the caching host
+    # allocator then reuses (a block comes back once its copy has run)
+    t0 = time.perf_counter()
+    warm = list(EV.verify_stream(iter(jobs[:2 * max_in_flight]), max_in_flight=max_in_flight,
+                                 dispatch=dispatch))
+    first_ms = 1e3 * (time.perf_counter() - t0) / len(warm)
+    host = [0.0]
+
+    def timed(*job):
+        t = time.perf_counter()
+        parts = dispatch(*job)
+        host[0] += time.perf_counter() - t
+        return parts
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    sync = [EV._finish(timed(*job)) for job in jobs]
+    sync_wall = time.perf_counter() - t0
+    sync_host, sync_launches = host[0], dict(_build.LAUNCHES)
+    host[0] = 0.0
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    stream = list(EV.verify_stream(iter(jobs), max_in_flight=max_in_flight, dispatch=timed))
+    stream_wall = time.perf_counter() - t0
+    stream_host, stream_launches = host[0], dict(_build.LAUNCHES)
+    for j, (a, b, w) in enumerate(zip(sync, stream, want)):
+        if a.tolist() != w or b.tolist() != w:
+            raise AssertionError(f"{name}: job {j} differs from the oracle (sync "
+                                 f"{a.tolist() == w}, stream {b.tolist() == w})")
+    slices = -(-max(PR.next_pow2(n), 8) // EV.MAX_LAUNCH)
+    if sync_launches != stream_launches or sorted(v for v in stream_launches.values() if v) != [
+            slices * nj] * 2:
+        raise AssertionError(f"{name}: launches: sync {sync_launches}, stream "
+                             f"{stream_launches}, expected two kernels x {slices} per job")
+    per_job = {k: v / nj for k, v in stream_launches.items() if v}
+    # the dispatch's packing alone (pageable, no key ids), on the jobs as
+    # they are: one message length that differs takes the scatter path
+    t0 = time.perf_counter()
+    for pub, sig, msgs in jobs[:4]:
+        EV.pack_inputs(pub, sig, msgs)
+    pack_ms = 1e3 * (time.perf_counter() - t0) / min(4, nj)
+    out = dict(jobs=nj, lanes=n, sync_sps=nj * n / sync_wall, stream_sps=nj * n / stream_wall,
+               first_ms=first_ms, pack_ms=pack_ms,
+               sync_busy=dev_ms * nj / (1e3 * sync_wall),
+               stream_busy=dev_ms * nj / (1e3 * stream_wall),
+               sync_host_ms=1e3 * sync_host / nj, stream_host_ms=1e3 * stream_host / nj,
+               device_ms=dev_ms, launches_per_job=per_job)
+    print(f"{name} [{smi}]: {nj} jobs of {n} lanes, every verdict = the oracle's and the "
+          f"synchronous loop's")
+    print(f"  sigs/s: synchronous {out['sync_sps']:.0f}, verify_stream (max_in_flight "
+          f"{max_in_flight}) {out['stream_sps']:.0f}: {out['stream_sps'] / out['sync_sps']:.3f}x; "
+          f"wall per job {1e3 * sync_wall / nj:.3f} / {1e3 * stream_wall / nj:.3f} ms (the "
+          f"process's first {len(warm)} streamed jobs, its pinned blocks allocated: "
+          f"{first_ms:.3f} ms a job)")
+    print(f"  busy share (device {dev_ms:.3f} ms per job by CUDA events): synchronous "
+          f"{out['sync_busy']:.3f}, stream {out['stream_busy']:.3f}; host dispatch ms per job "
+          f"(pack, copy and launch enqueue): {out['sync_host_ms']:.3f} / "
+          f"{out['stream_host_ms']:.3f}, of which pack_inputs alone {pack_ms:.3f}; "
+          f"launches per job {per_job}")
+    return out
+
+
+def stream_phase(dev, commit150, exp150, big, big_exp, commit1k, exp1k, smi: str) -> dict:
+    """stream150 (64 warm commit150 jobs on the keyed tier), stream-chunked
+    (8 jobs of 8250 lanes, keyed) and stream-generic1024 (16 commit1024
+    jobs, verify_stream's default generic dispatch)."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    threads = live_threads()
+    _build.reset_launches()
+    pubs = [p for p, _, _ in commit150]
+    entry = PR.table_cache(dev).lookup_or_build(pubs)
+
+    def keyed(pub, sig, msgs):
+        return EV.verify_arrays_keyed_async(entry, ids[len(msgs)], pub, sig, msgs)
+
+    ids = {150: entry.key_ids(pubs), len(big): entry.key_ids([p for p, _, _ in big])}
+    out = {}
+    jobs, want = altered_jobs(commit150, exp150, 64, 60)
+    out["stream150"] = stream_cell("stream150", jobs, want, keyed,
+                                   job_device_ms(jobs[0], dev, entry, ids[150]), smi)
+    jobs, want = altered_jobs(big, big_exp, 8, 1000)
+    out["stream-chunked"] = stream_cell("stream-chunked", jobs, want, keyed,
+                                        job_device_ms(jobs[0], dev, entry, ids[len(big)]), smi)
+    jobs, want = altered_jobs(commit1k, exp1k, 16, 60)
+    out["stream-generic1024"] = stream_cell(
+        "stream-generic1024", jobs, want,
+        lambda pub, sig, msgs: EV.verify_arrays_async(pub, sig, msgs, dev),
+        job_device_ms(jobs[0], dev), smi)
+    launches = end_phase("stream", threads)
+    if launches.get("build_tables") or set(launches) - {"sha512_keyed", "verify_keyed",
+                                                          "verify_generic"}:
+        raise AssertionError(f"stream: unexpected launches {launches}")
+    print(f"stream phase: launches {launches}")
+    return out
+
+
+def run_mix(q, data) -> dict:
+    """Four submitter threads at once on the installed queue ``q``:
+    consensus (vote pairs through verify_or_fallback, one every 2 ms),
+    prefetch (the blocks, one every 3 ms), light (the headers through
+    light_verify_or_fallback) and ingest (one-signature submissions);
+    every verdict = the oracle's.  -> the wall, the consensus waits
+    (seconds, verified inline), the queue's spans and the garbage
+    collector's pauses ((generation, seconds); a collection holds the
+    GIL, so it stalls every thread of the mix at once)."""
+    import gc
+
+    from cometbft_tpu_torch.crypto import verify_queue as VQ
+    from cometbft_tpu_torch.utils.trace import TRACER
+
+    items, pk = data["items"], data["pk"]
+    errors: list = []
+    waits: list = []
+
+    def guard(fn):
+        def run():
+            try:
+                fn()
+            except BaseException as exc:  # noqa: BLE001 -- re-raised by run_submitters
+                errors.append(exc)
+        run.__name__ = fn.__name__
+        return run
+
+    @guard
+    def consensus():
+        for i in range(40, 75):
+            before = q.stats()["submitted"]["consensus"]
+            t = time.perf_counter()
+            got = VQ.verify_or_fallback(data["pairs"][i], timeout=60)
+            waits.append((time.perf_counter() - t,
+                          q.stats()["submitted"]["consensus"] == before))
+            if got != data["pair_exp"][i]:
+                raise AssertionError(f"queue: consensus pair {i} differs")
+            time.sleep(0.002)
+
+    @guard
+    def prefetch():
+        futs = []
+        for b in data["blocks"]:              # blocks arrive one after another
+            futs.append(q.submit_many(items(b), VQ.PRIORITY_PREFETCH))
+            time.sleep(0.003)
+        for h, fs in enumerate(futs):
+            if [f.result(60) for f in fs] != data["block_exp"][h]:
+                raise AssertionError(f"queue: prefetch block {h} differs")
+
+    @guard
+    def light():
+        for h, hdr in enumerate(data["headers"]):
+            got, n_inline = VQ.light_verify_or_fallback(items(hdr), timeout=60)
+            if got != data["header_exp"][h] or n_inline:
+                raise AssertionError(f"queue: light header {h} differs ({n_inline} inline)")
+
+    @guard
+    def checktx():
+        futs = [q.submit(pk(p), m, s, priority=VQ.PRIORITY_INGEST)
+                for p, m, s in data["ingest"]]
+        if [f.result(60) for f in futs] != data["ingest_exp"]:
+            raise AssertionError("queue: ingest verdicts differ")
+
+    pauses: list = []
+    started: list = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            pauses.append((info["generation"], time.perf_counter() - started.pop()))
+
+    TRACER.clear()
+    gc.callbacks.append(on_gc)
+    try:
+        mix_s, busy = run_submitters((consensus, prefetch, light, checktx), errors)
+    finally:
+        gc.callbacks.remove(on_gc)
+    spans: dict = {}
+    for e in TRACER.events():
+        if e["name"].startswith("verify_queue/") or e["name"] == "device_launch":
+            key = (e["name"], e["args"].get("priority") or e["args"].get("kernel"))
+            spans.setdefault(key, []).append((e["dur"] / 1e3, e["args"].get("batch")))
+    return dict(mix_s=mix_s, waits=waits, spans=spans, busy=busy, gc=pauses)
+
+
+#: the signatures of one mix: 35 consensus pairs, 8 blocks of 1024, 4
+#: headers of 150, 512 CheckTx
+MIX_SIGS = 70 + 8192 + 600 + 512
+
+
+def run_submitters(fns, errors: list) -> tuple[float, float]:
+    """Run the submitter functions on threads at once -> (wall seconds,
+    the share of it the device spent inside launches by the host's
+    clock: DeviceUsage's busy seconds, an upper bound on the card's busy
+    share)."""
+    from cometbft_tpu_torch.crypto import health as H
+
+    busy0 = H.USAGE.snapshot()["busy_seconds"]
+    workers = [threading.Thread(target=fn, name=f"submit-{fn.__name__}") for fn in fns]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(120)
+    wall = time.perf_counter() - t0
+    if errors or any(w.is_alive() for w in workers):
+        raise AssertionError(f"submitters failed: {errors!r}")
+    return wall, (H.USAGE.snapshot()["busy_seconds"] - busy0) / wall
+
+
+def sync_mix(data, dev) -> dict:
+    """The same four lanes of work without a queue, each lane verifying
+    for itself as a node without one does: a vote's signatures one by
+    one (``verify_signature``), a block's and a header's commit through
+    ``create_batch_verifier``, a CheckTx's one signature; every verdict =
+    the oracle's."""
+    from cometbft_tpu_torch.crypto.batch import create_batch_verifier
+
+    items = data["items"]
+    errors: list = []
+
+    def guard(fn):
+        def run():
+            try:
+                fn()
+            except BaseException as exc:  # noqa: BLE001 -- re-raised by run_submitters
+                errors.append(exc)
+        run.__name__ = fn.__name__
+        return run
+
+    def batch(triples):
+        bv = create_batch_verifier(items(triples[:1])[0][0], device=dev)
+        for pk, m, s in items(triples):
+            bv.add(pk, m, s)
+        return bv.verify()[1]
+
+    def consensus():
+        for i in range(40, 75):
+            if [pk.verify_signature(m, s) for pk, m, s in data["pairs"][i]] != \
+                    data["pair_exp"][i]:
+                raise AssertionError(f"sync: consensus pair {i} differs")
+            time.sleep(0.002)
+
+    def prefetch():
+        for h, b in enumerate(data["blocks"]):
+            if batch(b) != data["block_exp"][h]:
+                raise AssertionError(f"sync: block {h} differs")
+
+    def light():
+        for h, hdr in enumerate(data["headers"]):
+            if batch(hdr) != data["header_exp"][h]:
+                raise AssertionError(f"sync: header {h} differs")
+
+    def checktx():
+        got = [pk.verify_signature(m, s) for pk, m, s in items(data["ingest"])]
+        if got != data["ingest_exp"]:
+            raise AssertionError("sync: ingest verdicts differ")
+
+    wall, busy = run_submitters([guard(f) for f in (consensus, prefetch, light, checktx)],
+                                errors)
+    return dict(mix_s=wall, busy=busy)
+
+
+def mix_line(label: str, mix: dict, overlap: float) -> str:
+    waits = [1e3 * w for w, _ in mix["waits"]]
+    inline = sum(1 for _, i in mix["waits"] if i)
+    pf = [d for d, _ in mix["spans"].get(("verify_queue/launch", "prefetch"), [(0.0, 0)])]
+    dl = [d for d, _ in mix["spans"].get(("device_launch", "keyed"), [(0.0, 0)])]
+    full = [1e3 * d for g, d in mix["gc"] if g == 2]
+    return (f"  {label}: mix {mix['mix_s']:.3f} s, {MIX_SIGS / mix['mix_s']:.0f} sigs/s, "
+            f"launch-wall share {mix['busy']:.3f}; consensus wait p50 {pct(waits, 50):.3f} ms, "
+            f"max {max(waits):.3f} ms ({inline} of {len(waits)} pairs inline); prefetch launch "
+            f"wall p50 {pct(pf, 50):.3f} ms, max {max(pf):.3f} ms; keyed device_launch "
+            f"(enqueue) p50 {pct(dl, 50):.3f} ms, max {max(dl):.3f} ms; overlap ratio "
+            f"{overlap:.4f}; garbage collections {len(mix['gc'])} "
+            f"({1e3 * sum(d for _, d in mix['gc']):.1f} ms), full {len(full)} (longest "
+            f"{max(full, default=0.0):.1f} ms)")
+
+
+def queue_phase(dev, commit150, exp150, commit1k, wide, wide_exp, registry, smi: str) -> dict:
+    """A VerifyQueue with the default factory (cuda), installed, fed by
+    four submitter threads at once (``run_mix``): consensus (commit150
+    vote pairs), prefetch (8 commit1024 blocks at new heights), light
+    (commit150 headers at new heights) and ingest (512 one-signature
+    CheckTx submissions, released once the 256 target is pending).
+    Every future = the oracle's verdict; then the spec cache answers a
+    header submitted again, and stop() leaves no thread behind.  A
+    consensus pair's cost through the idle queue and inline comes
+    first; after the first queue, the mix runs four more times on fresh
+    queues with warm tables, rotated: prefetch buffers capped at
+    ``PREFETCH_BATCH`` as shipped, and uncapped (``DEFAULT_MAX_BATCH``,
+    the reference's), each with the tiers that answered; then once
+    without a queue (``sync_mix``)."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.crypto import verify_queue as VQ
+    from cometbft_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    blocks = [resign(commit1k, b"validator1k", 2 + h, alter=(97 * h) % 1024) for h in range(8)]
+    headers = [resign(commit150, b"validator", 2 + h, alter=60 + h) for h in range(4)]
+    verdicts = oracle_verdicts([t for b in blocks + headers for t in b])
+    if sum(not v for v in verdicts) != 12:
+        raise AssertionError("queue: the re-signed votes are not valid but the altered ones")
+    print(f"queue data: 8 blocks of 1024 and 4 headers of 150 re-signed votes, the oracle's "
+          f"verdicts in {time.perf_counter() - t0:.2f} s")
+    pk = ed.Ed25519PubKey
+    items = lambda triples: [(pk(p), m, s) for p, m, s in triples]  # noqa: E731
+    data = dict(
+        pk=pk, items=items, blocks=blocks, headers=headers,
+        block_exp=[verdicts[1024 * h: 1024 * (h + 1)] for h in range(8)],
+        header_exp=[verdicts[8192 + 150 * h: 8192 + 150 * (h + 1)] for h in range(4)],
+        pairs=[items(commit150[i: i + 2]) for i in range(0, 150, 2)],     # 75 vote pairs
+        pair_exp=[exp150[i: i + 2] for i in range(0, 150, 2)],
+        ingest=wide[2000:2512], ingest_exp=wide_exp[2000:2512])
+
+    threads = live_threads()
+    _build.reset_launches()
+    q = VQ.VerifyQueue()
+    q.start()
+    VQ.install_queue(q)
+    res: dict = {}
+    try:
+        # a consensus pair through the idle queue, then inline
+        via_queue, inline = [], []
+        for i in range(40):
+            t = time.perf_counter()
+            got = (VQ.verify_or_fallback(data["pairs"][i], timeout=60) if i < 20
+                   else VQ._verify_inline(q, data["pairs"][i]))
+            (via_queue if i < 20 else inline).append(time.perf_counter() - t)
+            if got != data["pair_exp"][i]:
+                raise AssertionError(f"queue: consensus pair {i} differs from the oracle")
+        mix = run_mix(q, data)
+        # the speculative cache answers a header submitted again
+        hits0 = registry_value(registry, "cometbft_crypto_verify_queue_spec_cache",
+                               'result="hit"')
+        resolved0 = q.stats()["cache_resolved"]
+        got, _ = VQ.light_verify_or_fallback(items(headers[0]), timeout=60)
+        if got != data["header_exp"][0]:
+            raise AssertionError("queue: a header submitted again differs")
+        hits = registry_value(registry, "cometbft_crypto_verify_queue_spec_cache",
+                              'result="hit"') - hits0
+        res["spec_hits"] = q.stats()["cache_resolved"] - resolved0
+        if res["spec_hits"] != sum(data["header_exp"][0]) or hits != res["spec_hits"]:
+            raise AssertionError(f"queue: the header again: {res['spec_hits']} cache hits, "
+                                 f"metric {hits}, expected {sum(data['header_exp'][0])}")
+        stats = q.stats()
+    finally:
+        q.stop()
+    launches = end_phase("queue", threads)
+    if VQ._QUEUE is not None or q.is_running():
+        raise AssertionError("queue: stop() left the queue installed or running")
+    sizes = {k[1]: sorted(b for _, b in v) for k, v in mix["spans"].items()
+             if k[0] == "verify_queue/launch"}
+    lanes = MIX_SIGS
+    res.update(stats=stats, sizes=sizes, launches=launches, mix_s=mix["mix_s"],
+               pair_queue_ms=1e3 * pct(via_queue, 50), pair_inline_ms=1e3 * pct(inline, 50))
+    print(f"queue [{smi}]: four submitter threads, {lanes} signatures in {mix['mix_s']:.3f} s, "
+          f"every future = the oracle's")
+    print(f"  a consensus pair: {res['pair_queue_ms']:.3f} ms p50 through the idle queue "
+          f"(the host tier: 2 < the threshold), {res['pair_inline_ms']:.3f} ms p50 inline "
+          f"(the oracle, twice)")
+    print(mix_line("first queue (cold: ingest's 512 keys and prefetch's set are built in plan)",
+                   mix, stats["overlap_ratio"]))
+    print(f"  coalesced batch sizes per lane: "
+          + "; ".join(f"{p}: {v}" for p, v in sorted(sizes.items())))
+    for (span, key), v in sorted(mix["spans"].items()):
+        durs = [d for d, _ in v]
+        print(f"  {span} {key}: {len(v)} spans, ms p50 {pct(durs, 50):.3f}, max {max(durs):.3f}")
+    print(f"  spec cache: the header submitted again resolved {res['spec_hits']} of 150 from the "
+          f"cache (its invalid lane is never cached)")
+    print(f"  stats {stats}")
+    print(f"  launches {launches}")
+    for line in registry.expose().splitlines():
+        if line.startswith("cometbft_crypto_verify_queue") and "_bucket" not in line:
+            print(f"  metric {line}")
+    capped = VQ.PREFETCH_BATCH
+    tiers = ("keyed", "generic", "host", "python")
+    for r, cap in enumerate((capped, VQ.DEFAULT_MAX_BATCH, VQ.DEFAULT_MAX_BATCH, capped)):
+        label = f"warm {r + 1}, prefetch buffers of at most {cap}"
+        threads = live_threads()
+        answered0 = [registry_value(registry, "cometbft_crypto_dispatch_tier", f'"{t}"')
+                     for t in tiers]
+        VQ.PREFETCH_BATCH = cap
+        q = VQ.VerifyQueue()
+        q.start()
+        VQ.install_queue(q)
+        try:
+            mix = run_mix(q, data)
+            overlap = q.stats()["overlap_ratio"]
+        finally:
+            q.stop()
+            VQ.PREFETCH_BATCH = capped
+        end_phase("queue", threads)
+        answered = {t: int(registry_value(registry, "cometbft_crypto_dispatch_tier", f'"{t}"')
+                           - a) for t, a in zip(tiers, answered0)}
+        res[label] = dict(mix_s=mix["mix_s"], overlap=overlap, answered=answered)
+        print(mix_line(label, mix, overlap) + f"; batches answered per tier {answered}")
+    sync = sync_mix(data, dev)
+    res["sync"] = sync
+    print(f"  without a queue (each lane verifies for itself: votes and CheckTx one signature "
+          f"at a time on the oracle, blocks and headers through create_batch_verifier): mix "
+          f"{sync['mix_s']:.3f} s, {MIX_SIGS / sync['mix_s']:.0f} sigs/s, launch-wall share "
+          f"{sync['busy']:.3f}")
+    return res
+
+
+def registry_value(registry, name: str, label: str) -> float:
+    """A sample's value from the exposition (0 when absent)."""
+    for line in registry.expose().splitlines():
+        if line.startswith(name + "{") and label in line:
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def prober_phase(dev, registry, smi: str) -> dict:
+    """A HealthProber at a 0.5 s interval with default_tier_probes()
+    (host, keyed, generic: CUDA is initialised) on a ladder with a 3 s
+    cool-down; a chaos device_loss on keyed for its first 1.2 s: three
+    failed keyed canaries demote keyed (probe_failures), and once the
+    window is over healthy canaries past the cool-down promote it
+    (probes).  The ladder and chaos are reset after."""
+    from cometbft_tpu_torch import metrics as M
+    from cometbft_tpu_torch.crypto import dispatch as D
+    from cometbft_tpu_torch.crypto import health as H
+
+    threads = live_threads()
+    from cometbft_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    D.LADDER.reset(cooldown_s=3.0)
+    probes = H.default_tier_probes()
+    if set(probes) != {"host", "keyed", "generic"}:
+        raise AssertionError(f"prober: default probes {sorted(probes)}")
+    prober = H.HealthProber(interval_s=0.5)
+    t0 = time.perf_counter()
+    marks = {}
+    try:
+        D.CHAOS.load(D.ChaosPlan.parse("device_loss@0-1.2"), tiers=("keyed",))
+        prober.start()
+        deadline = time.time() + 30
+        while "promoted" not in marks and time.time() < deadline:
+            keyed = D.LADDER.snapshot()["tiers"]["keyed"]
+            if keyed.get("demoted") and "demoted" not in marks:
+                marks["demoted"] = time.perf_counter() - t0
+            if keyed.get("promotions") and "promoted" not in marks:
+                marks["promoted"] = time.perf_counter() - t0
+            time.sleep(0.01)
+    finally:
+        prober.stop()
+        D.CHAOS.load(None)
+    launches = end_phase("prober", threads)
+    snap = D.LADDER.snapshot()
+    trail = [(e["kind"], e["from"], e["to"], e["reason"]) for e in snap["transitions"]]
+    psnap = prober.snapshot()
+    D.LADDER.reset()
+    want = [("demote", "keyed", "generic", "probe_failures"),
+            ("promote", "keyed", "keyed", "probes")]
+    if trail != want or psnap["last_error"] is not None:
+        raise AssertionError(f"prober: transitions {trail}, expected {want}; last error "
+                             f"{psnap['last_error']}")
+    hm = M.health_metrics()
+    secs = {}
+    for tier in ("host", "keyed", "generic"):
+        h = hm.tier_probe_seconds.labels(tier=tier)
+        secs[tier] = 1e3 * h._sum / max(h._count, 1)
+    print(f"prober [{smi}]: keyed demoted at {marks.get('demoted', 0):.2f} s (three failed "
+          f"canaries under chaos), promoted with reason probes at {marks['promoted']:.2f} s; "
+          f"transitions {trail}; {psnap['probes_total']} canaries")
+    print("  tier_probe_seconds mean per canary: " + ", ".join(
+        f"{t} {ms:.3f} ms ({hm.tier_probe_seconds.labels(tier=t)._count} probes)"
+        for t, ms in secs.items()) + f"; the canaries' launches {launches}")
+    return dict(marks=marks, trail=trail, probe_ms=secs, launches=launches)
+
+
+_SEED_CHILD = (
+    "import json\n"
+    "from cometbft_tpu_torch.crypto import dispatch as D\n"
+    "D.LADDER.ensure_seeded()\n"
+    "cost = D.LADDER.cost_snapshot()\n"
+    "route = {b: D.LADDER.route(['keyed', 'generic'], b) for b in (150, 1024)}\n"
+    "payload = D.debug_dispatch_payload()\n"
+    "print(json.dumps({'cost': cost, 'route': route,\n"
+    "                  'contradictions': payload['order_contradictions']}))\n"
+)
+
+
+def seed_phase(main150, main1k, gen150, gen1k, host_sizes, smi: str) -> dict:
+    """The single-batch keyed, generic and host rows at 150 and 1024
+    lanes (each tier's warm execute p50; the host tier's
+    CpuBatchVerifier) appended to the port's perf ledger; then a fresh
+    subprocess seeds its cost model from it and must rank keyed first
+    for buckets 256 and 1024 before any online sample."""
+    from cometbft_tpu_torch.crypto import batch as B
+    from cometbft_tpu_torch.crypto import health as H
+
+    name, power = (x.strip() for x in smi.split(",", 1))
+    stamp = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+    rows = []
+    for tier, n, ms in (("keyed", 150, main150["exec_ms"]), ("keyed", 1024, main1k["exec_ms"]),
+                        ("generic", 150, gen150["exec_ms"]), ("generic", 1024, gen1k["exec_ms"]),
+                        ("host", 150, host_sizes["commit150"]["host_ms"]),
+                        ("host", 1024, host_sizes["commit1024"]["host_ms"])):
+        sps = 1e3 * n / ms
+        rows.append({"config": f"chip_smoke_{tier}_{n}", "dispatch_tier": tier, "batch": n,
+                     "value": sps, "unit": "sigs/sec", "sigs_per_sec": sps, "route_seed": True,
+                     "platform": "gpu", "device": name, "power_limit": power,
+                     "source": "chip_smoke.py", "measured": stamp})
+    path = H.append_perf_ledger(rows)
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", _SEED_CHILD], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"seed: the subprocess failed: {proc.stderr[-2000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    table = {(r["tier"], r["bucket"]): r for r in child["cost"]["table"]}
+    for bucket in (256, 1024):
+        for tier in ("keyed", "generic", "host"):
+            r = table.get((tier, bucket))
+            if r is None or r["source"] != "seeded" or r["samples"] != 0:
+                raise AssertionError(f"seed: ({tier}, {bucket}) not seeded: {r}")
+    if any(order[0] != "keyed" for order in child["route"].values()):
+        raise AssertionError(f"seed: the seeded model does not rank keyed first: "
+                             f"{child['route']}")
+    status = B.device_status()
+    if status != {"status": "ready", "ndev": 1} or H.debug_perf_payload()["device"] != status:
+        raise AssertionError(f"seed: device probe {status}")
+    print(f"seed [{smi}]: {len(rows)} rows appended to {os.path.relpath(path, root)}: "
+          + ", ".join(f"{r['dispatch_tier']}@{r['batch']} {r['sigs_per_sec']:.0f} sigs/s"
+                      for r in rows))
+    print(f"  a fresh process's seeded cost model: " + "; ".join(
+        f"{t}@{b} {r['sigs_per_sec']:.0f}" for (t, b), r in sorted(table.items()))
+        + f"; routes {child['route']} (keyed first, before any online sample)")
+    print(f"  order contradictions: {child['contradictions']}")
+    print(f"  device probe (a subprocess counting the cards, run beside the prober phase): "
+          f"{status}")
+    return dict(rows=rows, child=child)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--warm150"]:
         if len(sys.argv) > 2:
@@ -2003,12 +2692,27 @@ def run_all(torch) -> int:
     # phase 10: the host tier and the dispatch ladder
     host_cells(dev, threshold)
     check_ladder("host cells")
-    host_at_device_sizes(dev, commit150, exp150, main150["p50_ms"], main1k["p50_ms"], wide)
+    host_sizes = host_at_device_sizes(dev, commit150, exp150, main150["p50_ms"],
+                                      main1k["p50_ms"], wide)
     check_ladder("host tier at device sizes")
     walk_overhead(dev, commit150, exp150)
     check_ladder("walk overhead")
     chaos_phase(dev, commit150, exp150)
     check_ladder("after the chaos phase")
+
+    # phase 11: the verify-ahead plane
+    stream_phase(dev, commit150, exp150, big, big_exp, commit1k, exp1k, smi)
+    check_ladder("stream phase")
+    queue_phase(dev, commit150, exp150, commit1k, wide, wide_exp, registry, smi)
+    check_ladder("queue phase")
+    from cometbft_tpu_torch.crypto import batch as B
+
+    probe = threading.Thread(target=B.probe_device, name="device-probe")
+    probe.start()          # a subprocess counting the cards, while the prober runs
+    prober_phase(dev, registry, smi)
+    check_ladder("after the prober phase")
+    probe.join(120)
+    seed_phase(main150, main1k, gen150, gen1k, host_sizes, smi)
     for line in registry.expose().splitlines():
         if line.startswith(("cometbft_crypto_dispatch_tier", "cometbft_crypto_dispatch_decisions",
                             "cometbft_crypto_device_hangs_total", "cometbft_crypto_key_pool")):

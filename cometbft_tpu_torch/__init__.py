@@ -12,6 +12,8 @@ Layout mirrors the reference:
   utils/env.py          env readers + the device resolver
   utils/metrics.py      Prometheus registry and text exposition
   utils/flight.py       the flight recorder (recent events)
+  utils/service.py      BaseService, the start/stop lifecycle
+  utils/trace.py        the span tracer (TRACER) and its trace-event export
   metrics/__init__.py   CryptoMetrics, HealthMetrics and their sinks
   crypto/edwards.py     pure-Python big-int oracle (host constants, signing)
   crypto/ed25519.py     Ed25519 key types over the oracle; CpuBatchVerifier,
@@ -19,8 +21,13 @@ Layout mirrors the reference:
   crypto/ed25519_native.py  ctypes binding of the host RLC check
                         (csrc/host/ed25519_batch.cpp, built with g++)
   crypto/dispatch.py    the dispatch ladder, chaos plan and cost model
-  crypto/health.py      the launch watchdog and busy/idle accounting
-  crypto/batch.py       create_batch_verifier -- the entry point
+                        (seeded from the perf ledger)
+  crypto/health.py      the launch watchdog, busy/idle and overlap
+                        accounting, the canary prober, the perf ledger
+  crypto/batch.py       create_batch_verifier -- the entry point; the
+                        device probe
+  crypto/verify_queue.py  the verify-ahead queue: collector and launcher
+                        threads, four priority lanes, the speculative cache
   ops/_build.py         nvcc build of csrc/*.cu and g++ build of
                         csrc/host/*.cpp, loaded with ctypes
   ops/field.py          GF(2^255-19) limbs; fe_mul / fe_sq CUDA kernels
@@ -30,9 +37,9 @@ Layout mirrors the reference:
                         the comb of B and window_mul (generic tier)
   ops/precompute.py     per-validator comb tables (build_tables CUDA
                         kernel) + the key-table pool
-  ops/ed25519_verify.py the keyed and generic verify paths +
-                        TorchBatchVerifier (the ladder's walk) and the
-                        calibrated device threshold
+  ops/ed25519_verify.py the keyed and generic verify paths, their async
+                        entries and verify_stream, TorchBatchVerifier
+                        (the ladder's walk) and the calibrated threshold
   models/commit.py      commit_verify_step: the generic tier as one step
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

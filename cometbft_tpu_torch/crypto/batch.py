@@ -1,12 +1,32 @@
-"""Batch-verifier factory (counterpart of cometbft_tpu/crypto/batch.py:
-186-195; reference crypto/batch/batch.go:10)."""
+"""Batch-verifier factory (counterpart of cometbft_tpu/crypto/batch.py;
+reference crypto/batch/batch.go:10).
+
+``create_batch_verifier`` returns the device verifier on ``cuda`` unless
+the caller passes another device; without a card it raises (the
+reference's factory hands out a host verifier when no device is usable,
+the silent fallback the port does not make).
+
+``device_status()`` is the health plane's read-only view of the device
+probe: ``probe_device()`` counts the cards in a subprocess
+(``torch.cuda.device_count()``), so a wedged CUDA runtime costs its timeout,
+never a hang of the caller.
+"""
 
 from __future__ import annotations
 
+import subprocess
+import sys
+import threading
 from typing import Callable
 
 from cometbft_tpu_torch.crypto import BatchVerifier, PubKey
 from cometbft_tpu_torch.crypto import ed25519 as _ed
+
+#: how long the device probe's subprocess may take
+PROBE_TIMEOUT_S = 60.0
+
+_probe_lock = threading.Lock()
+_device_state = {"status": "unknown", "ndev": 0}
 
 
 def _ed25519_factory(device=None) -> BatchVerifier:
@@ -26,3 +46,34 @@ def create_batch_verifier(pub_key: PubKey, device=None) -> BatchVerifier:
     ``device="cpu"``).  KeyError for key types without a batch
     implementation."""
     return REGISTRY[pub_key.type()](device)
+
+
+def supports_batch_verifier(pub_key: PubKey | None) -> bool:
+    return pub_key is not None and pub_key.type() in REGISTRY
+
+
+def probe_device(timeout_s: float = PROBE_TIMEOUT_S) -> dict:
+    """Count the visible cards in a subprocess and record the result
+    (status ``ready`` with ``ndev`` >= 1, else ``failed``) -> the new
+    ``device_status()``."""
+    with _probe_lock:
+        _device_state["status"] = "probing"
+    try:
+        out = subprocess.run(
+            [sys.executable, "-c", "import torch; print(torch.cuda.device_count())"],
+            capture_output=True, text=True, timeout=timeout_s,
+        )
+        ndev = int(out.stdout.strip().splitlines()[-1]) if out.returncode == 0 else 0
+    except (subprocess.TimeoutExpired, ValueError, IndexError):
+        ndev = 0
+    with _probe_lock:
+        _device_state["ndev"] = ndev
+        _device_state["status"] = "ready" if ndev > 0 else "failed"
+    return device_status()
+
+
+def device_status() -> dict:
+    """{"status": unknown | probing | ready | failed, "ndev": cards
+    counted}: a read-only snapshot, never a probe."""
+    with _probe_lock:
+        return dict(_device_state)

@@ -31,27 +31,34 @@ past the watchdog's budget, a transient mis-launch.
 for it.  Chaos never faults the host or python floor.
 
 **Cost-based routing**: ``TierCostModel`` keeps per-(tier, pow2
-shape bucket) throughput estimates, learned online by an EWMA over the
-per-batch timings ``note_batch`` receives, and ``route()`` orders a
-batch's admissible tiers (plus the host rung) by predicted wall time
-for that shape.  Cost ordering only permutes the admissible list; the
-floor is always last.  Hysteresis keeps one noisy sample from
-flapping the order: an estimate takes part only after ``min_samples``
-samples, a reorder needs a ``margin`` predicted gain, samples are
-winsorized, and an adopted order holds for ``cooldown_s`` per bucket.
-While a learned order is in force, every ``ROUTE_RESAMPLE_EVERY``-th
-batch of its bucket takes the static order, so the tier it displaced is measured
-again (the reference re-measures through its canary prober and ledger
-seeding, which the port has not yet).
+shape bucket) throughput estimates, seeded from the perf ledger's
+single-batch rows (``crypto/health.py measured_tier_throughput``: the
+rows ``chip_smoke.py`` measured on this machine's card, never a TPU
+round's) at the first routing consult (``ensure_seeded``) and refined
+online by an EWMA over the per-batch timings ``note_batch`` receives,
+and ``route()`` orders a batch's admissible tiers (plus the host rung)
+by predicted wall time for that shape.  Cost ordering only permutes
+the admissible list; the floor is always last.  Hysteresis keeps one
+noisy sample from flapping the order: a seeded estimate takes part at
+once, an online one only after ``min_samples`` samples, a reorder
+needs a ``margin`` predicted gain, samples are winsorized, and an
+adopted order holds for ``cooldown_s`` per bucket.  While a
+non-static order is in force, every ``ROUTE_RESAMPLE_EVERY``-th batch
+of its bucket takes the static order, so the tier it displaced is
+measured again: the canary prober (crypto/health.py) only demotes and
+promotes, it gives the cost model no sample.
 
 Every transition is recorded in the ladder's transition ring, as a
 ``crypto/dispatch_transition`` flight event, and in
 ``crypto_dispatch_demotions_total{from,to,reason}`` /
 ``crypto_dispatch_promotions_total{tier}`` /
 ``crypto_dispatch_current_tier{tier}`` (one-hot).
+``debug_dispatch_payload()`` gathers the ladder, the chaos plan, the
+cost table and the ledger's measured throughput with the order
+contradictions it shows.
 
 Every parameter is a constructor argument with the reference's
-default.  The cost model starts unseeded and learns online.
+default.
 """
 
 from __future__ import annotations
@@ -88,8 +95,8 @@ DEFAULT_ROUTE_MIN_SAMPLES = 3
 DEFAULT_ROUTE_MARGIN = 0.2
 #: an adopted order holds at least this long per (bucket, candidates)
 DEFAULT_ROUTE_COOLDOWN_S = 30.0
-#: under a learned order, every this-many-th batch of the bucket takes
-#: the static order, so a displaced tier is measured again
+#: under a non-static order, every this-many-th batch of the bucket
+#: takes the static order, so a displaced tier is measured again
 ROUTE_RESAMPLE_EVERY = 32
 #: EWMA smoothing for online refinement
 ROUTE_EWMA_ALPHA = 0.2
@@ -266,10 +273,12 @@ class Chaos:
     def enabled(self) -> bool:
         return self.plan is not None
 
-    def inject(self, tier: str) -> None:
-        """The execute seam's injection point: raises ChaosFault when the
-        plan schedules a fault for ``tier`` now.  ``launch_hang`` first
-        sleeps past the watchdog's budget, so the watchdog demotes."""
+    def inject(self, tier: str, probe: bool = False) -> None:
+        """The execute seam's (and the canary prober's) injection point:
+        raises ChaosFault when the plan schedules a fault for ``tier``
+        now.  ``launch_hang`` first sleeps past the watchdog's budget, so
+        the watchdog demotes, except on the probe seam (``probe``), where
+        the prober's own timeout plays that part."""
         plan = self.plan
         if plan is None or tier not in self._tiers:
             return
@@ -284,7 +293,7 @@ class Chaos:
             if kind == "mislaunch":
                 self._fired.add(idx)
             self._hits[kind] = self._hits.get(kind, 0) + 1
-        if kind == "launch_hang":
+        if kind == "launch_hang" and not probe:
             from cometbft_tpu_torch.crypto import health as _health
 
             time.sleep(_health.WATCHDOG.budget_s * 1.25)
@@ -313,10 +322,12 @@ class TierCostModel:
     they imply.  Not locked on its own: the owning DispatchLadder calls
     every ``*_locked`` method under its lock.
 
-    An online estimate starts ``warming`` and takes part in ordering
-    only after ``min_samples`` batches (then ``learned``).  Estimates
-    are strictly per bucket: which tier wins flips with batch size, so
-    there is no extrapolation across shapes.
+    A ``seeded`` estimate comes from the perf ledger's measured rows
+    (``seed_locked``) and takes part at once; an online estimate starts
+    ``warming`` and takes part only after ``min_samples`` batches; either
+    becomes ``learned`` once ``min_samples`` online samples have refined
+    it.  Estimates are strictly per bucket: which tier wins flips with
+    batch size, so there is no extrapolation across shapes.
 
     Ordering: the estimated tiers are bubble-sorted among themselves,
     a lower tier passing a higher one only when it predicts a ``margin``
@@ -335,11 +346,37 @@ class TierCostModel:
         self.min_samples = min_samples
         self.margin = margin
         self.cooldown_s = cooldown_s
-        # (tier, bucket) -> {sigs_per_sec, samples, source}
+        # (tier, bucket) -> {sigs_per_sec, samples, source, config}
         self._est: dict[tuple[str, int], dict] = {}
         # (bucket, static candidates) -> {order, last_reorder, reorders,
         # since_resample}
         self._orders: dict[tuple[int, tuple], dict] = {}
+        #: ledger seeding has happened (set once; a racing second seed
+        #: is harmless: seed_locked never overwrites online evidence)
+        self.seeded = False
+
+    def seed_locked(self, measured: dict) -> int:
+        """Seed from ``health.measured_tier_throughput()``'s per-bucket
+        view; an estimate that already has online samples is never
+        overwritten.  Returns the number of estimates seeded."""
+        n = 0
+        for tier, info in measured.items():
+            if tier not in TIER_ORDER or tier == FLOOR_TIER:
+                continue
+            for bucket, entry in (info.get("buckets") or {}).items():
+                key = (tier, int(bucket))
+                st = self._est.get(key)
+                if st is not None and st["samples"] > 0:
+                    continue
+                self._est[key] = {
+                    "sigs_per_sec": float(entry["sigs_per_sec"]),
+                    "samples": 0,
+                    "source": "seeded",
+                    "config": entry.get("config"),
+                }
+                n += 1
+        self.seeded = True
+        return n
 
     def observe_locked(self, tier: str, batch: int, seconds: float | None) -> None:
         """One batch's throughput, folded into the (tier, bucket) EWMA
@@ -356,6 +393,7 @@ class TierCostModel:
                 "sigs_per_sec": sample,
                 "samples": 1,
                 "source": "learned" if self.min_samples <= 1 else "warming",
+                "config": None,
             }
             return
         prev = st["sigs_per_sec"]
@@ -367,7 +405,7 @@ class TierCostModel:
 
     def _participating_locked(self, tier: str, bucket: int) -> dict | None:
         st = self._est.get((tier, bucket))
-        if st is None or st["source"] != "learned":
+        if st is None or st["source"] not in ("seeded", "learned"):
             return None  # warming: under min_samples, no say yet
         return st
 
@@ -394,8 +432,9 @@ class TierCostModel:
     def order_locked(self, candidates: list[str], bucket: int,
                      now: float) -> tuple[tuple, bool, str]:
         """-> (order, reordered now, source) for one batch.  ``source``
-        says how the FIRST tier got its place: ``static``, ``learned``,
-        or ``resample`` (the static order, taken under a learned one)."""
+        says how the FIRST tier got its place: ``static``, the winning
+        estimate's provenance (``seeded`` or ``learned``), or
+        ``resample`` (the static order, taken under another one)."""
         static = tuple(candidates)
         if not self.enabled or len(static) < 2:
             return static, False, "static"
@@ -420,7 +459,8 @@ class TierCostModel:
         if st["since_resample"] >= ROUTE_RESAMPLE_EVERY:
             st["since_resample"] = 0
             return static, reordered, "resample"
-        return order, reordered, "learned"
+        est = self._participating_locked(order[0], bucket)
+        return order, reordered, est["source"] if est is not None else "learned"
 
     def snapshot_locked(self, now: float) -> dict:
         table = [
@@ -430,6 +470,7 @@ class TierCostModel:
                 "sigs_per_sec": round(st["sigs_per_sec"], 1),
                 "samples": st["samples"],
                 "source": st["source"],
+                "config": st["config"],
                 "participating": self._participating_locked(tier, bucket) is not None,
             }
             for (tier, bucket), st in sorted(self._est.items())
@@ -448,6 +489,7 @@ class TierCostModel:
         ]
         return {
             "enabled": self.enabled,
+            "seeded": self.seeded,
             "policy": {
                 "min_samples": self.min_samples,
                 "margin": self.margin,
@@ -560,6 +602,23 @@ class DispatchLadder:
 
     # -- cost routing -----------------------------------------------------
 
+    def ensure_seeded(self) -> None:
+        """Seed the cost model from the perf ledger once, at the first
+        routing consult (importing this module reads no file).  The
+        ledger is read outside the lock.  A missing ledger, or one that
+        is not JSON, seeds nothing (``health.perf_ledger_tail``); a row
+        of the wrong shape raises to the caller, where the reference
+        logs it and runs unseeded."""
+        if self._cost.seeded or not self._cost.enabled:
+            return
+        from cometbft_tpu_torch.crypto.health import measured_tier_throughput
+
+        measured = measured_tier_throughput()
+        with self._mtx:
+            n = self._cost.seed_locked(measured)
+        if n:
+            _log.info("cost model seeded from the perf ledger: %d estimates", n)
+
     def route(self, admissible: list[str], batch: int, add_host: bool = True) -> list[str]:
         """One batch's walk: the admissible tiers plus the host rung,
         ordered by predicted wall time for the batch's shape bucket.  The
@@ -572,6 +631,7 @@ class DispatchLadder:
         if not candidates:
             return []
         bucket = shape_bucket(batch)
+        self.ensure_seeded()
         with self._mtx:
             order, reordered, source = self._cost.order_locked(candidates, bucket,
                                                                self._clock())
@@ -590,7 +650,26 @@ class DispatchLadder:
         _crypto_metrics().dispatch_route.labels(
             tier=tier, bucket=str(shape_bucket(batch)), source=source).inc()
 
+    def router_prefers(self, faster: str, preferred: str, bucket: int | None) -> bool:
+        """Does the cost model, for ``bucket``, rank ``faster`` above
+        ``preferred`` in a full walk (every tier with a participating
+        estimate there, plus the pair)?  The ``resolved_by_router`` flag
+        of ``debug_dispatch_payload``'s contradictions: a pure read, no
+        metrics, no order adopted."""
+        if bucket is None or not self._cost.enabled:
+            return False
+        if FLOOR_TIER in (faster, preferred):
+            return False  # the floor is never part of the permutation
+        self.ensure_seeded()
+        with self._mtx:
+            candidates = [t for t in TIER_ORDER if t != FLOOR_TIER and (
+                t in (faster, preferred)
+                or self._cost._participating_locked(t, int(bucket)) is not None)]
+            order = self._cost.desired_locked(candidates, int(bucket))
+        return order.index(faster) < order.index(preferred)
+
     def cost_snapshot(self) -> dict:
+        self.ensure_seeded()
         with self._mtx:
             return self._cost.snapshot_locked(self._clock())
 
@@ -780,8 +859,64 @@ LADDER = DispatchLadder()
 CHAOS = Chaos()
 
 
-def reset_for_tests() -> None:
-    """Wipe the ladder's state (default policy) and disarm chaos."""
+def reset_for_tests(ledger: bool = False) -> None:
+    """Wipe the ladder's state (default policy) and disarm chaos.  The
+    cost model is marked seeded unless ``ledger``: a test's routes never
+    read the perf ledger a card run left in the checkout, and a test
+    that seeds names its own file (``health.PERF_LEDGER``)."""
     LADDER.reset()
+    LADDER._cost.seeded = not ledger
     CHAOS.load(None)
+
+
+# -- the debug payload -----------------------------------------------------
+
+
+def _contradiction_bucket(measured: dict, lo: str, hi: str) -> int | None:
+    """The shape bucket a contradiction was measured at: the faster
+    tier's latest row's bucket, else the preferred tier's; None when
+    neither row named a batch size."""
+    for tier in (lo, hi):
+        bucket = measured.get(tier, {}).get("bucket")
+        if bucket is not None:
+            return bucket
+    return None
+
+
+def debug_dispatch_payload() -> dict:
+    """The ladder (order, per-tier state, transitions), the chaos plan,
+    the live cost table and the perf ledger's latest measured sigs/s per
+    tier, with an order contradiction wherever a tier the ladder prefers
+    measured slower than one below it; each carries
+    ``resolved_by_router``: True when the cost model ranks the pair the
+    measured way for that shape."""
+    from cometbft_tpu_torch.crypto.health import measured_tier_throughput
+
+    measured = measured_tier_throughput()
+    contradictions = []
+    for i, hi in enumerate(TIER_ORDER):
+        if measured.get(hi, {}).get("sigs_per_sec") is None:
+            continue
+        for lo in TIER_ORDER[i + 1:]:
+            if measured.get(lo, {}).get("sigs_per_sec") is None:
+                continue
+            hi_v = measured[hi]["sigs_per_sec"]
+            lo_v = measured[lo]["sigs_per_sec"]
+            if lo_v > hi_v:
+                bucket = _contradiction_bucket(measured, lo, hi)
+                contradictions.append({
+                    "preferred": hi,
+                    "preferred_sigs_per_sec": hi_v,
+                    "faster": lo,
+                    "faster_sigs_per_sec": lo_v,
+                    "bucket": bucket,
+                    "resolved_by_router": LADDER.router_prefers(lo, hi, bucket),
+                })
+    return {
+        "ladder": LADDER.snapshot(),
+        "chaos": CHAOS.snapshot(),
+        "cost_model": LADDER.cost_snapshot(),
+        "measured_tier_throughput": measured,
+        "order_contradictions": contradictions,
+    }
 

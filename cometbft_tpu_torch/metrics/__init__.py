@@ -1,6 +1,6 @@
 """The crypto plane's metrics structs: ``CryptoMetrics`` and
 ``HealthMetrics`` with their process-wide sinks (a copy of
-cometbft_tpu/metrics/__init__.py:630-1027, the series the port writes).
+cometbft_tpu/metrics/__init__.py:630-925, the series the port writes).
 
 Each struct takes a ``utils.metrics.Registry``, or None for no-op
 metrics (the reference's NopMetrics).  The sinks are no-ops until a
@@ -37,14 +37,15 @@ _NOP = _Nop()
 class CryptoMetrics:
     """What the verify path did: launches, routing decisions, the
     dispatch ladder's tiers and transitions, kernel and host-verify
-    wall time, and the key-table pool's occupancy.  The verify queue's
-    series (``verify_queue_*``) stay no-ops until the queue is ported."""
+    wall time, the bytes across the link, the key-table pool's
+    occupancy and the verify queue's lanes."""
 
     def __init__(self, reg: Registry | None = None):
-        self.verify_queue_depth = self.verify_queue_inflight = _NOP
-        self.verify_queue_submitted = self.verify_queue_batch_size = _NOP
-        self.verify_queue_spec_cache = self.verify_queue_prefetch_depth = _NOP
         if reg is None:
+            self.verify_queue_depth = self.verify_queue_inflight = _NOP
+            self.verify_queue_submitted = self.verify_queue_batch_size = _NOP
+            self.verify_queue_spec_cache = self.verify_queue_prefetch_depth = _NOP
+            self.bytes_transferred = _NOP
             self.batch_verify_launches = _NOP
             self.batch_verify_batch_size = _NOP
             self.dispatch_decisions = _NOP
@@ -118,22 +119,67 @@ class CryptoMetrics:
             s, "key_pool_builds", "Per-key comb-table pages built on the device.")
         self.key_pool_evictions = reg.counter(
             s, "key_pool_evictions", "Key pages evicted from the device comb-table pool.")
+        self.bytes_transferred = reg.counter(
+            s, "bytes_transferred", "Bytes moved across the host-device link (h2d | d2h).",
+            labels=("direction",))
+        self.verify_queue_depth = reg.gauge(
+            s, "verify_queue_depth",
+            "Requests waiting in the verify queue, by priority lane (consensus | prefetch "
+            "| light_client | ingest); strict preemption in that order.",
+            labels=("priority",))
+        self.verify_queue_inflight = reg.gauge(
+            s, "verify_queue_inflight",
+            "Buffers in flight in the verify queue (prepared + launching); 2 means the "
+            "double buffer is full: host prep of buffer N+1 overlaps buffer N's launch.")
+        self.verify_queue_submitted = reg.counter(
+            s, "verify_queue_submitted",
+            "Verification requests submitted to the verify queue, by priority lane "
+            "(consensus | prefetch | light_client | ingest).",
+            labels=("priority",))
+        self.verify_queue_batch_size = reg.histogram(
+            s, "verify_queue_batch_size",
+            "Signatures per coalesced verify-queue buffer (after speculative-cache dedupe).",
+            buckets=(1, 2, 8, 32, 128, 512, 2048, 8192))
+        self.verify_queue_spec_cache = reg.counter(
+            s, "verify_queue_spec_cache",
+            "Speculative-result cache consults (hit | miss): a hit is a signature that "
+            "skipped its launch because the queue verified it earlier.",
+            labels=("result",))
+        self.verify_queue_prefetch_depth = reg.gauge(
+            s, "verify_queue_prefetch_depth",
+            "Configured blocksync verify-prefetch depth in blocks (0 = prefetch disabled).")
 
 
 class HealthMetrics:
-    """Whether the device is healthy enough to keep verifying: launch
-    watchdog overruns, busy and idle time between launches and the
-    queue-wait half of the launch split.  (The canary prober's series
-    come with the prober.)"""
+    """Whether the device is healthy enough to keep verifying: per-tier
+    canary latency and health, launch watchdog overruns, busy and idle
+    time between launches, the queue-wait half of the launch split and
+    the host/device overlap the pipelined paths buy."""
 
     def __init__(self, reg: Registry | None = None):
         if reg is None:
+            self.tier_probe_seconds = self.tier_healthy = _NOP
+            self.tier_probe_failures_total = _NOP
+            self.host_device_overlap_ratio = _NOP
             self.device_hangs_total = _NOP
             self.device_busy_seconds_total = _NOP
             self.device_idle_seconds_total = _NOP
             self.launch_queue_wait_seconds = _NOP
             return
         s = "crypto"
+        self.tier_probe_seconds = reg.histogram(
+            s, "tier_probe_seconds",
+            "Wall seconds per canary probe of a dispatch tier (keyed | generic | host).",
+            buckets=DEFAULT_TIME_BUCKETS, labels=("tier",))
+        self.tier_healthy = reg.gauge(
+            s, "tier_healthy",
+            "1 while the tier's last canary probe verified correctly within its budget, 0 "
+            "after a failed, hung or mis-verifying probe.",
+            labels=("tier",))
+        self.tier_probe_failures_total = reg.counter(
+            s, "tier_probe_failures_total",
+            "Canary probes that failed (exception, mis-verify or timeout), by tier.",
+            labels=("tier",))
         self.device_hangs_total = reg.counter(
             s, "device_hangs_total",
             "Device launches that exceeded the launch watchdog's budget.")
@@ -150,6 +196,11 @@ class HealthMetrics:
             s, "launch_queue_wait_seconds",
             "Host seconds between a batch's plan and its device launch.",
             buckets=DEFAULT_TIME_BUCKETS)
+        self.host_device_overlap_ratio = reg.gauge(
+            s, "host_device_overlap_ratio",
+            "Share of launch wall time the host spent not blocked in the result fetch "
+            "(a verifier's launch) or spent preparing the next batch (the verify queue's "
+            "cumulative ratio): ~0 lockstep, ->1 host work overlaps the device.")
 
 
 _CRYPTO = CryptoMetrics(None)

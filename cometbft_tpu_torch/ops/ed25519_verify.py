@@ -26,9 +26,28 @@ Layouts are the reference's: the packed buffer is feature-first
 (100 + bucket, B) uint8 -- pub[32] | sig[64] | msg[bucket] |
 msglen_le[4] -- plus key_id_le[4] on the keyed tier (104 + bucket),
 padded to a power-of-two batch and a message-length bucket.  Batches
-wider than MAX_LAUNCH run as a loop of MAX_LAUNCH-lane slices; the
-slices' results are concatenated on the device and come back with one
-copy per batch.
+wider than MAX_LAUNCH run as a loop of MAX_LAUNCH-lane slices.
+
+**The async path.**  ``verify_arrays_keyed_async`` and
+``verify_arrays_async`` pack a batch into pinned host memory (PyTorch's
+caching host allocator, which reuses a block only once its copy has
+run), copy it to the card without waiting and enqueue the slices'
+launches, returning ``[(verdicts on the device, n)]``.  ``_finish``
+concatenates parts on the device and fetches them with one copy into
+pinned memory, waiting on a CUDA event (timed as the fetch wait, which
+the overlap ratio reads); the copy runs on a fetch stream after the
+parts' own ready events, so it does not wait for work enqueued after
+them.  ``verify_stream`` keeps up to
+``max_in_flight`` jobs enqueued and fetches the oldest half at once, so
+the host packs job N+1 while the card runs job N.  The synchronous
+entries are ``_finish`` of the async ones with ``pipelined=False``:
+nothing runs behind them, so they pack into pageable memory, copy while
+the host waits and fetch on the compute stream; the pinned block and
+the events cost them about 0.2 ms of commit150's 1 ms on the H100.
+The copy in and every launch run on the device's current stream:
+enqueue order keeps the key-table pool's writes (on the thread that
+plans) ahead of the launches that read them; only the pipelined fetch
+has a stream of its own.
 
 ``TorchBatchVerifier`` routes each batch down the dispatch ladder
 (crypto/dispatch.py): keyed, generic, then the host tier (one native
@@ -44,6 +63,7 @@ from __future__ import annotations
 
 import functools
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -60,6 +80,7 @@ from cometbft_tpu_torch.ops import precompute as PR
 from cometbft_tpu_torch.ops import scalar as SC
 from cometbft_tpu_torch.ops import sha512 as SH
 from cometbft_tpu_torch.utils.env import resolve_device
+from cometbft_tpu_torch.utils.trace import TRACER as _tracer
 
 # Message-length buckets (bytes). Vote sign-bytes are ~120 bytes; the
 # largest bucket covers arbitrary app-level uses.
@@ -324,11 +345,13 @@ def verify_generic_fused(buf, digest, bucket: int, shape=None, want_q: bool = Fa
 
 def pack_inputs(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes],
                 start: int = 0, end: int | None = None,
-                key_ids: np.ndarray | None = None) -> tuple[np.ndarray, int]:
+                key_ids: np.ndarray | None = None, zeros=np.zeros) -> tuple[np.ndarray, int]:
     """Pad + pack (pub, sig, msgs[start:end]) into the feature-first
     (100+bucket, batch) uint8 layout -- (104+bucket, batch) with 4 LE
     key-id bytes per lane when ``key_ids`` is given.  Returns (packed,
-    bucket).  Padded lanes are all zero: key id 0, zero windows."""
+    bucket).  Padded lanes are all zero: key id 0, zero windows.
+    ``zeros(shape, dtype)`` makes the zeroed buffer (a pinned tensor's
+    numpy view for the async path)."""
     if end is None:
         end = len(msgs)
     n = end - start
@@ -340,7 +363,7 @@ def pack_inputs(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes],
         raise ValueError(f"message too large for device path: {maxlen}")
     batch = max(PR.next_pow2(n), _MIN_BATCH)
     tail = 100 if key_ids is None else 104
-    packed = np.zeros((tail + bucket, batch), dtype=np.uint8)
+    packed = zeros((tail + bucket, batch), dtype=np.uint8)
     packed[:32, :n] = pub[start:end].T
     packed[32:96, :n] = sig[start:end].T
     flat = np.frombuffer(b"".join(msgs[start:end]), dtype=np.uint8)
@@ -362,32 +385,62 @@ def pack_inputs(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes],
     return packed, bucket
 
 
-def verify_arrays_keyed(entry: PR.KeySetTables, key_ids: np.ndarray,
-                        pub: np.ndarray, sig: np.ndarray,
-                        msgs: list[bytes]) -> np.ndarray:
-    """Host entry of the keyed path: numpy (n, 32), (n, 64), n messages
-    and their key ids in ``entry`` -> bool[n].  Runs on the device that
-    holds ``entry.table``: one host-to-device copy of the packed batch,
-    MAX_LAUNCH-lane slices, one device-to-host copy of the verdicts."""
-    n = len(msgs)
-    packed, bucket = pack_inputs(pub, sig, msgs, key_ids=key_ids)
-    batch = packed.shape[-1]
-    if batch > MAX_LAUNCH and batch % MAX_LAUNCH:
-        packed = np.pad(packed, [(0, 0), (0, MAX_LAUNCH - batch % MAX_LAUNCH)])
-        batch = packed.shape[-1]
+def _stage(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes], device,
+           key_ids: np.ndarray | None = None,
+           pipelined: bool = True) -> tuple[torch.Tensor, int]:
+    """Pack a batch (:func:`pack_inputs`) and start its copy to
+    ``device`` -> (packed rows on the device, bucket).  For a CUDA device
+    the rows are packed into a pinned tensor and copied without waiting
+    (the caching host allocator keeps the block until the copy has run),
+    or, not ``pipelined``, packed into pageable memory and copied while
+    the host waits.  For the CPU the packed array is the device tensor."""
+    if device.type != "cuda" or not pipelined:
+        packed, bucket = pack_inputs(pub, sig, msgs, key_ids=key_ids)
+        buf = torch.from_numpy(packed)
+        if device.type == "cuda":
+            _crypto_metrics().bytes_transferred.child("h2d").inc(packed.size)
+            buf = buf.to(device)
+        return buf, bucket
+    held = []
+
+    def pinned_zeros(shape, dtype):
+        t = torch.zeros(shape, dtype=torch.uint8, pin_memory=True)
+        held.append(t)
+        return t.numpy()
+
+    _, bucket = pack_inputs(pub, sig, msgs, key_ids=key_ids, zeros=pinned_zeros)
+    _crypto_metrics().bytes_transferred.child("h2d").inc(held[0].numel())
+    return held[0].to(device, non_blocking=True), bucket
+
+
+def verify_arrays_keyed_async(entry: PR.KeySetTables, key_ids: np.ndarray,
+                              pub: np.ndarray, sig: np.ndarray, msgs: list[bytes],
+                              pipelined: bool = True):
+    """Enqueue the keyed path without waiting: numpy (n, 32), (n, 64), n
+    messages and their key ids in ``entry`` -> ``[(bool verdicts on the
+    device, n)]``, the verdicts padded to the packed batch.  Runs on the
+    device that holds ``entry.table``: the packed batch's copy, then per
+    MAX_LAUNCH-lane slice sha512_keyed and verify_keyed, the slices'
+    verdicts concatenated on the device.  Fetch with :func:`_finish`
+    (``pipelined`` as given here: :func:`_stage`)."""
+    dev = entry.table.device
+    buf, bucket = _stage(pub, sig, msgs, dev, key_ids=key_ids, pipelined=pipelined)
+    batch = buf.shape[1]
     nblocks = nblocks_for_bucket(bucket)
-    buf = torch.from_numpy(packed).to(entry.table.device)
-    key_valid = entry.valid_device()
-    b_table = F.const(PR.b_comb8(), buf.device)
-    outs = []
-    for s in range(0, batch, MAX_LAUNCH):
-        rows = buf[:, s : s + MAX_LAUNCH]
-        outs.append(verify_keyed_fused(
-            rows, keyed_digest(rows, bucket, nblocks), entry.table, key_valid,
-            b_table, bucket, entry.window_bits,
-        ))
+    _crypto_metrics().batch_verify_launches.child("keyed").inc()
+    with _tracer.span("device_launch", cat="device", kernel="keyed", batch=batch,
+                      bucket=bucket, window_bits=entry.window_bits):
+        key_valid = entry.valid_device()
+        b_table = F.const(PR.b_comb8(), dev)
+        outs = []
+        for s in range(0, batch, MAX_LAUNCH):
+            rows = buf[:, s : s + MAX_LAUNCH]
+            outs.append(verify_keyed_fused(
+                rows, keyed_digest(rows, bucket, nblocks), entry.table, key_valid,
+                b_table, bucket, entry.window_bits,
+            ))
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
-    return out.cpu().numpy()[:n]
+    return [(_mark_ready(out) if pipelined else out, len(msgs))]
 
 
 def verify_generic_rows(buf: torch.Tensor, bucket: int) -> torch.Tensor:
@@ -402,15 +455,138 @@ def verify_generic_rows(buf: torch.Tensor, bucket: int) -> torch.Tensor:
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
+def verify_arrays_async(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes], device,
+                        pipelined: bool = True):
+    """Enqueue the generic path on ``device`` without waiting: numpy (n,
+    32), (n, 64) and n messages -> ``[(bool verdicts on the device,
+    n)]`` (:func:`verify_generic_rows` of the packed batch's copy;
+    ``pipelined`` as in :func:`verify_arrays_keyed_async`)."""
+    buf, bucket = _stage(pub, sig, msgs, torch.device(device), pipelined=pipelined)
+    _crypto_metrics().batch_verify_launches.child("generic").inc()
+    with _tracer.span("device_launch", cat="device", kernel="generic", batch=buf.shape[1],
+                      bucket=bucket):
+        out = verify_generic_rows(buf, bucket)
+    return [(_mark_ready(out) if pipelined else out, len(msgs))]
+
+
+#: device -> the stream the verdicts are fetched on (one per device)
+_FETCH_STREAMS: dict = {}
+
+
+def _mark_ready(out: torch.Tensor) -> torch.Tensor:
+    """Record, on a CUDA tensor of verdicts, an event on the current
+    stream right after the launches that produce it (``_finish`` waits
+    for that event, not for everything enqueued later)."""
+    if out.device.type == "cuda":
+        out._ready = torch.cuda.Event()
+        out._ready.record(torch.cuda.current_stream(out.device))
+    return out
+
+
+def _finish(parts, pipelined: bool = True) -> np.ndarray:
+    """Wait for a list of (device verdicts, n) parts and fetch them with
+    one copy, into a pinned host tensor, then wait on a CUDA event after
+    the copy (timed as this thread's fetch wait).  On a card the
+    concatenation and the copy run on the device's fetch stream, after
+    each part's ready event (``_mark_ready``): launches enqueued on the
+    compute stream after the parts -- later jobs of a stream, the next
+    batch's table build -- are not waited for.  Not ``pipelined``, the
+    copy runs on the compute stream into pageable memory (the
+    synchronous entries: nothing is enqueued behind them).  Each part is
+    padded; its first n verdicts are kept -> bool[sum n]."""
+    first = parts[0][0]
+    if first.device.type == "cuda" and not pipelined:
+        out = first if len(parts) == 1 else torch.cat([p for p, _ in parts])
+        with _health.USAGE.timed_fetch():
+            host = out.cpu()
+        _crypto_metrics().bytes_transferred.child("d2h").inc(host.numel())
+        combined = host.numpy()
+    elif first.device.type == "cuda":
+        dev = first.device
+        side = _FETCH_STREAMS.get(dev)
+        if side is None:
+            side = _FETCH_STREAMS.setdefault(dev, torch.cuda.Stream(dev))
+        for p, _ in parts:
+            ready = getattr(p, "_ready", None)
+            if ready is None:
+                side.wait_stream(torch.cuda.current_stream(dev))
+            else:
+                side.wait_event(ready)
+        # the parts stay referenced until the wait below: the compute
+        # stream cannot reuse their memory while the fetch stream reads it
+        with torch.cuda.stream(side):
+            out = first if len(parts) == 1 else torch.cat([p for p, _ in parts])
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        with _health.USAGE.timed_fetch():
+            done.synchronize()
+        _crypto_metrics().bytes_transferred.child("d2h").inc(host.numel())
+        combined = host.numpy()
+    else:
+        combined = (first if len(parts) == 1 else torch.cat([p for p, _ in parts])).numpy()
+    if len(parts) == 1:
+        return combined[: parts[0][1]]
+    pieces, off = [], 0
+    for p, k in parts:
+        pieces.append(combined[off : off + k])
+        off += p.shape[0]
+    return np.concatenate(pieces)
+
+
+def verify_arrays_keyed(entry: PR.KeySetTables, key_ids: np.ndarray,
+                        pub: np.ndarray, sig: np.ndarray,
+                        msgs: list[bytes]) -> np.ndarray:
+    """Host entry of the keyed path -> bool[n]:
+    ``_finish(verify_arrays_keyed_async(...))``, not pipelined."""
+    return _finish(verify_arrays_keyed_async(entry, key_ids, pub, sig, msgs, pipelined=False),
+                   pipelined=False)
+
+
 def verify_arrays(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes],
                   device) -> np.ndarray:
-    """Host entry of the generic path: numpy (n, 32), (n, 64) and n
-    messages -> bool[n], on ``device``.  One host-to-device copy of the
-    packed batch, :func:`verify_generic_rows`, one device-to-host copy
-    of the verdicts."""
-    packed, bucket = pack_inputs(pub, sig, msgs)
-    out = verify_generic_rows(torch.from_numpy(packed).to(device), bucket)
-    return out.cpu().numpy()[: len(msgs)]
+    """Host entry of the generic path on ``device`` -> bool[n]:
+    ``_finish(verify_arrays_async(...))``, not pipelined."""
+    return _finish(verify_arrays_async(pub, sig, msgs, device, pipelined=False),
+                   pipelined=False)
+
+
+def verify_stream(jobs, max_in_flight: int = 8, dispatch=None, device=None):
+    """Pipelined verification: ``jobs`` yields (pub, sig, msgs) tuples;
+    yields bool[n] per job, in order, with up to ``max_in_flight`` jobs
+    enqueued so the card runs one job while the host packs the next.
+    When the window is full the oldest half is fetched with one copy
+    (:func:`_finish`); the rest at the end.
+
+    ``dispatch(pub, sig, msgs)`` is the async launcher: by default
+    :func:`verify_arrays_async` on ``device`` (``cuda`` unless given);
+    a closure over :func:`verify_arrays_keyed_async` with a warm table
+    entry streams the keyed path."""
+    if dispatch is None:
+        dev = resolve_device(device)
+
+        def dispatch(pub, sig, msgs):
+            return verify_arrays_async(pub, sig, msgs, dev)
+    pending: deque = deque()
+
+    def flush(count: int):
+        # the oldest jobs are the likeliest to be done; newer ones stay
+        # enqueued so the card does not drain
+        batch = [pending.popleft() for _ in range(count)]
+        combined = _finish([pt for job_parts in batch for pt in job_parts])
+        off = 0
+        for job_parts in batch:
+            n = sum(k for _, k in job_parts)
+            yield combined[off : off + n]
+            off += n
+
+    for job in jobs:
+        pending.append(dispatch(*job))
+        if len(pending) >= max_in_flight:
+            yield from flush(max(1, len(pending) // 2))
+    if pending:
+        yield from flush(len(pending))
 
 
 #: the threshold's per-signature costs: the host tier's (t_cpu), 48.4 us
@@ -672,13 +848,16 @@ class TorchBatchVerifier(BatchVerifier):
                      note_queue_wait: bool = True) -> list[bool]:
         """One device-tier attempt under the launch watchdog, with chaos
         injected inside its armed window, the queue wait and busy/idle
-        accounting over the launch's wall (to the verdicts' copy).  A
-        launch the watchdog declared hung that then raises is a typed
-        fault, marked so the back-off advances once; any other
-        exception propagates as it is."""
+        accounting over the launch's wall (to the verdicts' copy), and
+        the overlap ratio from the fetch's wait.  A launch the watchdog
+        declared hung that then raises is a typed fault, marked so the
+        back-off advances once; any other exception propagates as it
+        is."""
+        usage = _health.USAGE
         t_launch = time.perf_counter()
         if note_queue_wait:
-            _health.USAGE.note_queue_wait(t_launch - plan.t_plan)
+            usage.note_queue_wait(t_launch - plan.t_plan)
+        fetch0 = usage.fetch_wait()
         wd = _health.WATCHDOG
         token = wd.arm(tier, batch=plan.n)
         try:
@@ -697,7 +876,7 @@ class TorchBatchVerifier(BatchVerifier):
             fault._ladder_watchdog_fired = True
             raise fault from exc
         wd.disarm(token)
-        _health.USAGE.launch_end(t_launch)
+        usage.launch_end(t_launch, fetch_wait=usage.fetch_wait() - fetch0)
         return out.tolist()
 
     def _run_tier(self, tier: str, plan: _VerifyPlan) -> np.ndarray:

@@ -12,6 +12,7 @@ nothing else.  Where the port departs on purpose -- only typed tier
 faults walk down, cold samples stay out of the cost model, a learned
 order re-samples the tier it displaced -- the tests say so."""
 
+import json
 import time
 import types
 
@@ -89,7 +90,8 @@ def _ladders(**policy):
     port = D.DispatchLadder(clock=clock, cost_model=D.TierCostModel(**cost), **policy)
     ref = jdispatch.DispatchLadder(clock=clock, cost_model=jdispatch.TierCostModel(**cost),
                                    **policy)
-    ref._cost.seeded = True   # no ledger seeding: the port's model learns online only
+    # no ledger seeding: both models learn online only
+    port._cost.seeded = ref._cost.seeded = True
     return clock, port, ref
 
 
@@ -525,6 +527,30 @@ def test_cold_runs_stay_out_of_the_cost_model(votes, stand_in_cache, monkeypatch
     entry.launched = False
     assert verify() == (entry, [])                  # the entry's first run
     assert verify() == (entry, [("keyed", 1)])
+
+
+def test_a_card_ledger_in_the_checkout_changes_no_test(votes, stand_in_cache, monkeypatch,
+                                                       tmp_path):
+    """chip_smoke.py appends its tier rows to the port's perf ledger in
+    the checkout.  With such a ledger in place (generic ranked above
+    keyed at buckets 256 and 1024, host above both at 8), the tests'
+    ladders read none of it: the replay and the cold-run tests hold."""
+    rows = [{"config": f"{tier}{batch}", "dispatch_tier": tier, "batch": batch,
+             "sigs_per_sec": rate, "route_seed": True, "platform": "gpu"}
+            for tier, batch, rate in (("generic", 150, 9e5), ("keyed", 150, 1e5),
+                                      ("generic", 1024, 9e5), ("keyed", 1024, 1e5),
+                                      ("host", 8, 1e7), ("generic", 8, 1e3))]
+    path = tmp_path / "perf_ledger.json"
+    path.write_text(json.dumps({"entries": rows}))
+    monkeypatch.setattr(H, "PERF_LEDGER", str(path))
+    assert sorted(H.measured_tier_throughput()) == ["generic", "host", "keyed"]
+    D.reset_for_tests()
+    assert D.LADDER.cost_snapshot()["table"] == []
+    test_ladder_and_cost_model_replay_reference()
+    test_cold_runs_stay_out_of_the_cost_model(votes, stand_in_cache, monkeypatch)
+    # the switch that lets a test seed from the file it names
+    D.reset_for_tests(ledger=True)
+    assert D.LADDER.route(["keyed", "generic"], 150) == ["generic", "keyed", "host"]
 
 
 def test_learned_order_resamples_the_displaced_tier(monkeypatch):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from cometbft_tpu.models import commit as JM
 from cometbft_tpu.ops import curve as JC
+from cometbft_tpu_torch.crypto import dispatch as D
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import edwards as E
 from cometbft_tpu_torch.models import commit as M
@@ -63,6 +64,15 @@ def _feature_first(triples):
     pub = np.stack([np.frombuffer(p, dtype=np.uint8) for p, _, _ in triples], axis=1)
     sig = np.stack([np.frombuffer(s, dtype=np.uint8) for _, _, s in triples], axis=1)
     return pub, sig, msg, np.array([len(m) for _, m, _ in triples], dtype=np.int32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fresh_ladder():
+    """The port's ladder starts this module fresh, and never reads a perf
+    ledger a card run left in the checkout."""
+    D.reset_for_tests()
+    yield
+    D.reset_for_tests()
 
 
 @pytest.fixture(scope="module")

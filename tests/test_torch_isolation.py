@@ -43,7 +43,8 @@ _CHILD = textwrap.dedent(
         host.add(ed.Ed25519PubKey(p), m, s)
     assert host.verify() == (False, expected) and host.last_tier == "host"
     for name in ("crypto.dispatch", "crypto.health", "crypto.ed25519_native", "metrics",
-                 "utils.flight", "utils.metrics"):
+                 "utils.flight", "utils.metrics", "utils.service", "utils.trace",
+                 "crypto.verify_queue"):
         assert "cometbft_tpu_torch." + name in sys.modules, name
     leaked = sorted(m for m in sys.modules
                     if m == "cometbft_tpu" or m.startswith("cometbft_tpu."))

@@ -288,3 +288,72 @@ def test_key_pool_rotation_on_the_card(dev):
         s1 = e1.key_index[k]
         assert torch.equal(e1.table[..., s1 * 256 : (s1 + 1) * 256],
                            before[..., s1 * 256 : (s1 + 1) * 256])
+
+
+def _stream_jobs(njobs: int, nval: int, tag: bytes):
+    """``njobs`` jobs of ``nval`` votes, the same keys, one altered
+    message per job at a job-dependent lane -> (jobs, oracle verdicts)."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+
+    privs = [ed.priv_key_from_secret(tag + b"%d" % i) for i in range(nval)]
+    pubs = [p.pub_key().bytes() for p in privs]
+    pub = np.stack([np.frombuffer(p, dtype=np.uint8) for p in pubs])
+    jobs, want = [], []
+    for j in range(njobs):
+        msgs = [b"stream job %d vote %d" % (j, i) for i in range(nval)]
+        sig = np.stack([np.frombuffer(p.sign(m), dtype=np.uint8) for p, m in zip(privs, msgs)])
+        bad = (7 * j) % nval
+        msgs[bad] += b"!"
+        jobs.append((pub, sig, msgs))
+        want.append([i != bad for i in range(nval)])
+    return pubs, jobs, want
+
+
+@pytest.mark.parametrize("max_in_flight", [1, 3, 8])
+def test_verify_stream_equals_sync_on_the_card(dev, max_in_flight):
+    """verify_stream through the keyed closure and the generic default
+    gives, job by job, the verdicts of the synchronous path and the
+    oracle; the synchronous path is _finish of the async one."""
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    pubs, jobs, want = _stream_jobs(5, 40, b"gpu-stream-")
+    entry = PR.KeyTableCache(dev).lookup_or_build(pubs)
+    key_ids = entry.key_ids(pubs)
+    keyed = list(EV.verify_stream(
+        iter(jobs), max_in_flight=max_in_flight,
+        dispatch=lambda pub, sig, msgs: EV.verify_arrays_keyed_async(entry, key_ids, pub, sig,
+                                                                     msgs)))
+    generic = list(EV.verify_stream(iter(jobs), max_in_flight=max_in_flight, device=dev))
+    sync_keyed = [EV.verify_arrays_keyed(entry, key_ids, *job) for job in jobs]
+    sync_generic = [EV.verify_arrays(*job, dev) for job in jobs]
+    for got in (keyed, generic, sync_keyed, sync_generic):
+        assert [g.tolist() for g in got] == want
+
+
+def test_async_parts_stay_on_the_card(dev):
+    """The async entries return verdicts on the card without waiting;
+    their packed rows were staged in pinned memory."""
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    pubs, jobs, want = _stream_jobs(1, 12, b"gpu-async-")
+    entry = PR.KeyTableCache(dev).lookup_or_build(pubs)
+    parts = EV.verify_arrays_keyed_async(entry, entry.key_ids(pubs), *jobs[0])
+    assert len(parts) == 1 and parts[0][0].is_cuda and parts[0][1] == 12
+    assert EV._finish(parts).tolist() == want[0]
+    parts = EV.verify_arrays_async(*jobs[0], dev)
+    assert parts[0][0].is_cuda and EV._finish(parts).tolist() == want[0]
+
+
+def test_unpipelined_parts_fetch_on_the_compute_stream(dev):
+    """The synchronous entries' body: rows staged in pageable memory, no
+    ready event, the fetch on the compute stream; either fetch of such
+    parts gives the oracle's verdicts."""
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    pubs, jobs, want = _stream_jobs(2, 12, b"gpu-unpiped-")
+    entry = PR.KeyTableCache(dev).lookup_or_build(pubs)
+    parts = EV.verify_arrays_keyed_async(entry, entry.key_ids(pubs), *jobs[0], pipelined=False)
+    assert parts[0][0].is_cuda and not hasattr(parts[0][0], "_ready")
+    assert EV._finish(parts, pipelined=False).tolist() == want[0]
+    parts = EV.verify_arrays_async(*jobs[1], dev, pipelined=False)
+    assert EV._finish(parts).tolist() == want[1]

@@ -13,6 +13,7 @@ from cometbft_tpu.crypto import dispatch as jdispatch
 from cometbft_tpu.crypto import ed25519 as jed
 from cometbft_tpu.ops import ed25519_verify as JEV
 from cometbft_tpu.ops import precompute as JPR
+from cometbft_tpu_torch.crypto import dispatch as D
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.crypto import edwards as E
 from cometbft_tpu_torch.crypto.batch import create_batch_verifier
@@ -50,6 +51,15 @@ def _commit(nval: int, tag: bytes, lengths):
     triples[7][1] = triples[7][1] + b"!"                            # altered message
     expected = [E.verify_zip215(p, m, s) for p, m, s in triples]
     return triples, expected
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fresh_ladder():
+    """The port's ladder starts this module fresh, and never reads a perf
+    ledger a card run left in the checkout."""
+    D.reset_for_tests()
+    yield
+    D.reset_for_tests()
 
 
 @pytest.fixture(scope="module")
@@ -290,3 +300,75 @@ def test_plain_q8_equals_prerefactor_composition(commit16):
                                   F.const(PR.b_comb8(), "cpu"), bucket, 8,
                                   out_point=out)
     assert again.tolist() == expected and torch.equal(out, q8)
+
+
+def _jobs(triples):
+    """Three 16-lane jobs of the commit (bucket 256, so the reference's
+    compiled keyed program is reused): as it is, with lane 0's message
+    altered, and in reverse order."""
+    altered = [list(t) for t in triples]
+    altered[0][1] = altered[0][1] + b"x"
+    out = []
+    for job in (triples, altered, triples[::-1]):
+        pub = np.stack([np.frombuffer(p, dtype=np.uint8) for p, _, _ in job])
+        sig = np.stack([np.frombuffer(s, dtype=np.uint8) for _, _, s in job])
+        out.append((job, pub, sig, [m for _, m, _ in job]))
+    return out
+
+
+def test_stream_matches_reference_and_sync(commit16, reference):
+    """verify_stream over a keyed closure (max_in_flight 2: a flush of
+    one job, then of two, each fetched with one _finish) gives the
+    reference's verify_stream verdicts, the port's synchronous path's
+    and the oracle's, job by job; the launches' spans carry the
+    reference's arguments."""
+    from cometbft_tpu.utils.trace import TRACER as JTRACER
+    from cometbft_tpu_torch.utils.trace import TRACER
+
+    triples, _ = commit16
+    _, jentry, _, _ = reference
+    entry = PR.tables_from_jax(np.asarray(jentry.table), jentry.valid, jentry.key_index,
+                               jentry.window_bits, "cpu")
+    jobs = _jobs(triples)
+    oracle = [[E.verify_zip215(p, m, s) for p, m, s in job] for job, _, _, _ in jobs]
+    assert oracle[1][0] is False and oracle[2] == oracle[0][::-1]
+    TRACER.clear()
+    JTRACER.clear()
+    port = list(EV.verify_stream(
+        ((pub, sig, msgs) for _, pub, sig, msgs in jobs), max_in_flight=2,
+        dispatch=lambda pub, sig, msgs: EV.verify_arrays_keyed_async(
+            entry, entry.key_ids([bytes(p) for p in pub]), pub, sig, msgs)))
+    ref = list(JEV.verify_stream(
+        ((pub, sig, msgs) for _, pub, sig, msgs in jobs), max_in_flight=2,
+        dispatch=lambda pub, sig, msgs: JEV.verify_arrays_keyed_async(
+            jentry, jentry.key_ids([bytes(p) for p in pub]), pub, sig, msgs)))
+    assert [r.tolist() for r in port] == [r.tolist() for r in ref] == oracle
+    for (_, pub, sig, msgs), want in zip(jobs, oracle):
+        got = EV.verify_arrays_keyed(entry, entry.key_ids([bytes(p) for p in pub]), pub, sig,
+                                     msgs)
+        assert got.dtype == np.bool_ and got.tolist() == want
+    spans = lambda tr: [e["args"] for e in tr.events() if e["name"] == "device_launch"]  # noqa: E731
+    assert spans(TRACER)[:3] == spans(JTRACER) == [
+        {"kernel": "keyed", "batch": 16, "bucket": 256, "window_bits": 8}] * 3
+
+
+def test_finish_slices_padded_parts():
+    """_finish keeps each part's first n verdicts, in order."""
+    parts = [(torch.tensor([True, False, True, True]), 3), (torch.tensor([False, True]), 1),
+             (torch.tensor([True] * 8), 5)]
+    assert EV._finish(parts).tolist() == [True, False, True, False, True, True, True, True,
+                                          True]
+    assert EV._finish(parts[:1]).tolist() == [True, False, True]
+
+
+def test_generic_stream_matches_sync_and_oracle():
+    """verify_stream's default dispatch (the generic tier on the given
+    device), one job in flight at a time."""
+    triples, expected = _commit(8, b"stream8-", [120, 64])
+    pub = np.stack([np.frombuffer(p, dtype=np.uint8) for p, _, _ in triples])
+    sig = np.stack([np.frombuffer(s, dtype=np.uint8) for _, _, s in triples])
+    msgs = [m for _, m, _ in triples]
+    jobs = [(pub, sig, msgs), (pub[::-1].copy(), sig[::-1].copy(), msgs[::-1])]
+    got = [r.tolist() for r in EV.verify_stream(iter(jobs), max_in_flight=1, device="cpu")]
+    assert got == [expected, expected[::-1]]
+    assert EV.verify_arrays(pub, sig, msgs, "cpu").tolist() == expected
