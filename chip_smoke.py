@@ -122,7 +122,27 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    150 and 1024 lanes appended to the port's perf ledger
    (``build/perf_ledger.json``) and a fresh subprocess whose seeded
    cost model must rank keyed first for buckets 256 and 1024;
-12. a ``kernels`` JSON line, then the last line
+12. commit verification through the types layer (``validation_phase``,
+   the launch counters at 0 at its start, on a fresh KeyTableCache):
+   verify150 (``types.validation.verify_commit`` on a 150-validator
+   commit of commit150's keys, precommits signed over their canonical
+   sign bytes with per-vote timestamps: cold launches build_tables,
+   sha512_keyed and verify_keyed once each; warm p50/p99 over 200 with
+   sha512_keyed and verify_keyed once per call, beside the synthetic
+   ``create_batch_verifier -> add x n -> verify()`` on the same triples
+   and the sign bytes alone; an altered signature, a commit under 2/3,
+   a wrong height and a wrong block id raise the reference's errors),
+   light1024 (``verify_commit_light`` on commit1024's keys: the
+   signatures the early break sends and the tier), votes150 (the 150
+   precommits through ``VoteSet.add_vote`` with a VerifyQueue
+   installed, from one thread and from four: wall per vote, votes
+   verified inline; ``verify_commit`` on ``make_commit()`` must be 150
+   speculative-cache hits, no miss and no launch) and light-chain (the
+   light verifier along a 64-header, 150-validator chain that rotates a
+   validator every 8 heights: every adjacent step, skips of 8 and 32
+   with ``now`` fixed, a tampered, an expired and a future header; per
+   check the tier and the signatures sent, the rotation steps apart);
+13. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --warm150 [TREE]
@@ -1893,6 +1913,12 @@ def live_threads() -> set[str]:
     return {t.name for t in threading.enumerate() if t.name != "crypto-watchdog"}
 
 
+def launched() -> dict:
+    from cometbft_tpu_torch.ops import _build
+
+    return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+
 def end_phase(name: str, threads_before: set[str]) -> dict:
     """The phase's launch counts; fails if it left a thread behind."""
     from cometbft_tpu_torch.ops import _build
@@ -1903,35 +1929,61 @@ def end_phase(name: str, threads_before: set[str]) -> dict:
     left = live_threads() - threads_before
     if left:
         raise AssertionError(f"{name}: threads left behind: {sorted(left)}")
-    return {k: v for k, v in _build.LAUNCHES.items() if v}
+    return launched()
+
+
+class FastSigner:
+    """Ed25519 signatures over any bytes whose nonces are r0, r0 + 1, ...
+    (mod L), so R costs one point addition instead of a scalar
+    multiplication: valid signatures at tens of microseconds each.  The
+    nonces are not RFC 8032's."""
+
+    def __init__(self, r0: int) -> None:
+        from cometbft_tpu_torch.crypto import edwards as E
+
+        self.E = E
+        self.r = r0 % E.L
+        self.r_pt = E.pt_mul(self.r, E.B_POINT)
+
+    def sign(self, a: int, pub: bytes, msg: bytes) -> bytes:
+        E = self.E
+        r_enc = E.encode_point(self.r_pt)
+        k = int.from_bytes(hashlib.sha512(r_enc + pub + msg).digest(), "little") % E.L
+        sig = r_enc + ((self.r + k * a) % E.L).to_bytes(32, "little")
+        self.r += 1
+        self.r_pt = E.pt_add(self.r_pt, E.B_POINT)
+        return sig
+
+
+def seeded_keys(tag: bytes, n: int, pubs=None) -> list:
+    """(scalar, public key) of the keys ``make_commit`` derives from
+    ``tag``; ``pubs`` (a commit's triples) saves the scalar
+    multiplications for all but its planted lanes 40 and 50."""
+    from cometbft_tpu_torch.crypto import edwards as E
+
+    out = []
+    for i in range(n):
+        seed = hashlib.sha256(tag + b"-%d" % i).digest()
+        a, _ = E.secret_expand(seed)
+        out.append((a, pubs[i][0] if pubs is not None and i not in (40, 50)
+                    else E.public_key(seed)))
+    return out
 
 
 def resign(commit, tag: bytes, height: int, alter: int):
     """``commit``'s validators (the seeds make_commit derives from
-    ``tag``) signing new 120-byte votes at ``height``.  Each key's
-    scalar comes from its seed (edwards.secret_expand) and the nonces
-    are r0 + i, so R costs one point addition per vote instead of a
-    scalar multiplication: valid Ed25519 signatures whose nonces are not
-    RFC 8032's.  Lane ``alter`` gets one byte of S flipped."""
-    from cometbft_tpu_torch.crypto import edwards as E
-
+    ``tag``) signing new 120-byte votes at ``height``, with FastSigner's
+    nonces.  Lane ``alter`` gets one byte of S flipped."""
     rs = np.random.RandomState(SEED + 7919 * height + len(commit))
-    r0 = int.from_bytes(rs.bytes(32), "little") % E.L
-    r_pt = E.pt_mul(r0, E.B_POINT)
+    signer = FastSigner(int.from_bytes(rs.bytes(32), "little"))
     out = []
-    for i in range(len(commit)):
-        seed = hashlib.sha256(tag + b"-%d" % i).digest()
-        a, _ = E.secret_expand(seed)
-        pub = commit[i][0] if i not in (40, 50) else E.public_key(seed)
+    for i, (a, pub) in enumerate(seeded_keys(tag, len(commit), commit)):
         head = b"vote|h=%d|r=0|val=%05d|" % (height, i)
         msg = head + rs.bytes(120 - len(head))
-        r_enc = E.encode_point(r_pt)
-        k = int.from_bytes(hashlib.sha512(r_enc + pub + msg).digest(), "little") % E.L
-        sig = r_enc + ((r0 + i + k * a) % E.L).to_bytes(32, "little")
+        sig = signer.sign(a, pub, msg)
         if i == alter:
             sig = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
         out.append((pub, msg, sig))
-        r_pt = E.pt_add(r_pt, E.B_POINT)
     return out
 
 
@@ -2544,6 +2596,440 @@ def seed_phase(main150, main1k, gen150, gen1k, host_sizes, smi: str) -> dict:
     return dict(rows=rows, child=child)
 
 
+# -- phase 12: commit verification through the types layer ------------------
+
+CHAIN_ID = "chip-smoke-chain"
+HEADER_T0 = 1_760_000_000_000_000_000
+BLOCK_NS = 6 * 10**9
+TRUSTING_NS = 14 * 24 * 3600 * 10**9
+
+
+def validator_set(keys, power: int = 10):
+    """(ValidatorSet of ``keys``, address -> (scalar, public key))."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.types import Validator, ValidatorSet
+
+    vals = ValidatorSet([Validator(ed.Ed25519PubKey(pub), power) for _, pub in keys])
+    by_addr = {ed.Ed25519PubKey(pub).address(): (a, pub) for a, pub in keys}
+    return vals, by_addr
+
+
+def make_block_id(tag: bytes):
+    from cometbft_tpu_torch.types import BlockID, PartSetHeader
+
+    h = hashlib.sha256(tag).digest()
+    return BlockID(hash=h, part_set_header=PartSetHeader(total=1, hash=hashlib.sha256(h).digest()))
+
+
+def precommits(signer: FastSigner, vals, by_addr, bid, height: int, t_ns: int, rs) -> list:
+    """Every validator's precommit for ``bid``, each with its own
+    timestamp (``t_ns`` plus up to a second, as votes reach a proposer),
+    signed over its canonical sign bytes."""
+    from dataclasses import replace
+
+    from cometbft_tpu_torch.types import PRECOMMIT_TYPE, Vote
+
+    votes = []
+    for idx, v in enumerate(vals.validators):
+        a, pub = by_addr[v.address]
+        vote = Vote(type=PRECOMMIT_TYPE, height=height, round=0, block_id=bid,
+                    timestamp_ns=t_ns + int(rs.randint(0, 10**9)),
+                    validator_address=v.address, validator_index=idx)
+        votes.append(replace(vote, signature=signer.sign(a, pub, vote.sign_bytes(CHAIN_ID))))
+    return votes
+
+
+def commit_of(votes, bid, height: int):
+    """The Commit of ``votes``, all for ``bid``: what VoteSet.make_commit()
+    gives for such a set (votes150 checks that byte for byte)."""
+    from cometbft_tpu_torch.types import Commit
+
+    return Commit(height=height, round=0, block_id=bid,
+                  signatures=tuple(v.commit_sig() for v in votes))
+
+
+class FactoryLog:
+    """Wraps ``crypto.batch.create_batch_verifier`` while installed: the
+    verifiers that types/validation makes, for the signatures each was
+    sent and the tier that answered (``last_tier``)."""
+
+    def __init__(self) -> None:
+        from cometbft_tpu_torch.crypto import batch as B
+
+        self.B, self.real, self.made = B, B.create_batch_verifier, []
+
+    def __enter__(self) -> "FactoryLog":
+        def make(pub_key, device=None):
+            verifier = self.real(pub_key, device=device)
+            self.made.append(verifier)
+            return verifier
+
+        self.B.create_batch_verifier = make
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.B.create_batch_verifier = self.real
+
+    def take(self) -> list:
+        """[(signatures sent, tier)] per verifier since the last take."""
+        out = [(len(v), v.last_tier) for v in self.made]
+        self.made = []
+        return out
+
+
+def expect_error(what: str, fn, cls, message: str) -> None:
+    """``fn`` must raise ``cls`` with exactly ``message``."""
+    try:
+        fn()
+    except cls as exc:
+        if str(exc) != message:
+            raise AssertionError(f"{what}: {cls.__name__} says {str(exc)!r}, "
+                                 f"expected {message!r}") from exc
+        return
+    raise AssertionError(f"{what}: no {cls.__name__} raised")
+
+
+def light_chain(signer: FastSigner, keys150, newcomers, heights: int, rs):
+    """A 150-validator chain of ``heights`` light blocks: the proposer
+    rotates by priority every height, and at every 8th height one
+    validator leaves and a newcomer joins (update_with_change_set).
+    Each header carries its set's hash, the next set's hash, the last
+    block id and the last commit's hash; each commit is its set's
+    precommits over the header's hash.  -> (light blocks by height,
+    the heights whose set changed)."""
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.types import BlockID, Data, Header, PartSetHeader
+    from cometbft_tpu_torch.types.light_block import LightBlock, SignedHeader
+
+    vals, by_addr = validator_set(keys150)
+    sets, rotations = {1: vals}, []
+    for h in range(2, heights + 2):
+        nxt = sets[h - 1].increment_proposer_priority(1)
+        if h % 8 == 1:
+            out_v = nxt.validators[(7 * h) % len(nxt)]
+            a, pub = newcomers.pop(0)
+            by_addr[ed.Ed25519PubKey(pub).address()] = (a, pub)
+            nxt = nxt.update_with_change_set([(out_v.pub_key, 0), (ed.Ed25519PubKey(pub), 10)])
+            if h <= heights:
+                rotations.append(h)
+        sets[h] = nxt
+    blocks, prev_bid, prev_commit = {}, BlockID(), None
+    for h in range(1, heights + 1):
+        header = Header(
+            chain_id=CHAIN_ID, height=h, time_ns=HEADER_T0 + h * BLOCK_NS,
+            last_block_id=prev_bid,
+            last_commit_hash=prev_commit.hash() if prev_commit is not None else b"",
+            data_hash=Data((b"tx-%d" % h,)).hash(), validators_hash=sets[h].hash(),
+            next_validators_hash=sets[h + 1].hash(),
+            consensus_hash=hashlib.sha256(b"params").digest(),
+            app_hash=hashlib.sha256(b"app-%d" % h).digest(),
+            proposer_address=sets[h].get_proposer().address)
+        bid = BlockID(hash=header.hash(), part_set_header=PartSetHeader(
+            total=1, hash=hashlib.sha256(b"parts-%d" % h).digest()))
+        votes = precommits(signer, sets[h], by_addr, bid, h, header.time_ns + BLOCK_NS // 2, rs)
+        prev_commit = commit_of(votes, bid, h)
+        blocks[h] = LightBlock(SignedHeader(header, prev_commit), sets[h])
+        prev_bid = bid
+    return blocks, rotations
+
+
+def add_votes(vs, votes, nthreads: int) -> float:
+    """``votes`` through ``vs.add_vote`` from ``nthreads`` threads (thread
+    k takes every nthreads-th vote from k) -> wall seconds.  Fails on a
+    vote not added or an error in any thread."""
+    errors: list = []
+
+    def run(chunk):
+        try:
+            for v in chunk:
+                if not vs.add_vote(v):
+                    raise AssertionError(f"vote {v.validator_index} not added")
+        except Exception as exc:  # noqa: BLE001 -- re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(votes[k::nthreads],), name=f"votes-{k}")
+               for k in range(nthreads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"votes: add_vote failed: {errors[:1]}")
+    return wall
+
+
+def validation_phase(dev, commit150, commit1k, registry, smi: str) -> dict:
+    """Commit verification through the port's types layer, on a fresh
+    KeyTableCache: verify150 (types.validation.verify_commit on a
+    150-validator commit of real canonical precommits with per-vote
+    timestamps: cold launches, warm p50/p99 beside the synthetic
+    create_batch_verifier -> add x n -> verify() on the same triples,
+    the reference's errors), light1024 (verify_commit_light on 1024
+    validators: the early break and its tier), votes150 (the precommits
+    through VoteSet.add_vote with a VerifyQueue installed, from one
+    thread and from four; verify_commit on make_commit() must be all
+    speculative-cache hits with no launch) and light-chain (the light
+    verifier along a 64-header chain that rotates a validator every 8
+    heights: adjacent steps, skips of 8 and 32, three refusals).  Fails
+    on a wrong verdict, exception, launch count or a thread left
+    behind."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import verify_queue as VQ
+    from cometbft_tpu_torch.light import verifier as LV
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.types import PRECOMMIT_TYPE, CommitSig, VoteSet, codec
+    from cometbft_tpu_torch.types import validation as VAL
+    from cometbft_tpu_torch.types.light_block import LightBlock, LightBlockError, SignedHeader
+    from cometbft_tpu_torch.utils.flight import FLIGHT
+    from dataclasses import replace
+
+    t_phase = time.perf_counter()
+    threads = live_threads()
+    _build.reset_launches()
+    rs = np.random.RandomState(SEED + 10)
+    signer = FastSigner(int.from_bytes(rs.bytes(32), "little"))
+    keys150 = seeded_keys(b"validator", 150, commit150)
+    vals150, by150 = validator_set(keys150)
+    bid150 = make_block_id(b"block-150")
+    votes150 = precommits(signer, vals150, by150, bid150, 1, HEADER_T0, rs)
+    c150 = commit_of(votes150, bid150, 1)
+    vals1k, by1k = validator_set(seeded_keys(b"validator1k", 1024, commit1k))
+    bid1k = make_block_id(b"block-1024")
+    c1k = commit_of(precommits(signer, vals1k, by1k, bid1k, 1, HEADER_T0, rs), bid1k, 1)
+    newcomers = seeded_keys(b"newcomer", 8)
+    blocks, rotations = light_chain(signer, keys150, newcomers, 64, rs)
+    t_data = time.perf_counter() - t_phase
+    lens = sorted({len(c150.vote_sign_bytes(CHAIN_ID, i)) for i in range(150)})
+    counts = {n: sum(len(c150.vote_sign_bytes(CHAIN_ID, i)) == n for i in range(150))
+              for n in lens}
+    print(f"validation [{smi}]: data in {t_data:.2f} s (150 + 1024 precommits, a 64-header "
+          f"chain: {64 * 150} precommits, rotations at heights {rotations})")
+    print(f"  sign bytes of commit150's precommits (per-vote timestamps): lengths {counts} -> "
+          + ("one length" if len(lens) == 1 else
+             "not one length: pack_inputs takes its variable-length path"))
+
+    key = str(dev)
+    saved = PR._caches.get(key)
+    PR._caches[key] = PR.KeyTableCache(dev)
+    res: dict = {"sign_bytes_lengths": counts}
+    try:
+        # -- verify150 -----------------------------------------------------
+        def vc(commit=c150, vals=vals150, bid=bid150, height=1):
+            VAL.verify_commit(CHAIN_ID, vals, bid, height, commit, device=dev)
+
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        vc()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        if launched() != {"build_tables": 1, "sha512_keyed": 1, "verify_keyed": 1}:
+            raise AssertionError(f"verify150: cold launches {launched()}")
+        triples = [(vals150.validators[i].pub_key, c150.vote_sign_bytes(CHAIN_ID, i),
+                    c150.signatures[i].signature) for i in range(150)]
+        from cometbft_tpu_torch.crypto.batch import create_batch_verifier
+
+        def synthetic():
+            bv = create_batch_verifier(triples[0][0], device=dev)
+            for pk, m, s in triples:
+                bv.add(pk, m, s)
+            ok, _ = bv.verify()
+            if not ok:
+                raise AssertionError("verify150: the synthetic batch is not valid")
+
+        def sign_bytes():
+            [c150.vote_sign_bytes(CHAIN_ID, i) for i in range(150)]
+
+        warm, syn, sb = [], [], []
+        timed = [(vc, warm, True), (synthetic, syn, True), (sign_bytes, sb, False)]
+        for r in range(200):
+            for fn, out, launches in timed[r % 3:] + timed[:r % 3]:
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+                if launches and launched() != {"sha512_keyed": 1, "verify_keyed": 1}:
+                    raise AssertionError(f"verify150: warm launches {launched()} (run {r})")
+        res["verify150"] = dict(cold_s=cold_s, p50_ms=1e3 * pct(warm, 50),
+                                p99_ms=1e3 * pct(warm, 99), synthetic_p50_ms=1e3 * pct(syn, 50),
+                                sign_bytes_p50_ms=1e3 * pct(sb, 50))
+        v = res["verify150"]
+        print(f"  verify150 [{smi}]: cold {cold_s:.4f} s (build_tables, sha512_keyed, "
+              f"verify_keyed: 1 each); warm verify_commit p50 {v['p50_ms']:.3f} ms, p99 "
+              f"{v['p99_ms']:.3f} ms over 200 (sha512_keyed 1, verify_keyed 1 each); the "
+              f"synthetic create_batch_verifier -> add x 150 -> verify() on the same triples "
+              f"p50 {v['synthetic_p50_ms']:.3f} ms; the types layer's host cost (sign bytes, "
+              f"address checks, tally, span): {v['p50_ms'] - v['synthetic_p50_ms']:.3f} ms; "
+              f"the 150 sign bytes alone p50 {v['sign_bytes_p50_ms']:.3f} ms (the three "
+              f"interleaved, in turns)")
+        sigs = list(c150.signatures)
+        s = sigs[77].signature
+        sigs[77] = replace(sigs[77], signature=s[:40] + bytes([s[40] ^ 1]) + s[41:])
+        expect_error("verify150, an altered signature",
+                     lambda: vc(replace(c150, signatures=tuple(sigs))),
+                     VAL.InvalidCommitSignatures, "wrong signature (#77)")
+        under = tuple(cs if i < 100 else CommitSig() for i, cs in enumerate(c150.signatures))
+        expect_error("verify150, under 2/3", lambda: vc(replace(c150, signatures=under)),
+                     VAL.NotEnoughVotingPower, "tallied 1000 <= needed 1000")
+        expect_error("verify150, a wrong height", lambda: vc(height=2),
+                     VAL.InvalidCommitHeight, "commit height 1, expected 2")
+        expect_error("verify150, a wrong block id", lambda: vc(bid=make_block_id(b"other")),
+                     VAL.InvalidCommitSignatures, f"commit for wrong block id {bid150}")
+        print("  verify150 errors as the reference's: an altered signature -> "
+              "InvalidCommitSignatures 'wrong signature (#77)'; 100 of 150 signed -> "
+              "NotEnoughVotingPower; a wrong height -> InvalidCommitHeight; a wrong block id "
+              "-> InvalidCommitSignatures")
+
+        # -- light1024 -----------------------------------------------------
+        def vcl():
+            VAL.verify_commit_light(CHAIN_ID, vals1k, bid1k, 1, c1k, device=dev)
+
+        with FactoryLog() as log:
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            vcl()
+            torch.cuda.synchronize()
+            cold_s, cold_l, cold_v = time.perf_counter() - t0, launched(), log.take()
+            walls = []
+            for _ in range(30):
+                t0 = time.perf_counter()
+                vcl()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            sent = set(log.take())
+        if len(sent) != 1 or cold_v[0] != next(iter(sent)):
+            raise AssertionError(f"light1024: verifiers {cold_v}, then {sent}")
+        (n_sent, tier), = sent
+        res["light1024"] = dict(cold_s=cold_s, p50_ms=1e3 * pct(walls, 50), sent=n_sent, tier=tier)
+        print(f"  light1024 [{smi}]: verify_commit_light sends {n_sent} of 1024 signatures "
+              f"(the early break past 2/3), tier {tier}; cold {cold_s:.4f} s, launches "
+              f"{cold_l}; warm p50 {res['light1024']['p50_ms']:.3f} ms over 30")
+
+        # -- votes150 ------------------------------------------------------
+        tiers = ("keyed", "generic", "host", "python")
+        for nthreads in (1, 4):
+            q = VQ.VerifyQueue()
+            q.start()
+            VQ.install_queue(q)
+            try:
+                answered0 = [registry_value(registry, "cometbft_crypto_dispatch_tier", f'"{t}"')
+                             for t in tiers]
+                sub0 = q.stats()["submitted"]["consensus"]
+                _build.reset_launches()
+                vs = VoteSet(CHAIN_ID, 1, 0, PRECOMMIT_TYPE, vals150)
+                wall = add_votes(vs, votes150, nthreads)
+                add_launches = launched()
+                stats = q.stats()
+                inline = 150 - (stats["submitted"]["consensus"] - sub0)
+                answered = {t: int(registry_value(registry, "cometbft_crypto_dispatch_tier",
+                                                  f'"{t}"') - a)
+                            for t, a in zip(tiers, answered0)}
+                made = vs.make_commit()
+                if codec.encode_commit(made) != codec.encode_commit(c150):
+                    raise AssertionError("votes150: make_commit() differs from commit150's bytes")
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                vc(made)
+                spec_ms = 1e3 * (time.perf_counter() - t0)
+                rec = [e for e in FLIGHT.tail(8) if e["kind"] == "consensus/speculative_verify"]
+                got = (rec[-1]["hits"], rec[-1]["misses"], rec[-1]["tier"]) if rec else None
+                if got != (150, 0, "speculative") or launched():
+                    raise AssertionError(f"votes150: verify_commit after the vote set: "
+                                         f"(hits, misses, tier) {got}, launches {launched()}")
+            finally:
+                q.stop()
+            if VQ._QUEUE is not None or q.is_running():
+                raise AssertionError("votes150: stop() left the queue installed or running")
+            res[f"votes150/{nthreads}"] = dict(wall_s=wall, per_vote_ms=1e3 * wall / 150,
+                                               inline=inline, answered=answered,
+                                               batches=stats["launched_batches"],
+                                               spec_ms=spec_ms)
+            print(f"  votes150 [{smi}], {nthreads} thread{'s' if nthreads > 1 else ''}: "
+                  f"150 add_vote in {wall:.3f} s, {1e3 * wall / 150:.3f} ms a vote; "
+                  f"{inline} verified inline (the oracle: the queue was busy), "
+                  f"{stats['launched_batches']} queue batches of {stats['launched_sigs']} "
+                  f"signatures, batches answered per tier {answered}, launches "
+                  f"{add_launches or 'none'}; verify_commit on make_commit(): 150 cache hits, "
+                  f"0 misses, tier speculative, no launch, {spec_ms:.3f} ms")
+
+        # -- light-chain ---------------------------------------------------
+        now = HEADER_T0 + 70 * BLOCK_NS
+        adj, adj_rot, kinds = [], [], {}
+        with FactoryLog() as log:
+            for h in range(1, 64):
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                LV.verify_adjacent(blocks[h], blocks[h + 1], CHAIN_ID, TRUSTING_NS, now,
+                                   device=dev)
+                wall = time.perf_counter() - t0
+                built = launched().get("build_tables", 0)
+                if h + 1 in rotations:
+                    adj_rot.append((h + 1, round(1e3 * wall, 3), built))
+                else:
+                    adj.append(wall)
+                    if built:
+                        raise AssertionError(f"light-chain: a table build at height {h + 1}, "
+                                             "no rotation")
+                kinds.setdefault("adjacent", []).extend(log.take())
+            skips = {8: [(h, h + 8) for h in range(1, 57, 8)], 32: [(1, 33), (32, 64)]}
+            skip_walls = {}
+            for step, pairs in skips.items():
+                skip_walls[step] = []
+                for a, b in pairs:
+                    t0 = time.perf_counter()
+                    LV.verify_non_adjacent(blocks[a], blocks[b], CHAIN_ID, TRUSTING_NS, now,
+                                           device=dev)
+                    skip_walls[step].append(time.perf_counter() - t0)
+                    made = log.take()
+                    kinds.setdefault(f"skip {step}, trusting", []).append(made[0])
+                    kinds.setdefault(f"skip {step}, own commit", []).append(made[1])
+        tampered = LightBlock(SignedHeader(replace(blocks[2].header, app_hash=b"\xde\xad" * 16),
+                                           blocks[2].commit), blocks[2].validator_set)
+        expect_error("light-chain, a tampered header",
+                     lambda: LV.verify_adjacent(blocks[1], tampered, CHAIN_ID, TRUSTING_NS, now,
+                                                device=dev),
+                     LightBlockError, "commit signs a different header")
+        expiry = blocks[1].time_ns + 1
+        expect_error("light-chain, an expired trusted header",
+                     lambda: LV.verify_adjacent(blocks[1], blocks[2], CHAIN_ID, 1, now,
+                                                device=dev),
+                     LV.ErrOldHeaderExpired, f"trusted header expired at {expiry} (now {now})")
+        expect_error("light-chain, a header from the future",
+                     lambda: LV.verify_adjacent(blocks[1], blocks[2], CHAIN_ID, TRUSTING_NS,
+                                                blocks[1].time_ns, max_clock_drift_ns=0,
+                                                device=dev),
+                     LV.ErrInvalidHeader, "new header is from the future")
+        summary = {k: {f"{n} sigs, {t}": sum(1 for x in v if x == (n, t)) for n, t in set(v)}
+                   for k, v in kinds.items()}
+        res["light-chain"] = dict(adjacent_p50_ms=1e3 * pct(adj, 50), rotations=adj_rot,
+                                  skip_p50_ms={k: 1e3 * pct(v, 50) for k, v in skip_walls.items()},
+                                  checks=summary)
+        lc = res["light-chain"]
+        print(f"  light-chain [{smi}]: 64 headers of 150 validators, a validator rotated at "
+              f"heights {rotations}; verify_adjacent p50 {lc['adjacent_p50_ms']:.3f} ms a "
+              f"header over {len(adj)} steps without a set change; the steps into a rotation "
+              f"(height, ms, build_tables launches): {adj_rot}")
+        print(f"  light-chain: verify_non_adjacent p50 {lc['skip_p50_ms'][8]:.3f} ms in skips "
+              f"of 8 ({len(skips[8])}), {lc['skip_p50_ms'][32]:.3f} ms in skips of 32 "
+              f"({len(skips[32])}); refusals as the reference's: a tampered header -> "
+              f"LightBlockError, an expired trusted header -> ErrOldHeaderExpired, a header "
+              f"from the future -> ErrInvalidHeader")
+        for kind, table in summary.items():
+            print(f"    {kind}: signatures sent and tier per check {table}")
+    finally:
+        if saved is None:
+            PR._caches.pop(key, None)
+        else:
+            PR._caches[key] = saved
+    res["launches"] = end_phase("validation", threads)
+    print(f"  validation phase: {time.perf_counter() - t_phase:.2f} s")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--warm150"]:
         if len(sys.argv) > 2:
@@ -2713,6 +3199,9 @@ def run_all(torch) -> int:
     check_ladder("after the prober phase")
     probe.join(120)
     seed_phase(main150, main1k, gen150, gen1k, host_sizes, smi)
+    # phase 12: commit verification through the types layer
+    validation_phase(dev, commit150, commit1k, registry, smi)
+    check_ladder("validation phase")
     for line in registry.expose().splitlines():
         if line.startswith(("cometbft_crypto_dispatch_tier", "cometbft_crypto_dispatch_decisions",
                             "cometbft_crypto_device_hangs_total", "cometbft_crypto_key_pool")):

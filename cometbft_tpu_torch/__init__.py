@@ -14,6 +14,10 @@ Layout mirrors the reference:
   utils/flight.py       the flight recorder (recent events)
   utils/service.py      BaseService, the start/stop lifecycle
   utils/trace.py        the span tracer (TRACER) and its trace-event export
+  utils/protoio.py      the deterministic protobuf wire writer and reader
+  utils/time.py         now_ns, the one clock (tests patch it)
+  utils/bit_array.py    BitArray, the vote set's presence bits
+  version.py            BLOCK_PROTOCOL and the protocol constants
   metrics/__init__.py   CryptoMetrics, HealthMetrics and their sinks
   crypto/edwards.py     pure-Python big-int oracle (host constants, signing)
   crypto/ed25519.py     Ed25519 key types over the oracle; CpuBatchVerifier,
@@ -28,6 +32,21 @@ Layout mirrors the reference:
                         device probe
   crypto/verify_queue.py  the verify-ahead queue: collector and launcher
                         threads, four priority lanes, the speculative cache
+  crypto/tmhash.py, crypto/merkle.py  SHA-256 sums, the RFC 6962 tree and
+                        its proofs
+  types/canonical.py    canonical vote and proposal sign bytes
+  types/block.py        PartSetHeader, BlockID, Header, CommitSig, Commit
+  types/validator.py    Validator, ValidatorSet (proposer rotation, changes)
+  types/codec.py        header and commit wire codec: the reference's state
+                        carried into the port
+  types/vote.py         Vote, Proposal
+  types/vote_set.py     VoteSet: tallies, majorities, make_commit; each
+                        vote through verify_or_fallback (the queue)
+  types/validation.py   verify_commit, verify_commit_light,
+                        verify_commit_light_trusting -- the callers of
+                        create_batch_verifier
+  types/light_block.py  SignedHeader, LightBlock
+  light/verifier.py     verify, verify_adjacent, verify_non_adjacent
   ops/_build.py         nvcc build of csrc/*.cu and g++ build of
                         csrc/host/*.cpp, loaded with ctypes
   ops/field.py          GF(2^255-19) limbs; fe_mul / fe_sq CUDA kernels

@@ -357,3 +357,81 @@ def test_unpipelined_parts_fetch_on_the_compute_stream(dev):
     assert EV._finish(parts, pipelined=False).tolist() == want[0]
     parts = EV.verify_arrays_async(*jobs[1], dev, pipelined=False)
     assert EV._finish(parts).tolist() == want[1]
+
+
+def _precommit_set(nval: int, tag: bytes, chain_id: str):
+    """A ``nval``-validator set of power 10 each and its precommits for
+    one block, each with its own timestamp, signed by the oracle over
+    its canonical sign bytes -> (set, block id, votes, their Commit)."""
+    from dataclasses import replace
+
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.types import (PRECOMMIT_TYPE, BlockID, Commit, PartSetHeader,
+                                          Validator, ValidatorSet, Vote)
+
+    privs = [ed.priv_key_from_secret(tag + b"-%d" % i) for i in range(nval)]
+    vals = ValidatorSet([Validator(p.pub_key(), 10) for p in privs])
+    by_addr = {p.pub_key().address(): p for p in privs}
+    h = hashlib.sha256(tag).digest()
+    bid = BlockID(hash=h, part_set_header=PartSetHeader(total=1, hash=h[::-1]))
+    rs = np.random.RandomState(SEED + nval)
+    votes = []
+    for i, v in enumerate(vals.validators):
+        vote = Vote(type=PRECOMMIT_TYPE, height=1, round=0, block_id=bid,
+                    timestamp_ns=1_760_000_000_000_000_000 + int(rs.randint(0, 10**9)),
+                    validator_address=v.address, validator_index=i)
+        votes.append(replace(vote, signature=by_addr[v.address].sign(vote.sign_bytes(chain_id))))
+    commit = Commit(height=1, round=0, block_id=bid,
+                    signatures=tuple(v.commit_sig() for v in votes))
+    return vals, bid, votes, commit
+
+
+def test_verify_commit_on_the_card(dev, monkeypatch):
+    """types.validation.verify_commit on a 150-validator commit, on a
+    fresh table cache: cold it launches build_tables, sha512_keyed and
+    verify_keyed once each, warm sha512_keyed and verify_keyed once; an
+    altered signature is named.  After the same precommits went through
+    VoteSet.add_vote with a VerifyQueue installed, verify_commit on
+    make_commit() is all speculative-cache hits and launches nothing."""
+    from dataclasses import replace
+
+    from cometbft_tpu_torch.crypto import verify_queue as VQ
+    from cometbft_tpu_torch.types import PRECOMMIT_TYPE, VoteSet
+    from cometbft_tpu_torch.types import validation as V
+    from cometbft_tpu_torch.utils.flight import FLIGHT
+
+    chain = "gpu-chain"
+    monkeypatch.setattr(PR, "_caches", {})
+    vals, bid, votes, commit = _precommit_set(150, b"gpu-commit", chain)
+
+    def launches():
+        return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+    _build.reset_launches()
+    V.verify_commit(chain, vals, bid, 1, commit)          # no device: cuda
+    assert launches() == {"build_tables": 1, "sha512_keyed": 1, "verify_keyed": 1}
+    for _ in range(3):
+        _build.reset_launches()
+        V.verify_commit(chain, vals, bid, 1, commit, device=dev)
+        assert launches() == {"sha512_keyed": 1, "verify_keyed": 1}
+    sigs = list(commit.signatures)
+    s = sigs[9].signature
+    sigs[9] = replace(sigs[9], signature=s[:40] + bytes([s[40] ^ 1]) + s[41:])
+    with pytest.raises(V.InvalidCommitSignatures, match=r"wrong signature \(#9\)"):
+        V.verify_commit(chain, vals, bid, 1, replace(commit, signatures=tuple(sigs)), device=dev)
+    q = VQ.VerifyQueue()
+    q.start()
+    VQ.install_queue(q)
+    try:
+        vs = VoteSet(chain, 1, 0, PRECOMMIT_TYPE, vals)
+        assert all(vs.add_vote(v) for v in votes)
+        made = vs.make_commit()
+        assert made == commit
+        _build.reset_launches()
+        V.verify_commit(chain, vals, bid, 1, made, device=dev)
+        assert launches() == {}
+        rec = [e for e in FLIGHT.tail(8) if e["kind"] == "consensus/speculative_verify"][-1]
+        assert (rec["hits"], rec["misses"], rec["tier"]) == (150, 0, "speculative")
+    finally:
+        q.stop()
+    assert VQ._QUEUE is None
