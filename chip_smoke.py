@@ -142,7 +142,23 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    validator every 8 heights: every adjacent step, skips of 8 and 32
    with ``now`` fixed, a tampered, an expired and a future header; per
    check the tier and the signatures sent, the rotation steps apart);
-13. a ``kernels`` JSON line, then the last line
+13. the multi-device plane (``mesh_phase``, the launch counters at 0 at
+   its start, a static walk): on every visible card, or on 4 shards of
+   cuda:0 on a one-card machine, commit150 and commit1024 through
+   ``ShardedTorchBatchVerifier`` on keyed_mesh, chunked and generic1024
+   on generic_mesh (each shard's lanes, width and launches; verdicts =
+   the oracle's = the single-device tier's; each shard held to the plain
+   versions on its own inputs and timed beside its bound; warm p50
+   beside the single-device tier's, interleaved), commit10k's 4160 MiB
+   pool through ``sharded_tables`` (the placement's bytes beside the
+   pool's) and a keyed_mesh verify on it, a ``shard_loss`` window
+   (keyed_mesh alone demoted, keyed answers) and the mesh canaries;
+14. the device-plane guard (``guard_phase``): ``jitguard.enable()``,
+   warm-up, ``seal()``, commit150 on keyed, generic and keyed_mesh
+   inside ``transfer_window`` with no new launch signature and no
+   build; a planted ``.item()`` raises and counts one transfer trip, a
+   planted new signature raises ``RetraceError``; then ``reset()``;
+15. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --warm150 [TREE]
@@ -252,6 +268,60 @@ def bt_bound(nkeys: int, window_bits: int, every_entry: bool = False) -> tuple[f
     prods, sqs = bt_counts(window_bits, every_entry)
     page = (256 // window_bits) * 4 * 26 * (1 << window_bits) * 4
     return bound_ms(nkeys * (32 + 1 + page), nkeys * (prods * MUL_OPS + sqs * SQ_OPS))
+
+
+def vk_bound(rows, digest, bucket: int, window_bits: int):
+    """verify_keyed's bound on a slice of packed keyed rows with its
+    digest -> (bound, B comb entries, key comb entries, bytes).  Bytes:
+    per lane S and the key id (68 of the packed rows), the digest, the
+    verdict; and each distinct comb entry the lanes gather."""
+    import torch
+
+    from cometbft_tpu_torch.ops import field as F
+    from cometbft_tpu_torch.ops import scalar as SC
+
+    n, dev, wb = rows.shape[1], rows.device, window_bits
+    s_idx = rows[64:96].long()
+    k = SC.reduce_digest(digest)
+    win = SC.limbs_to_windows8(k) if wb == 8 else SC.limbs_to_nibbles(k)
+    kid = rows[100 + bucket : 104 + bucket].long()
+    key = kid[0] | (kid[1] << 8) | (kid[2] << 16) | (kid[3] << 24)
+    nwin = 256 // wb
+    b_entries = int(torch.unique(s_idx + 256 * torch.arange(32, device=dev)[:, None]).numel())
+    k_entries = int(torch.unique(
+        (key[None] * (1 << wb) + win.long()) * nwin
+        + torch.arange(nwin, device=dev)[:, None]).numel())
+    nbytes = n * (68 + 64 + 1) + 3 * F.NLIMBS * 4 * b_entries + 4 * F.NLIMBS * 4 * k_entries
+    ops = n * (vk_products(wb) * MUL_OPS + VK_SQUARES * SQ_OPS)
+    return bound_ms(nbytes, ops), b_entries, k_entries, nbytes
+
+
+def sha_keyed_bound(rows, bucket: int, nblocks: int):
+    """sha512_keyed's bound on a slice of packed rows -> (bound, blocks
+    per lane).  Bytes: R, A, each lane's message and length, read once,
+    and the digest written; operations the blocks each lane absorbs."""
+    lens = rows[96 + bucket : 100 + bucket].cpu().numpy().astype(np.int64)
+    msglen = lens[0] | (lens[1] << 8) | (lens[2] << 16) | (lens[3] << 24)
+    blocks = np.minimum((64 + msglen + 17 + 127) // 128, nblocks)
+    sha_bytes = int((64 + msglen + 4 + 64).sum())
+    return bound_ms(sha_bytes, SHA_BLOCK_OPS * int(blocks.sum())), blocks
+
+
+def vg_bound(rows):
+    """verify_generic's bound on a slice of packed generic rows ->
+    (bound, B comb entries, bytes).  Bytes: per lane pub and sig (96 of
+    the packed rows), the digest and the verdict, and each distinct comb
+    entry of B the lanes gather; the multiples table is scratch, written
+    and read by the kernel."""
+    import torch
+
+    from cometbft_tpu_torch.ops import curve as C
+
+    m, dev = rows.shape[1], rows.device
+    nib = C.nibbles_from_bytes_le(rows[64:96]).long()
+    entries = int(torch.unique(nib + 16 * torch.arange(64, device=dev)[:, None]).numel())
+    nbytes = m * (96 + 64 + 1) + 3 * 26 * 4 * entries
+    return bound_ms(nbytes, m * (VG_PRODUCTS * MUL_OPS + VG_SQUARES * SQ_OPS)), entries, nbytes
 
 
 def vg_chain(shape) -> int:
@@ -622,18 +692,25 @@ def make_commit(nval: int, tag: bytes, plant: bool):
     return triples, expected
 
 
-def run_verify(triples, dev, cache=None):
+def run_verify(triples, dev, cache=None, mesh=None):
     """One verify through the entry point (``create_batch_verifier``, or
-    a TorchBatchVerifier on ``cache`` when one is given): (seconds, the
-    verifier, its plan, the verdicts, (add, plan, execute) seconds)."""
+    a TorchBatchVerifier on ``cache`` when one is given, or a
+    ShardedTorchBatchVerifier over ``mesh``): (seconds, the verifier, its
+    plan, the verdicts, (add, plan, execute) seconds), the wall ending in
+    ``torch.cuda.synchronize()`` (an audited wait: phase 14 runs this
+    inside the guard's window)."""
     import torch
 
     from cometbft_tpu_torch.crypto import ed25519 as ed
     from cometbft_tpu_torch.crypto.batch import create_batch_verifier
+    from cometbft_tpu_torch.ops import jitguard
     from cometbft_tpu_torch.ops.ed25519_verify import TorchBatchVerifier
+    from cometbft_tpu_torch.parallel.mesh import ShardedTorchBatchVerifier
 
     t0 = time.perf_counter()
-    if cache is None:
+    if mesh is not None:
+        bv = ShardedTorchBatchVerifier(mesh=mesh, cache=cache)
+    elif cache is None:
         bv = create_batch_verifier(ed.Ed25519PubKey(triples[0][0]), device=dev)
     else:
         bv = TorchBatchVerifier(device=dev, cache=cache)
@@ -643,7 +720,8 @@ def run_verify(triples, dev, cache=None):
     plan = bv.plan()
     t2 = time.perf_counter()
     ok, results = bv.execute(plan)
-    torch.cuda.synchronize()
+    with jitguard.audited():
+        torch.cuda.synchronize()
     t3 = time.perf_counter()
     return t3 - t0, bv, plan, results, (t1 - t0, t2 - t1, t3 - t2)
 
@@ -835,7 +913,6 @@ def check_fused(name: str, plan, expected, dev, prefixes=()) -> dict:
     from cometbft_tpu_torch.ops import ed25519_verify as EV
     from cometbft_tpu_torch.ops import field as F
     from cometbft_tpu_torch.ops import precompute as PR
-    from cometbft_tpu_torch.ops import scalar as SC
 
     entry, wb = plan.entry, plan.entry.window_bits
     t0 = time.perf_counter()
@@ -890,21 +967,7 @@ def check_fused(name: str, plan, expected, dev, prefixes=()) -> dict:
 
     plain = lambda: EV.verify_keyed_plain(rows, digest, entry.table, key_valid, b_table,
                                           bucket, wb)
-    # bytes: per lane S and the key id (68 of the packed rows), the
-    # digest, the verdict; and each distinct comb entry the lanes gather
-    s_idx = rows[64:96].long()
-    k = SC.reduce_digest(digest)
-    win = SC.limbs_to_windows8(k) if wb == 8 else SC.limbs_to_nibbles(k)
-    kid = torch.from_numpy(packed[100 + bucket : 104 + bucket, :n].astype(np.int64)).to(dev)
-    key = kid[0] | (kid[1] << 8) | (kid[2] << 16) | (kid[3] << 24)
-    nwin = 256 // wb
-    b_entries = int(torch.unique(s_idx + 256 * torch.arange(32, device=dev)[:, None]).numel())
-    k_entries = int(torch.unique(
-        (key[None] * (1 << wb) + win.long()) * nwin
-        + torch.arange(nwin, device=dev)[:, None]).numel())
-    nbytes = n * (68 + 64 + 1) + 3 * F.NLIMBS * 4 * b_entries + 4 * F.NLIMBS * 4 * k_entries
-    ops = n * (vk_products(wb) * MUL_OPS + VK_SQUARES * SQ_OPS)
-    bound = bound_ms(nbytes, ops)
+    bound, b_entries, k_entries, nbytes = vk_bound(rows, digest, bucket, wb)
     # the kernel runs for far longer than its host enqueue (~0.05 ms),
     # so back-to-back CUDA events time the kernel itself; torch.profiler
     # is printed beside the launcher's choice
@@ -936,14 +999,7 @@ def check_fused(name: str, plan, expected, dev, prefixes=()) -> dict:
             f"G={g} {t * 1e3:.2f} us" + (" (choice)" if g == pick else "")
             for g, t in times.items()))
 
-    # sha512_keyed on the same slice: bytes are R, A, each lane's message
-    # and length, read once, and the digest written; operations the
-    # blocks each lane absorbs
-    lens = packed[96 + bucket : 100 + bucket, :n].astype(np.int64)
-    msglen = lens[0] | (lens[1] << 8) | (lens[2] << 16) | (lens[3] << 24)
-    blocks = np.minimum((64 + msglen + 17 + 127) // 128, nblocks)
-    sha_bytes = int((64 + msglen + 4 + 64).sum())
-    sha_bound = bound_ms(sha_bytes, SHA_BLOCK_OPS * int(blocks.sum()))
+    sha_bound, blocks = sha_keyed_bound(rows, bucket, nblocks)
     digest_fn = lambda: EV.keyed_digest(rows, bucket, nblocks)
     # back to back by CUDA events: the wrapper's host path (checks, the
     # output's allocation; ~20 us) is longer than the kernel, so the
@@ -1088,7 +1144,6 @@ def check_generic(name: str, plan, expected, dev, prefixes=()) -> dict:
     import torch
 
     from cometbft_tpu_torch.ops import _build
-    from cometbft_tpu_torch.ops import curve as C
     from cometbft_tpu_torch.ops import ed25519_verify as EV
 
     t0 = time.perf_counter()
@@ -1128,17 +1183,7 @@ def check_generic(name: str, plan, expected, dev, prefixes=()) -> dict:
     def fused(shape, r=rows, d=digest):
         return lambda: EV.verify_generic_fused(r, d, bucket, shape=shape)
 
-    # bytes: per lane pub and sig (96 of the packed rows), the digest and
-    # the verdict, and each distinct comb entry of B the lanes gather;
-    # the multiples table is scratch, written and read by the kernel
-    def bound_for(r):
-        m = r.shape[1]
-        nib = C.nibbles_from_bytes_le(r[64:96]).long()
-        entries = int(torch.unique(nib + 16 * torch.arange(64, device=dev)[:, None]).numel())
-        nbytes = m * (96 + 64 + 1) + 3 * 26 * 4 * entries
-        return bound_ms(nbytes, m * (VG_PRODUCTS * MUL_OPS + VG_SQUARES * SQ_OPS)), entries, nbytes
-
-    bound, b_entries, nbytes = bound_for(rows)
+    bound, b_entries, nbytes = vg_bound(rows)
     # CUDA events only: on an H100, torch.profiler lost most or all of
     # ten 8192-lane launches of this kernel (once it recorded no device
     # time at all)
@@ -1168,7 +1213,7 @@ def check_generic(name: str, plan, expected, dev, prefixes=()) -> dict:
         sub, sub_digest = rows[:, :m], digest[:, :m].contiguous()
         times = {shape: cuda_ms(fused(shape, sub, sub_digest), 10) for shape in EV.VG_SHAPES}
         pick, best = vg_choice(lib, m), min(times, key=times.get)
-        sub_bound = bound_for(sub)[0][0]
+        sub_bound = vg_bound(sub)[0][0]
         print(f"  first {m} lanes (bound {sub_bound * 1e3:.3f} us): " + ", ".join(
             f"{shape} {t * 1e3:.2f} us ({sub_bound / t:.3f})" + (" (choice)" if shape == pick
                                                                  else "")
@@ -3030,6 +3075,383 @@ def validation_phase(dev, commit150, commit1k, registry, smi: str) -> dict:
     return res
 
 
+# -- phase 13: the multi-device plane -----------------------------------
+
+def mesh_devices() -> tuple[list[str], str]:
+    """Every visible card when there is more than one, else four shards
+    on cuda:0 (a mesh's devices may repeat)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [f"cuda:{i}" for i in range(n)], f"every visible card ({n} cards)"
+    return ["cuda:0"] * 4, "one card: 4 shards on cuda:0"
+
+
+def mesh_shard_check(name: str, bv, plan, mesh, tier: str) -> dict:
+    """Each shard's launches of the last mesh verify, redone on the
+    shard's own inputs: the kernels' verdicts held to the plain versions
+    (keyed_digest_plain, then verify_keyed_plain or verify_generic_plain)
+    on every lane, then each shard's launch sequence and its plain
+    version timed by CUDA events beside the sum of its slices' bounds
+    (vk_bound or vg_bound, and sha_keyed_bound)."""
+    import torch
+
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+    from cometbft_tpu_torch.ops import field as F
+    from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.parallel import mesh as MM
+
+    if tier == "keyed_mesh":
+        entry = plan.entry
+        wb = entry.window_bits
+        tables, valids, _ = entry.sharded_tables(mesh)
+        _, bucket, packed = bv.keyed_shards(plan.key_ids, plan.pub, plan.sig, plan.msgs)
+    else:
+        bucket, packed, _ = bv.generic_shards(plan.pub, plan.sig, plan.msgs)
+    nblocks = EV.nblocks_for_bucket(bucket)
+    shards = []
+    for d, dev in enumerate(mesh.flat):
+        if packed[d] is None:
+            continue
+        with MM._on(dev):
+            buf = torch.from_numpy(packed[d]).to(dev)
+            if tier == "keyed_mesh":
+                b_table = F.const(PR.b_comb8(), dev)
+                run = lambda buf=buf, d=d, b=b_table: MM.verify_keyed_shard(
+                    buf, tables[d], valids[d], b, bucket, nblocks, wb)
+            else:
+                run = lambda buf=buf: EV.verify_generic_rows(buf, bucket)
+            got = run()
+
+            def plain(buf=buf, d=d):
+                oks = []
+                for s in range(0, buf.shape[1], EV.MAX_LAUNCH):
+                    rows = buf[:, s : s + EV.MAX_LAUNCH]
+                    digest = EV.keyed_digest_plain(rows, bucket, nblocks)
+                    if tier == "keyed_mesh":
+                        oks.append(EV.verify_keyed_plain(rows, digest, tables[d], valids[d],
+                                                         b_table, bucket, wb)[0])
+                    else:
+                        oks.append(EV.verify_generic_plain(rows, digest)[0])
+                return torch.cat(oks)
+
+            want = plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = (got != want).nonzero().flatten().tolist()[:20]
+                raise AssertionError(f"mesh {name}: shard {d}'s kernels differ from their "
+                                     f"plain versions at lanes {bad}")
+            bound_ms_sum = 0.0
+            for s in range(0, buf.shape[1], EV.MAX_LAUNCH):
+                rows = buf[:, s : s + EV.MAX_LAUNCH]
+                bound = (vk_bound(rows, EV.keyed_digest(rows, bucket, nblocks), bucket, wb)[0]
+                         if tier == "keyed_mesh" else vg_bound(rows)[0])
+                bound_ms_sum += bound[0] + sha_keyed_bound(rows, bucket, nblocks)[0][0]
+            ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 2, warm=1)
+        shards.append(dict(shard=d, device=str(dev), lanes=buf.shape[1], ms=ms,
+                           plain_ms=plain_ms, bound=bound_ms_sum))
+    return dict(shards=shards, ms=sum(s["ms"] for s in shards),
+                plain_ms=sum(s["plain_ms"] for s in shards),
+                bound=sum(s["bound"] for s in shards))
+
+
+def mesh_cell(name: str, triples, expected, mesh, dev, tier: str, warm_runs: int,
+              smi: str) -> dict:
+    """One cell on a mesh tier: the verify with the launch counters at 0
+    (sha512_keyed and the tier's verify kernel once per slice of each
+    shard with lanes, build_tables at most once), verdicts = the oracle's
+    = the single-device tier's on the same triples; each shard held to
+    the plain versions (mesh_shard_check); warm p50 of the mesh verify
+    and of the single-device tier, interleaved: on one card the
+    difference is the cost of routing, not a speed-up."""
+    from cometbft_tpu_torch.ops import _build
+
+    single = tier.replace("_mesh", "")
+    kernel = "verify_keyed" if tier == "keyed_mesh" else "verify_generic"
+    _build.reset_launches()
+    cold, bv, plan, results, _ = run_verify(triples, dev, mesh=mesh)
+    launches = launched()
+    if bv.last_tier != tier or results != list(expected):
+        bad = [i for i, (a, b) in enumerate(zip(results, expected)) if a != b][:20]
+        raise AssertionError(f"mesh {name}: tier {bv.last_tier} (expected {tier}), verdicts "
+                             f"differ from the oracle at {bad}")
+    want = {"sha512_keyed": sum(s["launches"]["sha512_keyed"] for s in bv.last_shards),
+            kernel: sum(s["launches"][kernel] for s in bv.last_shards)}
+    if {k: v for k, v in launches.items() if k != "build_tables"} != want or \
+            launches.get("build_tables", 0) > 1:
+        raise AssertionError(f"mesh {name}: launches {launches}, expected {want}")
+    _, sbv, _, sresults, _ = run_verify(triples, dev)
+    if sbv.last_tier != single or sresults != results:
+        raise AssertionError(f"mesh {name}: the single-device tier {sbv.last_tier} disagrees")
+    check = mesh_shard_check(name, bv, plan, mesh, tier)
+    lat_mesh, lat_single = [], []
+    for _ in range(warm_runs):
+        for lat, kw in ((lat_mesh, dict(mesh=mesh)), (lat_single, {})):
+            dt, b, _, r, _ = run_verify(triples, dev, **kw)
+            if r != results or b.last_tier not in (tier, single):
+                raise AssertionError(f"mesh {name}: a warm run differs")
+            lat.append(dt)
+    out = dict(name=name, tier=tier, n=len(triples), cold_s=cold, launches=launches,
+               shards=bv.last_shards, p50_ms=1e3 * pct(lat_mesh, 50),
+               single_p50_ms=1e3 * pct(lat_single, 50), check=check)
+    print(f"mesh {name} [{smi}]: {len(triples)} lanes on {tier} over {mesh.size} shards, "
+          f"= oracle = {single} ({sum(not v for v in expected)} invalid); first verify "
+          f"{cold:.4f} s, launches {launches}")
+    for s, c in zip([s for s in bv.last_shards if s["lanes"]], check["shards"]):
+        print(f"  shard {c['shard']} ({s['device']}): {s['lanes']} lanes, width {s['width']}, "
+              f"launches {s['launches']}; = plain versions; sha512_keyed + {kernel} "
+              f"{c['ms'] * 1e3:.2f} us (CUDA events), bound {c['bound'] * 1e3:.3f} us, plain "
+              f"{c['plain_ms'] * 1e3:.2f} us")
+    idle = [i for i, s in enumerate(bv.last_shards) if not s["lanes"]]
+    print(f"  shards' launches {check['ms'] * 1e3:.2f} us in all, bound {check['bound'] * 1e3:.3f}"
+          f" us, plain {check['plain_ms'] * 1e3:.2f} us; shards without lanes (no launch): "
+          f"{idle}")
+    print(f"  warm p50 over {warm_runs}, interleaved: {tier} {out['p50_ms']:.3f} ms, {single} "
+          f"{out['single_p50_ms']:.3f} ms on the same triples (the cost of routing on "
+          f"{'one card' if len(set(mesh.flat)) == 1 else 'these cards'})")
+    return out
+
+
+def mesh_phase(dev, commit150, exp150, commit1k, exp1k, big, big_exp, wide, wide_exp,
+               smi: str) -> dict:
+    """Phase 13, the multi-device plane (parallel/mesh.py) on every
+    visible card, or on 4 shards of cuda:0 when there is one, with a
+    static walk (no cost model) and the launch counters at 0 at its
+    start: commit150 and commit1024 on keyed_mesh, chunked and
+    generic1024 on generic_mesh (mesh_cell); commit10k's 10000-key 4-bit
+    pool through sharded_tables (the placement's bytes beside the
+    pool's) and a keyed_mesh verify on it; a shard_loss chaos window
+    (keyed_mesh demoted, keyed answers exactly, nothing else demoted);
+    the mesh canaries once."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import dispatch as D
+    from cometbft_tpu_torch.crypto import health as H
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.parallel import mesh as MM
+
+    devices, what = mesh_devices()
+    mesh = MM.flat_mesh(devices)
+    print(f"mesh phase [{smi}]: {what}: {mesh}")
+    threads0 = live_threads()
+    _build.reset_launches()
+    D.LADDER.reset(cost_model=D.TierCostModel(enabled=False))
+    cells = {}
+    try:
+        cells["commit150"] = mesh_cell("commit150", commit150, exp150, mesh, dev, "keyed_mesh",
+                                       50, smi)
+        cells["commit1024"] = mesh_cell("commit1024", commit1k, exp1k, mesh, dev, "keyed_mesh",
+                                        20, smi)
+        limit, PR.TABLE_MAX_KEYS = PR.TABLE_MAX_KEYS, 0
+        try:
+            cells["chunked"] = mesh_cell("chunked", big, big_exp, mesh, dev, "generic_mesh", 5,
+                                         smi)
+            cells["generic1024"] = mesh_cell("generic1024", commit1k, exp1k, mesh, dev,
+                                             "generic_mesh", 20, smi)
+        finally:
+            PR.TABLE_MAX_KEYS = limit
+        snap = D.LADDER.snapshot()
+        if snap["transitions"] or any(st["demoted"] for st in snap["tiers"].values()):
+            raise AssertionError(f"mesh phase: a demotion outside its chaos window: {snap}")
+
+        # commit10k's pool, placed over the mesh
+        triples, exp = wide[:10000], wide_exp[:10000]
+        cache = PR.KeyTableCache(dev)
+        t0 = time.perf_counter()
+        entry = cache.lookup_or_build(sorted({p for p, _, _ in triples}))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tables, valids, per_cap = entry.sharded_tables(mesh)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        pool_mib, placed_mib = entry.nbytes / 2**20, entry.placement_bytes() / 2**20
+        shared = len({t.untyped_storage().data_ptr() for t in tables}) == 1
+        dt, bv, plan, results, _ = run_verify(triples, dev, cache=cache, mesh=mesh)
+        if bv.last_tier != "keyed_mesh" or results != list(exp) or plan.entry is not entry:
+            raise AssertionError(f"mesh commit10k: tier {bv.last_tier}, = oracle "
+                                 f"{results == list(exp)}")
+        _, sbv, _, sres, _ = run_verify(triples, dev, cache=cache)
+        if sres != results:
+            raise AssertionError("mesh commit10k: the single-device keyed tier disagrees")
+        print(f"mesh commit10k [{smi}]: {len(entry.key_index)} keys, 4-bit pool of "
+              f"{entry.nbytes // PR._KeyPool(4, dev).key_bytes} slots, {pool_mib:.1f} MiB "
+              f"(built in {build_s:.3f} s); sharded_tables over {mesh.size} shards: "
+              f"{per_cap} slots a shard, {placed_mib:.1f} MiB placed (the permuted table "
+              f"and mask{', one tensor the shards view' if shared else ''}) in "
+              f"{place_s * 1e3:.1f} ms; keyed_mesh verify {dt * 1e3:.1f} ms = oracle = keyed; "
+              f"shards' lanes {[s['lanes'] for s in bv.last_shards]}")
+        cells["commit10k"] = dict(pool_mib=pool_mib, placed_mib=placed_mib, place_s=place_s,
+                                  verify_ms=dt * 1e3, shards=bv.last_shards)
+        del tables, valids, entry, plan, bv, sbv
+        cache.clear()
+
+        # a shard lost: keyed_mesh demoted, keyed answers
+        class Clock:
+            t = 0.0
+
+            def __call__(self):
+                return self.t
+
+        D.LADDER.reset(demote_after=1, cooldown_s=1.0, clock=Clock(),
+                       cost_model=D.TierCostModel(enabled=False))
+        D.CHAOS.load(D.ChaosPlan.parse("shard_loss@0-3600"))
+        dt, bv, plan, results, _ = run_verify(commit150, dev, mesh=mesh)
+        snap = D.LADDER.snapshot()
+        trail = [(e["kind"], e["from"], e["to"], e["reason"]) for e in snap["transitions"]]
+        demoted = sorted(t for t, st in snap["tiers"].items() if st["demoted"])
+        if (bv.last_tier != "keyed" or results != list(exp150) or demoted != ["keyed_mesh"]
+                or trail != [("demote", "keyed_mesh", "keyed", "chaos:shard_loss")]):
+            raise AssertionError(f"mesh shard_loss: answered by {bv.last_tier}, = oracle "
+                                 f"{results == list(exp150)}, demoted {demoted}, {trail}")
+        print(f"mesh shard_loss: walk {plan.tiers}; keyed_mesh demoted ({trail}), keyed "
+              f"answered commit150 in {dt * 1e3:.1f} ms = oracle; nothing else demoted")
+        D.CHAOS.load(None)
+        D.LADDER.reset(cost_model=D.TierCostModel(enabled=False))
+
+        canaries = {}
+        for tier, probe in (("keyed_mesh", H._probe_keyed_mesh),
+                            ("generic_mesh", H._probe_generic_mesh)):
+            t0 = time.perf_counter()
+            ok = probe(mesh)
+            canaries[tier] = (ok, time.perf_counter() - t0)
+            if not ok:
+                raise AssertionError(f"mesh canary {tier} failed")
+        print("mesh canaries: " + ", ".join(f"{t} ok in {s * 1e3:.1f} ms"
+                                              for t, (_, s) in canaries.items()))
+    finally:
+        D.CHAOS.load(None)
+        D.LADDER.reset()
+    launches = end_phase("mesh phase", threads0)
+    print(f"mesh phase: launches in all {launches} (the plain versions' fe_mul and fe_sq "
+          f"among them)")
+    return dict(cells=cells, launches=launches, mesh=[str(d) for d in mesh.flat])
+
+
+# -- phase 14: the device-plane guard ----------------------------------
+
+def unseen_keyed_batch(triples, seen):
+    """A batch of ``triples``' keys whose keyed launch signature (padded
+    width, bucket) is in no key of ``seen``: the first of 100 then 64
+    lanes, at the triples' message length, then padded to 200, 400, 1000
+    and 4000 bytes (the messages no longer match their signatures)."""
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    used = {(k[0], k[1]) for k in seen}
+    for length in (len(triples[0][1]), 200, 400, 1000, 4000):
+        for n in (min(100, len(triples)), min(64, len(triples))):
+            if (max(PR.next_pow2(n), 8), EV.bucket_for(length)) not in used:
+                return [(p, m.ljust(length, b"-"), s) for p, m, s in triples[:n]]
+    raise AssertionError(f"guard: every keyed width and bucket was seen: {sorted(used)}")
+
+
+#: sealed verifies of each tier in the guard phase
+GUARD_RUNS = 20
+
+
+def guard_phase(dev, commit150, exp150, mesh_devs, smi: str) -> dict:
+    """Phase 14, ops/jitguard.py armed: ``jitguard.enable()``, GUARD_RUNS
+    warm-up verifies of commit150 each on keyed, generic (the table limit
+    at 0) and keyed_mesh, interleaved (the unsealed p50), ``seal()``, then
+    GUARD_RUNS verifies of each inside ``transfer_window`` (the sync debug
+    mode "error" around the launches, the audited copies allowed): zero
+    new seam keys and zero builds.  A planted ``.item()`` inside the
+    window raises and counts one transfer trip; a planted batch whose
+    keyed signature no earlier phase launched (unseen_keyed_batch) raises
+    RetraceError.
+    Then ``reset()``; the launch counters at 0 at its start."""
+    import torch
+
+    from cometbft_tpu_torch import metrics as M
+    from cometbft_tpu_torch.crypto import dispatch as D
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import jitguard as JG
+    from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.parallel import mesh as MM
+
+    mesh = MM.flat_mesh(mesh_devs)
+    threads0 = live_threads()
+    _build.reset_launches()
+    D.LADDER.reset(cost_model=D.TierCostModel(enabled=False))
+    cm = M.crypto_metrics()
+
+    def run(tier):
+        limit = PR.TABLE_MAX_KEYS
+        if tier == "generic":
+            PR.TABLE_MAX_KEYS = 0
+        try:
+            dt, bv, _, results, _ = run_verify(
+                commit150, dev, mesh=mesh if tier == "keyed_mesh" else None)
+        finally:
+            PR.TABLE_MAX_KEYS = limit
+        if bv.last_tier != tier or results != list(exp150):
+            raise AssertionError(f"guard: {tier} answered by {bv.last_tier}, = oracle "
+                                 f"{results == list(exp150)}")
+        return dt
+
+    tiers = ("keyed", "generic", "keyed_mesh")
+    JG.enable()
+    JG.reset()
+    try:
+        # warm-up, then the unguarded p50 the sealed runs are held beside
+        base = {t: [] for t in tiers}
+        for _ in range(GUARD_RUNS):
+            for tier in tiers:
+                base[tier].append(run(tier))
+        counts = JG.compile_counts()
+        seen = sum(len(keys) for keys in JG._SEEN.values())
+        JG.seal()
+        lat = {t: [] for t in tiers}
+        for _ in range(GUARD_RUNS):
+            for tier in tiers:
+                with JG.transfer_window():
+                    lat[tier].append(run(tier))
+        after = JG.compile_counts()
+        if after != counts:
+            raise AssertionError(f"guard: new seam keys or builds after seal(): {counts} -> "
+                                 f"{after}")
+        trips = cm.guard_trips.labels(kind="transfer").get()
+        try:
+            with JG.transfer_window():
+                torch.ones(1, device=dev).sum().item()
+        except RuntimeError as exc:
+            if "synchronizing" not in str(exc):
+                raise
+            planted = str(exc).splitlines()[0]
+        else:
+            raise AssertionError("guard: a planted .item() in the window did not raise")
+        if cm.guard_trips.labels(kind="transfer").get() != trips + 1:
+            raise AssertionError("guard: the planted sync did not count one transfer trip")
+        retraces = cm.guard_trips.labels(kind="retrace").get()
+        try:
+            run_verify(unseen_keyed_batch(commit150, JG._SEEN.get("keyed", ())), dev)
+        except JG.RetraceError as exc:
+            retrace = str(exc).splitlines()[0]
+        else:
+            raise AssertionError("guard: a new launch signature after seal() did not raise")
+        if cm.guard_trips.labels(kind="retrace").get() != retraces + 1:
+            raise AssertionError("guard: the planted signature did not count one retrace trip")
+        if torch.cuda.get_sync_debug_mode() != 0:
+            raise AssertionError("guard: the sync debug mode is still on after the window")
+    finally:
+        JG.reset()
+        JG.enable(False)
+        D.LADDER.reset()
+    launches = end_phase("guard phase", threads0)
+    print(f"guard phase [{smi}]: {seen} launch signatures seen in the process, {counts} new "
+          f"in the warm-up; after seal() {GUARD_RUNS} verifies each of {list(tiers)} inside "
+          f"the window: 0 new keys, 0 builds; p50 sealed / unsealed: " + ", ".join(
+              f"{t} {1e3 * pct(lat[t], 50):.3f} / {1e3 * pct(base[t], 50):.3f} ms"
+              for t in tiers))
+    print(f"  planted .item() in the window: raised ({planted}), transfer trips +1; planted new "
+          f"signature: {retrace}; launches {launches}")
+    return dict(counts=counts, p50_ms={t: 1e3 * pct(v, 50) for t, v in lat.items()},
+                base_p50_ms={t: 1e3 * pct(v, 50) for t, v in base.items()}, launches=launches)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--warm150"]:
         if len(sys.argv) > 2:
@@ -3202,6 +3624,12 @@ def run_all(torch) -> int:
     # phase 12: commit verification through the types layer
     validation_phase(dev, commit150, commit1k, registry, smi)
     check_ladder("validation phase")
+    # phases 13-14: the multi-device plane and the device-plane guard
+    mesh = mesh_phase(dev, commit150, exp150, commit1k, exp1k, big, big_exp, wide, wide_exp,
+                      smi)
+    check_ladder("mesh phase")
+    guard_phase(dev, commit150, exp150, mesh["mesh"], smi)
+    check_ladder("guard phase")
     for line in registry.expose().splitlines():
         if line.startswith(("cometbft_crypto_dispatch_tier", "cometbft_crypto_dispatch_decisions",
                             "cometbft_crypto_device_hangs_total", "cometbft_crypto_key_pool")):

@@ -4,7 +4,11 @@ reference crypto/batch/batch.go:10).
 ``create_batch_verifier`` returns the device verifier on ``cuda`` unless
 the caller passes another device; without a card it raises (the
 reference's factory hands out a host verifier when no device is usable,
-the silent fallback the port does not make).
+the silent fallback the port does not make).  When the device probe has
+counted more than one card (``device_status()["ndev"] > 1``), a caller
+on ``cuda`` gets the mesh verifier over every card
+(parallel/mesh.py ``ShardedTorchBatchVerifier``); a one-card machine, a
+named card (``cuda:1``) and ``device="cpu"`` get ``TorchBatchVerifier``.
 
 ``device_status()`` is the health plane's read-only view of the device
 probe: ``probe_device()`` counts the cards in a subprocess
@@ -32,6 +36,10 @@ _device_state = {"status": "unknown", "ndev": 0}
 def _ed25519_factory(device=None) -> BatchVerifier:
     from cometbft_tpu_torch.ops.ed25519_verify import TorchBatchVerifier
 
+    if (device is None or str(device) == "cuda") and device_status()["ndev"] > 1:
+        from cometbft_tpu_torch.parallel.mesh import ShardedTorchBatchVerifier, flat_mesh
+
+        return ShardedTorchBatchVerifier(mesh=flat_mesh())
     return TorchBatchVerifier(device=device)
 
 

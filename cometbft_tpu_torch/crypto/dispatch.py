@@ -4,12 +4,16 @@ cometbft_tpu/crypto/dispatch.py for the ed25519 tiers).
 
 **The ladder.**  Tiers in strict preference order::
 
-    keyed > generic > host > python
+    keyed_mesh > keyed > generic_mesh > generic > host > python
 
-(the reference's mesh tiers, keyed_mesh and generic_mesh, wait for the
-port's multi-device verifier).
+(the keyed verify sharded over a device mesh, the single-device keyed
+verify, the sharded generic verify, the single-device generic verify,
+the native host RLC check, and the per-signature oracle; the
+reference's BLS rung comes with BLS).
 ``TorchBatchVerifier.plan()`` asks the ladder which of a batch's
-eligible tiers are admissible; ``execute()`` walks them top-down.  The
+eligible tiers are admissible; ``execute()`` walks them top-down, and
+``parallel/mesh.py``'s ``ShardedTorchBatchVerifier`` inherits the same
+policy through that seam.  The
 ``python`` floor (the per-signature oracle) is never demoted: consensus
 liveness rests on it.
 
@@ -26,7 +30,8 @@ cool-down); ``promote_after`` healthy canaries promote it too.
 
 **Chaos**: a deterministic fault plan (``ChaosPlan``, the reference's
 grammar) injected at the execute seam -- device loss, a launch hang
-past the watchdog's budget, a transient mis-launch.
+past the watchdog's budget, a transient mis-launch, the loss of one
+shard of a mesh.
 ``CHAOS.load(plan)`` arms it; the port reads no environment variable
 for it.  Chaos never faults the host or python floor.
 
@@ -73,11 +78,13 @@ from cometbft_tpu_torch.metrics import crypto_metrics as _crypto_metrics
 from cometbft_tpu_torch.utils.flight import FLIGHT
 
 #: the full ladder, best tier first
-TIER_ORDER = ("keyed", "generic", "host", "python")
+TIER_ORDER = ("keyed_mesh", "keyed", "generic_mesh", "generic", "host", "python")
 #: tiers that launch on the device
-DEVICE_TIERS = frozenset(("keyed", "generic"))
+DEVICE_TIERS = frozenset(("keyed_mesh", "keyed", "generic_mesh", "generic"))
 #: tiers the chaos plan may fault: everything above the host/python floor
 CHAOS_TIERS = DEVICE_TIERS
+#: tiers that shard over a device mesh (the scope of shard_loss chaos)
+MESH_TIERS = frozenset(("keyed_mesh", "generic_mesh"))
 #: the floor: per-signature verification, never demoted, never faulted
 FLOOR_TIER = "python"
 
@@ -157,10 +164,10 @@ def fault_reason(exc: BaseException) -> str:
 #: device_loss -- every device-tier launch in the window raises;
 #: launch_hang -- the launch sleeps past the watchdog's budget, then
 #:   raises (the watchdog fires first);
-#: mislaunch   -- exactly ONE launch in the window raises (transient).
-#: (The reference's shard_loss faults its mesh tiers, which the port
-#: has not yet.)
-CHAOS_KINDS = ("device_loss", "launch_hang", "mislaunch")
+#: mislaunch   -- exactly ONE launch in the window raises (transient);
+#: shard_loss  -- only the *_mesh tiers raise (one device of the mesh
+#:   gone: the single-device tiers still work).
+CHAOS_KINDS = ("device_loss", "launch_hang", "mislaunch", "shard_loss")
 
 
 class ChaosPlan:
@@ -232,7 +239,11 @@ class ChaosPlan:
         return windows
 
     def applies(self, kind: str, tier: str) -> bool:
-        return tier in CHAOS_TIERS  # the host/python floor is never faulted
+        if tier not in CHAOS_TIERS:
+            return False  # the host/python floor is never faulted
+        if kind == "shard_loss":
+            return tier in MESH_TIERS
+        return True
 
     def fault_at(self, tier: str, t: float, fired: set[int]) -> tuple[int, str] | None:
         """The (window index, kind) faulting ``tier`` at plan time ``t``;

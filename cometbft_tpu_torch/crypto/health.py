@@ -225,8 +225,8 @@ class DeviceUsage:
         # counted busy -- concurrent launches count the UNION of their
         # intervals, so busy + idle never exceeds the wall
         self._covered_until: float | None = None
-        self._busy = 0.0
-        self._idle = 0.0
+        self._busy: dict[str, float] = {}
+        self._idle: dict[str, float] = {}
         self._launches = 0
         self._last_overlap: float | None = None
         self._last_queue_wait: float | None = None
@@ -245,14 +245,16 @@ class DeviceUsage:
         _health_metrics().launch_queue_wait_seconds.observe(seconds)
         self._last_queue_wait = seconds
 
-    def launch_end(self, t_launch: float, fetch_wait: float = 0.0) -> None:
-        """Account one finished launch on the one device ("0"): busy = the
-        part of [t_launch, now) not yet counted; idle = the gap before
-        it; overlap = the share of the launch's wall the host did not
-        spend blocked in the fetch (``fetch_wait`` seconds of it)."""
+    def launch_end(self, t_launch: float, ndev: int = 1, fetch_wait: float = 0.0) -> None:
+        """Account one finished launch on each of ``ndev`` devices (the
+        shards of a mesh launch, labelled "0" .. ndev-1): busy = the part
+        of [t_launch, now) not yet counted; idle = the gap before it;
+        overlap = the share of the launch's wall the host did not spend
+        blocked in the fetch (``fetch_wait`` seconds of it)."""
         now = time.perf_counter()
         wall = max(now - t_launch, 0.0)
         overlap = min(max(1.0 - fetch_wait / wall, 0.0), 1.0) if wall > 0 else None
+        devices = [str(d) for d in range(max(ndev, 1))]
         with self._mtx:
             prev = self._covered_until
             idle = 0.0
@@ -263,26 +265,35 @@ class DeviceUsage:
                 busy = max(now - max(t_launch, prev), 0.0)
             self._covered_until = max(prev or now, now)
             self._launches += 1
-            self._busy += busy
-            self._idle += idle
+            for dev in devices:
+                self._busy[dev] = self._busy.get(dev, 0.0) + busy
+                if idle:
+                    self._idle[dev] = self._idle.get(dev, 0.0) + idle
             if overlap is not None:
                 self._last_overlap = overlap
             self._last_fetch_wait = fetch_wait
         hm = _health_metrics()
-        hm.device_busy_seconds_total.child("0").inc(busy)
-        if idle:
-            hm.device_idle_seconds_total.child("0").inc(idle)
+        for dev in devices:
+            hm.device_busy_seconds_total.child(dev).inc(busy)
+            if idle:
+                hm.device_idle_seconds_total.child(dev).inc(idle)
         if overlap is not None:
             hm.host_device_overlap_ratio.set(overlap)
 
     def snapshot(self) -> dict:
+        """``busy_seconds`` / ``idle_seconds`` are the sums over devices
+        (device "0" alone outside a mesh); ``by_device`` has each one's."""
         with self._mtx:
-            total = self._busy + self._idle
+            busy, idle = sum(self._busy.values()), sum(self._idle.values())
+            total = busy + idle
             return {
                 "launches": self._launches,
-                "busy_seconds": round(self._busy, 6),
-                "idle_seconds": round(self._idle, 6),
-                "occupancy": round(self._busy / total, 4) if total > 0 else None,
+                "busy_seconds": round(busy, 6),
+                "idle_seconds": round(idle, 6),
+                "by_device": {d: {"busy_seconds": round(self._busy.get(d, 0.0), 6),
+                                  "idle_seconds": round(self._idle.get(d, 0.0), 6)}
+                              for d in sorted(set(self._busy) | set(self._idle))},
+                "occupancy": round(busy / total, 4) if total > 0 else None,
                 "overlap_ratio": self._last_overlap,
                 "last_queue_wait_s": self._last_queue_wait,
                 "last_fetch_wait_s": self._last_fetch_wait,
@@ -476,13 +487,17 @@ def _canary_fixture():
 def default_tier_probes() -> dict:
     """tier -> canary for every tier available now: the host tier
     always; keyed and generic only once CUDA is initialised in this
-    process (the prober must never be the thread that initialises it)."""
+    process (the prober must never be the thread that initialises it);
+    keyed_mesh and generic_mesh too when more than one card is visible."""
     import torch
 
     probes: dict = {"host": _probe_host}
     if torch.cuda.is_initialized():
         probes["generic"] = _probe_generic
         probes["keyed"] = _probe_keyed
+        if torch.cuda.device_count() > 1:
+            probes["keyed_mesh"] = _probe_keyed_mesh
+            probes["generic_mesh"] = _probe_generic_mesh
     return probes
 
 
@@ -536,6 +551,37 @@ def _probe_keyed() -> bool:
         return _probe_generic()
     key_ids = entry.key_ids([bytes(p) for p in pub])
     return bool(_finish(verify_arrays_keyed_async(entry, key_ids, pub, sig, msgs)).all())
+
+
+def _probe_keyed_mesh(mesh=None) -> bool:
+    """Mesh canary pinned to the keyed_mesh runner (``mesh``: every
+    visible card unless given): a canary exercises its own tier, never a
+    walk down the ladder, whose fallback's health would read as evidence
+    for the tier it stands in for.  A mesh of one device, or a set the
+    table policy declines, reports the single-device canary's health,
+    as the reference's does."""
+    from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.parallel.mesh import ShardedTorchBatchVerifier
+
+    bv = ShardedTorchBatchVerifier(mesh=mesh, device_min_batch=0)
+    if not bv._mesh_capable():
+        return _probe_keyed()
+    pub, sig, msgs = _probe_arrays()
+    entry = PR.table_cache(bv.device).lookup_or_build([p.bytes() for p, _, _ in _canary_fixture()])
+    if entry is None:
+        return _probe_generic_mesh(mesh)
+    key_ids = entry.key_ids([bytes(p) for p in pub])
+    return bool(bv._run_keyed_mesh(entry, key_ids, pub, sig, msgs).all())
+
+
+def _probe_generic_mesh(mesh=None) -> bool:
+    """Mesh canary pinned to the generic_mesh runner, for the same
+    reason as the keyed_mesh canary."""
+    from cometbft_tpu_torch.parallel.mesh import ShardedTorchBatchVerifier
+
+    bv = ShardedTorchBatchVerifier(mesh=mesh, device_min_batch=0)
+    pub, sig, msgs = _probe_arrays()
+    return bool(bv._run_generic_mesh(pub, sig, msgs).all())
 
 
 #: process-wide instruments, like the ladder they feed

@@ -46,6 +46,7 @@ class CryptoMetrics:
             self.verify_queue_submitted = self.verify_queue_batch_size = _NOP
             self.verify_queue_spec_cache = self.verify_queue_prefetch_depth = _NOP
             self.bytes_transferred = _NOP
+            self.jit_cache_misses = self.guard_trips = _NOP
             self.batch_verify_launches = _NOP
             self.batch_verify_batch_size = _NOP
             self.dispatch_decisions = _NOP
@@ -122,6 +123,17 @@ class CryptoMetrics:
         self.bytes_transferred = reg.counter(
             s, "bytes_transferred", "Bytes moved across the host-device link (h2d | d2h).",
             labels=("direction",))
+        self.jit_cache_misses = reg.counter(
+            s, "jit_cache_misses",
+            "New launch signatures and library builds per seam (generic | chunked | keyed "
+            "| table_build | sharded | keyed_mesh | build:<source>); steady state should "
+            "add zero (ops/jitguard.py).",
+            labels=("seam",))
+        self.guard_trips = reg.counter(
+            s, "guard_trips",
+            "Device-plane guard trips: a new launch signature or build after seal(), or "
+            "an implicit host-device sync in the launch window (kind: retrace | transfer).",
+            labels=("kind",))
         self.verify_queue_depth = reg.gauge(
             s, "verify_queue_depth",
             "Requests waiting in the verify queue, by priority lane (consensus | prefetch "

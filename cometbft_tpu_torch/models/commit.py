@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from cometbft_tpu_torch.ops import ed25519_verify as EV
+from cometbft_tpu_torch.ops import jitguard as _jitguard
 from cometbft_tpu_torch.utils.env import resolve_device
 
 # Vote sign-bytes are ~120 bytes (canonical proto + chain id); bucket 128
@@ -36,22 +37,33 @@ def commit_verify_step(pub, sig, msg, msglen, device=None) -> torch.Tensor:
     slice is the sha512_keyed and verify_generic kernels on the card, or
     their plain versions on the CPU (``verify_generic_rows``)."""
     dev = resolve_device(device)
+    packed, batch = pack_feature_first(pub, sig, msg, msglen, MSG_BUCKET)
+    with _jitguard.audited():
+        packed = packed.to(dev)
+    return EV.verify_generic_rows(packed, MSG_BUCKET).reshape(batch)
+
+
+def pack_feature_first(pub, sig, msg, msglen, bucket: int):
+    """Feature-first pub (32, *B), sig (64, *B), msg (bucket, *B) uint8
+    and msglen (*B,) (numpy arrays or tensors, on one device) -> (the
+    generic tier's packed rows (100 + bucket, prod(B)) uint8 on that
+    device, B)."""
     pub, sig, msg, msglen = (torch.as_tensor(x) for x in (pub, sig, msg, msglen))
     batch = tuple(pub.shape[1:])
     if (pub.shape[0] != 32 or sig.shape != (64, *batch)
-            or msg.shape != (MSG_BUCKET, *batch) or tuple(msglen.shape) != batch):
+            or msg.shape != (bucket, *batch) or tuple(msglen.shape) != batch):
         raise ValueError(
             f"commit_verify_step: expected pub (32, *B), sig (64, *B), msg "
-            f"({MSG_BUCKET}, *B), msglen B; got {tuple(pub.shape)}, {tuple(sig.shape)}, "
+            f"({bucket}, *B), msglen B; got {tuple(pub.shape)}, {tuple(sig.shape)}, "
             f"{tuple(msg.shape)}, {tuple(msglen.shape)}")
     n = math.prod(batch)
     lens = msglen.reshape(n).to(torch.int64)
     len_rows = torch.stack([(lens >> (8 * i)) & 0xFF for i in range(4)])
     packed = torch.cat([
         pub.reshape(32, n).to(torch.uint8), sig.reshape(64, n).to(torch.uint8),
-        msg.reshape(MSG_BUCKET, n).to(torch.uint8), len_rows.to(torch.uint8),
+        msg.reshape(bucket, n).to(torch.uint8), len_rows.to(torch.uint8),
     ])
-    return EV.verify_generic_rows(packed.to(dev), MSG_BUCKET).reshape(batch)
+    return packed, batch
 
 
 def example_inputs(

@@ -18,6 +18,10 @@ back to another path: a library that cannot build is a fault.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds
 one where it launches its kernel and nowhere else.
+
+Each build or first load of a library in the process is noted under
+the seam ``build:<source>`` (ops/jitguard.py): once the guard is armed
+and sealed, a build raises before the compiler starts.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ import subprocess
 import threading
 import time
 from dataclasses import dataclass
+
+from cometbft_tpu_torch.ops import jitguard as _jitguard
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -196,6 +202,7 @@ def build_all(names=None) -> dict[str, Built]:
             if name in _built:
                 continue
             src, out = _target(name)
+            _jitguard.note_compile(f"build:{name}", os.path.basename(out))
             if os.path.exists(out):
                 _built[name] = _load(name, out, 0.0, "")
             else:

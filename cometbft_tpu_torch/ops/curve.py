@@ -224,3 +224,62 @@ def window_mul(k_nibbles: torch.Tensor, p):
         idx = k_nibbles[w].to(torch.int64)[None, None].expand(1, F.NLIMBS, *batch)
         acc = pt_add(acc, tuple(torch.gather(table[c], 0, idx)[0] for c in range(4)))
     return acc
+
+
+#: shape/dtype contracts (grammar: ops/contracts.py): the reference's
+#: specs, with the 4-bit comb of B an argument (the port's layout,
+#: (64, 16, 3, 26))
+_CONTRACTS = {
+    "decompress": {
+        "on": "cpu",
+        "args": {"enc": ("u8", (32, "B"))},
+        "static": (),
+        "out": [
+            [
+                ("i32", ("NLIMBS", "B")),
+                ("i32", ("NLIMBS", "B")),
+                ("i32", ("NLIMBS", "B")),
+                ("i32", ("NLIMBS", "B")),
+            ],
+            ("bool", ("B",)),
+        ],
+    },
+    "nibbles_from_bytes_le": {
+        "args": {"b": ("u8", (32, "B"))},
+        "static": (),
+        "out": ("i32", (64, "B")),
+    },
+    "comb_mul_base": {
+        "on": "cpu",
+        "args": {
+            "s_nibbles": ("i32", (64, "B")),
+            "table": ("i32", (64, 16, 3, "NLIMBS")),
+        },
+        "static": (),
+        "out": [
+            ("i32", ("NLIMBS", "B")),
+            ("i32", ("NLIMBS", "B")),
+            ("i32", ("NLIMBS", "B")),
+            ("i32", ("NLIMBS", "B")),
+        ],
+    },
+    "window_mul": {
+        "on": "cpu",
+        "args": {
+            "k_nibbles": ("i32", (64, "B")),
+            "p": [
+                ("i32", ("NLIMBS", "B")),
+                ("i32", ("NLIMBS", "B")),
+                ("i32", ("NLIMBS", "B")),
+                ("i32", ("NLIMBS", "B")),
+            ],
+        },
+        "static": (),
+        "out": [
+            ("i32", ("NLIMBS", "B")),
+            ("i32", ("NLIMBS", "B")),
+            ("i32", ("NLIMBS", "B")),
+            ("i32", ("NLIMBS", "B")),
+        ],
+    },
+}

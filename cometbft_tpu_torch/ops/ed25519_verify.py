@@ -61,6 +61,7 @@ walk; a kernel that fails to build or to launch raises to the caller.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import time
 from collections import deque
@@ -76,6 +77,7 @@ from cometbft_tpu_torch.metrics import crypto_metrics as _crypto_metrics
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import curve as C
 from cometbft_tpu_torch.ops import field as F
+from cometbft_tpu_torch.ops import jitguard as _jitguard
 from cometbft_tpu_torch.ops import precompute as PR
 from cometbft_tpu_torch.ops import scalar as SC
 from cometbft_tpu_torch.ops import sha512 as SH
@@ -194,7 +196,8 @@ def verify_keyed_plain(buf, digest, table, key_valid, b_table, bucket: int,
 
     buf (104+bucket, B) uint8 packed rows pub[32] | sig[64] | msg[bucket]
     | msglen_le[4] | key_id_le[4]; digest (64, B) uint8 from
-    :func:`keyed_digest`; table (nwin, 4, 26, cap*nent) int32; key_valid
+    :func:`keyed_digest`; table (nwin, 4, 26, cap*nent) int32 (its limb
+    rows may be strided wider, as a mesh shard's are); key_valid
     (cap,) bool; b_table the (32, 3, 26, 256) comb of B.  Its field
     products go through fe_mul / fe_sq, so on a CUDA tensor it is a
     composition of field-kernel launches and torch ops."""
@@ -252,7 +255,15 @@ def verify_keyed_fused(buf, digest, table, key_valid, b_table, bucket: int,
         raise ValueError("verify_keyed: the rows' lanes must be contiguous")
     if digest.shape != (64, n) or digest.dtype != torch.uint8:
         raise ValueError(f"verify_keyed: digest must be (64, {n}) uint8")
-    for name, t, dtype in (("digest", digest, torch.uint8), ("table", table, F.DTYPE),
+    if table.device != buf.device or table.dtype != F.DTYPE:
+        raise ValueError(f"verify_keyed: table must be an int32 tensor on {buf.device}")
+    # the limb rows may be wider than the table (a shard of a mesh
+    # placement is a view of a wider tensor): m is the row stride
+    m = table.stride(2)
+    if (table.stride(3) != 1 or m < table.shape[3] or table.stride(1) != F.NLIMBS * m
+            or table.stride(0) != 4 * F.NLIMBS * m):
+        raise ValueError("verify_keyed: the table must be row-major with unit entry stride")
+    for name, t, dtype in (("digest", digest, torch.uint8),
                            ("key_valid", key_valid, torch.bool),
                            ("b_table", b_table, F.DTYPE),
                            ("out_point", out_point, F.DTYPE)):
@@ -263,12 +274,12 @@ def verify_keyed_fused(buf, digest, table, key_valid, b_table, bucket: int,
                              f"tensor on {buf.device}")
     if b_table.shape != (32, 3, F.NLIMBS, 256):
         raise ValueError(f"verify_keyed: b_table {tuple(b_table.shape)}")
-    if F.NLIMBS * table.shape[3] >= 1 << 31:
+    if F.NLIMBS * m >= 1 << 31:
         raise ValueError("verify_keyed: pool too wide for 32-bit limb strides")
     ok = torch.empty(n, dtype=torch.bool, device=buf.device)
     rc = _build.library("verify_keyed").verify_keyed_launch(
         buf.data_ptr(), buf.stride(0), bucket, digest.data_ptr(), table.data_ptr(),
-        table.shape[3], key_valid.data_ptr(), key_valid.shape[0], b_table.data_ptr(),
+        m, key_valid.data_ptr(), key_valid.shape[0], b_table.data_ptr(),
         ok.data_ptr(), None if out_point is None else out_point.data_ptr(), n,
         window_bits, group, torch.cuda.current_stream(buf.device).cuda_stream,
     )
@@ -343,24 +354,36 @@ def verify_generic_fused(buf, digest, bucket: int, shape=None, want_q: bool = Fa
     return (ok, q8) if want_q else ok
 
 
+def bucket_for(maxlen: int) -> int:
+    """The smallest message bucket that holds ``maxlen`` bytes."""
+    bucket = next((b for b in _BUCKETS if b >= maxlen), None)
+    if bucket is None:
+        raise ValueError(f"message too large for device path: {maxlen}")
+    return bucket
+
+
 def pack_inputs(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes],
                 start: int = 0, end: int | None = None,
-                key_ids: np.ndarray | None = None, zeros=np.zeros) -> tuple[np.ndarray, int]:
+                key_ids: np.ndarray | None = None, zeros=np.zeros,
+                bucket: int | None = None) -> tuple[np.ndarray, int]:
     """Pad + pack (pub, sig, msgs[start:end]) into the feature-first
     (100+bucket, batch) uint8 layout -- (104+bucket, batch) with 4 LE
     key-id bytes per lane when ``key_ids`` is given.  Returns (packed,
     bucket).  Padded lanes are all zero: key id 0, zero windows.
     ``zeros(shape, dtype)`` makes the zeroed buffer (a pinned tensor's
-    numpy view for the async path)."""
+    numpy view for the async path).  ``bucket`` (a whole batch's, when
+    its lanes are packed in parts) must hold every message; by default
+    the smallest that does."""
     if end is None:
         end = len(msgs)
     n = end - start
     lens = np.fromiter((len(msgs[i]) for i in range(start, end)),
                        dtype=np.int64, count=n)
     maxlen = int(lens.max()) if n else 0
-    bucket = next((b for b in _BUCKETS if b >= maxlen), None)
     if bucket is None:
-        raise ValueError(f"message too large for device path: {maxlen}")
+        bucket = bucket_for(maxlen)
+    elif maxlen > bucket:
+        raise ValueError(f"a message of {maxlen} bytes does not fit bucket {bucket}")
     batch = max(PR.next_pow2(n), _MIN_BATCH)
     tail = 100 if key_ids is None else 104
     packed = zeros((tail + bucket, batch), dtype=np.uint8)
@@ -399,7 +422,8 @@ def _stage(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes], device,
         buf = torch.from_numpy(packed)
         if device.type == "cuda":
             _crypto_metrics().bytes_transferred.child("h2d").inc(packed.size)
-            buf = buf.to(device)
+            with _jitguard.audited():
+                buf = buf.to(device)
         return buf, bucket
     held = []
 
@@ -410,7 +434,8 @@ def _stage(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes], device,
 
     _, bucket = pack_inputs(pub, sig, msgs, key_ids=key_ids, zeros=pinned_zeros)
     _crypto_metrics().bytes_transferred.child("h2d").inc(held[0].numel())
-    return held[0].to(device, non_blocking=True), bucket
+    with _jitguard.audited():
+        return held[0].to(device, non_blocking=True), bucket
 
 
 def verify_arrays_keyed_async(entry: PR.KeySetTables, key_ids: np.ndarray,
@@ -426,33 +451,72 @@ def verify_arrays_keyed_async(entry: PR.KeySetTables, key_ids: np.ndarray,
     dev = entry.table.device
     buf, bucket = _stage(pub, sig, msgs, dev, key_ids=key_ids, pipelined=pipelined)
     batch = buf.shape[1]
-    nblocks = nblocks_for_bucket(bucket)
+    _jitguard.note_key("keyed", (batch, bucket, entry.window_bits, MAX_LAUNCH,
+                                 slice_picks(dev, batch, keyed_group)))
     _crypto_metrics().batch_verify_launches.child("keyed").inc()
     with _tracer.span("device_launch", cat="device", kernel="keyed", batch=batch,
                       bucket=bucket, window_bits=entry.window_bits):
-        key_valid = entry.valid_device()
-        b_table = F.const(PR.b_comb8(), dev)
-        outs = []
-        for s in range(0, batch, MAX_LAUNCH):
-            rows = buf[:, s : s + MAX_LAUNCH]
-            outs.append(verify_keyed_fused(
-                rows, keyed_digest(rows, bucket, nblocks), entry.table, key_valid,
-                b_table, bucket, entry.window_bits,
-            ))
-    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+        out = keyed_rows(buf, bucket, entry.table, entry.valid_device(),
+                         F.const(PR.b_comb8(), dev), entry.window_bits)
     return [(_mark_ready(out) if pipelined else out, len(msgs))]
+
+
+def keyed_rows(buf: torch.Tensor, bucket: int, table: torch.Tensor, key_valid: torch.Tensor,
+               b_table: torch.Tensor, window_bits: int) -> torch.Tensor:
+    """Verdicts of packed keyed rows (104+bucket, B) uint8 against
+    ``table``/``key_valid`` on their device: per MAX_LAUNCH-lane slice
+    sha512_keyed then verify_keyed, the slices' verdicts concatenated
+    on the device."""
+    nblocks = nblocks_for_bucket(bucket)
+    outs = []
+    for s in range(0, buf.shape[1], MAX_LAUNCH):
+        rows = buf[:, s : s + MAX_LAUNCH]
+        outs.append(verify_keyed_fused(rows, keyed_digest(rows, bucket, nblocks), table,
+                                       key_valid, b_table, bucket, window_bits))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def verify_generic_rows(buf: torch.Tensor, bucket: int) -> torch.Tensor:
     """Verdicts of packed generic rows (100+bucket, B) uint8 on their
     device: per MAX_LAUNCH-lane slice sha512_keyed then verify_generic,
-    the slices' verdicts concatenated on the device."""
+    the slices' verdicts concatenated on the device.  Notes the
+    ``generic`` seam (ops/jitguard.py), or ``chunked`` over MAX_LAUNCH
+    lanes, with the slices' launch shapes."""
+    batch = buf.shape[1]
+    picks = slice_picks(buf.device, batch, generic_shape)
+    if batch > MAX_LAUNCH:
+        _jitguard.note_key("chunked", (batch, bucket, MAX_LAUNCH, picks))
+    else:
+        _jitguard.note_key("generic", (batch, bucket, picks))
     nblocks = nblocks_for_bucket(bucket)
     outs = []
-    for s in range(0, buf.shape[1], MAX_LAUNCH):
+    for s in range(0, batch, MAX_LAUNCH):
         rows = buf[:, s : s + MAX_LAUNCH]
         outs.append(verify_generic_fused(rows, keyed_digest(rows, bucket, nblocks), bucket))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+@functools.lru_cache(maxsize=None)
+def keyed_group(n: int) -> int:
+    """The group size G verify_keyed's launcher picks for n lanes."""
+    return _build.library("verify_keyed").verify_keyed_group(n)
+
+
+@functools.lru_cache(maxsize=None)
+def generic_shape(n: int) -> tuple[int, int]:
+    """The shape (Q, G) verify_generic's launcher picks for n lanes."""
+    q, g = ctypes.c_int(), ctypes.c_int()
+    _build.library("verify_generic").verify_generic_shape(n, ctypes.byref(q), ctypes.byref(g))
+    return q.value, g.value
+
+
+def slice_picks(device, batch: int, pick) -> tuple:
+    """``pick`` of each MAX_LAUNCH-lane slice's width on a card (the
+    launch shape a seam's key carries); () where the plain versions
+    run."""
+    if torch.device(device).type != "cuda":
+        return ()
+    return tuple(pick(min(MAX_LAUNCH, batch - s)) for s in range(0, batch, MAX_LAUNCH))
 
 
 def verify_arrays_async(pub: np.ndarray, sig: np.ndarray, msgs: list[bytes], device,
@@ -494,6 +558,20 @@ def _finish(parts, pipelined: bool = True) -> np.ndarray:
     copy runs on the compute stream into pageable memory (the
     synchronous entries: nothing is enqueued behind them).  Each part is
     padded; its first n verdicts are kept -> bool[sum n]."""
+    with _jitguard.audited():
+        combined = _fetch(parts, pipelined)
+    if len(parts) == 1:
+        return combined[: parts[0][1]]
+    pieces, off = [], 0
+    for p, k in parts:
+        pieces.append(combined[off : off + k])
+        off += p.shape[0]
+    return np.concatenate(pieces)
+
+
+def _fetch(parts, pipelined: bool) -> np.ndarray:
+    """:func:`_finish`'s copy: the parts' verdicts, concatenated, on the
+    host."""
     first = parts[0][0]
     if first.device.type == "cuda" and not pipelined:
         out = first if len(parts) == 1 else torch.cat([p for p, _ in parts])
@@ -526,13 +604,7 @@ def _finish(parts, pipelined: bool = True) -> np.ndarray:
         combined = host.numpy()
     else:
         combined = (first if len(parts) == 1 else torch.cat([p for p, _ in parts])).numpy()
-    if len(parts) == 1:
-        return combined[: parts[0][1]]
-    pieces, off = [], 0
-    for p, k in parts:
-        pieces.append(combined[off : off + k])
-        off += p.shape[0]
-    return np.concatenate(pieces)
+    return combined
 
 
 def verify_arrays_keyed(entry: PR.KeySetTables, key_ids: np.ndarray,
@@ -607,10 +679,11 @@ def _measure_link_rtt(device) -> float:
     synchronous launch pays."""
     probe = torch.zeros(8, dtype=torch.uint8)
     best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        probe.to(device).cpu()
-        best = min(best, time.perf_counter() - t0)
+    with _jitguard.audited():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            probe.to(device).cpu()
+            best = min(best, time.perf_counter() - t0)
     return best
 
 
@@ -710,6 +783,10 @@ class TorchBatchVerifier(BatchVerifier):
         self._sigs: list[bytes] = []
         self._max_msg = 0
         self.last_tier: str | None = None
+        # devices a launch occupies, for the per-device busy/idle
+        # accounting (crypto/health.py DeviceUsage); the mesh verifier
+        # sets its shard count
+        self._usage_ndev = 1
 
     def add(self, pub_key: PubKey, msg: bytes, sig: bytes) -> None:
         if pub_key.type() != _ed.KEY_TYPE:
@@ -724,9 +801,19 @@ class TorchBatchVerifier(BatchVerifier):
     def __len__(self) -> int:
         return len(self._pubs)
 
+    # -- ladder eligibility (crypto/dispatch.py owns admissibility) ------
+
+    def _keyed_tiers(self) -> list[str]:
+        """The keyed tiers this verifier can run, best first (the mesh
+        verifier puts keyed_mesh first)."""
+        return ["keyed"]
+
+    def _generic_tiers(self) -> list[str]:
+        return ["generic"]
+
     def plan(self) -> _VerifyPlan:
         """Host phase: the ladder's route (table lookup or warm peek for
-        the keyed tier) and the packed pub/sig arrays."""
+        the keyed tiers) and the packed pub/sig arrays."""
         plan = _VerifyPlan()
         plan.t_plan = time.perf_counter()
         n = plan.n = len(self._pubs)
@@ -739,9 +826,10 @@ class TorchBatchVerifier(BatchVerifier):
         msg_fits = self._max_msg <= _BUCKETS[-1]
         entry = None
         reason = "batch_size"
-        # with the keyed tier demoted the lookup is skipped: a dead device
-        # must not stall the plan behind a build no admissible tier uses
-        if device_usable and msg_fits and ladder.active("keyed"):
+        # with every keyed tier demoted the lookup is skipped: a dead
+        # device must not stall the plan behind a build no admissible
+        # tier uses
+        if device_usable and msg_fits and any(ladder.active(t) for t in self._keyed_tiers()):
             try:
                 if n >= self._device_min_batch:
                     entry = self._cache.lookup_or_build(self._pubs)
@@ -761,9 +849,9 @@ class TorchBatchVerifier(BatchVerifier):
                 entry = None
         eligible: list[str] = []
         if entry is not None:
-            eligible.append("keyed")
+            eligible += self._keyed_tiers()
         if device_usable and msg_fits and n >= self._device_min_batch:
-            eligible.append("generic")
+            eligible += self._generic_tiers()
         admissible = ladder.admissible(eligible)
         if not admissible:
             if eligible:
@@ -831,7 +919,7 @@ class TorchBatchVerifier(BatchVerifier):
             if tier in _dispatch.DEVICE_TIERS:
                 cold = tier not in _RAN_TIERS
                 _RAN_TIERS.add(tier)
-                if tier == "keyed":
+                if tier in ("keyed", "keyed_mesh"):
                     cold = cold or not plan.entry.launched
                     plan.entry.launched = True
                 if cold:
@@ -848,43 +936,52 @@ class TorchBatchVerifier(BatchVerifier):
                      note_queue_wait: bool = True) -> list[bool]:
         """One device-tier attempt under the launch watchdog, with chaos
         injected inside its armed window, the queue wait and busy/idle
-        accounting over the launch's wall (to the verdicts' copy), and
-        the overlap ratio from the fetch's wait.  A launch the watchdog
-        declared hung that then raises is a typed fault, marked so the
-        back-off advances once; any other exception propagates as it
-        is."""
+        accounting over the launch's wall (to the verdicts' copy, on each
+        of the tier's devices), and the overlap ratio from the fetch's
+        wait, all inside the guard's sync window (ops/jitguard.py).  A
+        launch the watchdog declared hung that then raises is a typed
+        fault, marked so the back-off advances once; any other exception
+        propagates as it is."""
         usage = _health.USAGE
-        t_launch = time.perf_counter()
-        if note_queue_wait:
-            usage.note_queue_wait(t_launch - plan.t_plan)
-        fetch0 = usage.fetch_wait()
-        wd = _health.WATCHDOG
-        token = wd.arm(tier, batch=plan.n)
-        try:
-            # a launch_hang fault sleeps past the budget while the
-            # watchdog watches, so the overrun fires first
-            _dispatch.CHAOS.inject(tier)
-            out = self._run_tier(tier, plan)
-        except Exception as exc:
-            if not wd.disarm(token):
-                raise
-            # the watchdog already demoted this launch's tier
-            if isinstance(exc, _dispatch.TierFault):
-                exc._ladder_watchdog_fired = True
-                raise
-            fault = _dispatch.TierFault(tier, _dispatch.fault_reason(exc))
-            fault._ladder_watchdog_fired = True
-            raise fault from exc
-        wd.disarm(token)
-        usage.launch_end(t_launch, fetch_wait=usage.fetch_wait() - fetch0)
+        with _jitguard.transfer_window():
+            t_launch = time.perf_counter()
+            if note_queue_wait:
+                usage.note_queue_wait(t_launch - plan.t_plan)
+            fetch0 = usage.fetch_wait()
+            wd = _health.WATCHDOG
+            token = wd.arm(tier, batch=plan.n)
+            try:
+                # a launch_hang fault sleeps past the budget while the
+                # watchdog watches, so the overrun fires first
+                _dispatch.CHAOS.inject(tier)
+                out = self._run_tier(tier, plan)
+            except Exception as exc:
+                if not wd.disarm(token):
+                    raise
+                # the watchdog already demoted this launch's tier
+                if isinstance(exc, _dispatch.TierFault):
+                    exc._ladder_watchdog_fired = True
+                    raise
+                fault = _dispatch.TierFault(tier, _dispatch.fault_reason(exc))
+                fault._ladder_watchdog_fired = True
+                raise fault from exc
+            wd.disarm(token)
+            usage.launch_end(t_launch, ndev=self._tier_ndev(tier),
+                             fetch_wait=usage.fetch_wait() - fetch0)
         return out.tolist()
 
     def _run_tier(self, tier: str, plan: _VerifyPlan) -> np.ndarray:
+        """tier -> its runner (the mesh verifier adds the mesh tiers)."""
         if tier == "keyed":
             return verify_arrays_keyed(plan.entry, plan.key_ids, plan.pub, plan.sig, plan.msgs)
         if tier == "generic":
             return verify_arrays(plan.pub, plan.sig, plan.msgs, self.device)
         raise _dispatch.TierUnavailable(tier, "no runner on this seam")
+
+    def _tier_ndev(self, tier: str) -> int:
+        """Devices one launch of ``tier`` occupies (busy/idle
+        accounting)."""
+        return self._usage_ndev if tier in _dispatch.MESH_TIERS else 1
 
     def _run_host(self, plan: _VerifyPlan) -> tuple[bool, list[bool]]:
         """The host tier: one native RLC check, per-signature on failure."""
@@ -898,3 +995,48 @@ class TorchBatchVerifier(BatchVerifier):
         results = [_ed.Ed25519PubKey(p).verify_signature(m, s)
                    for p, m, s in zip(plan.pubs, plan.msgs, plan.sigs)]
         return all(results), results
+
+
+#: shape/dtype contracts (grammar: ops/contracts.py).  The packed rows
+#: are the reference's (pub | sig | msg | msglen_le, + key_id_le on the
+#: keyed tier); the verify kernels take the digest and the comb of B as
+#: arguments, and the plain versions also return the limbs of [8]q.
+_CONTRACTS = {
+    "build_padded_input": {
+        "args": {
+            "r_enc": ("u8", (32, "B")),
+            "a_enc": ("u8", (32, "B")),
+            "msg": ("u8", ("M", "B")),
+            "msglen": ("i32", ("B",)),
+        },
+        "static": ("nblocks",),
+        "out": [("u8", ("nblocks*128", "B")), ("i64", ("B",))],
+    },
+    "keyed_digest": {
+        "on": "cpu",
+        "args": {"buf": ("u8", ("104+bucket", "B"))},
+        "static": ("bucket", "nblocks"),
+        "out": ("u8", (64, "B")),
+    },
+    "verify_keyed_fused": {
+        "on": "cpu",
+        "args": {
+            "buf": ("u8", ("104+bucket", "B")),
+            "digest": ("u8", (64, "B")),
+            "table": ("i32", ("nwin", 4, "NLIMBS", "cap*nent")),
+            "key_valid": ("bool", ("cap",)),
+            "b_table": ("i32", (32, 3, "NLIMBS", 256)),
+        },
+        "static": ("bucket", "window_bits"),
+        "out": ("bool", ("B",)),
+    },
+    "verify_generic_fused": {
+        "on": "cpu",
+        "args": {
+            "buf": ("u8", ("100+bucket", "B")),
+            "digest": ("u8", (64, "B")),
+        },
+        "static": ("bucket",),
+        "out": ("bool", ("B",)),
+    },
+}

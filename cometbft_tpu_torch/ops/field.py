@@ -27,6 +27,7 @@ import torch
 
 from cometbft_tpu_torch.crypto.edwards import P
 from cometbft_tpu_torch.ops import _build
+from cometbft_tpu_torch.ops import jitguard as _jitguard
 from cometbft_tpu_torch.utils.env import flag_from_env
 
 NLIMBS = 26
@@ -84,7 +85,8 @@ def const(c: np.ndarray, device) -> torch.Tensor:
     key = (id(c), str(device))
     hit = _const_cache.get(key)
     if hit is None:
-        hit = (c, torch.as_tensor(c).to(device))
+        with _jitguard.audited():
+            hit = (c, torch.as_tensor(c).to(device))
         _const_cache[key] = hit
     return hit[1]
 
@@ -413,3 +415,48 @@ def invert(z):
     t1 = mul(t2, t1)                    # z^(2^250-1)
     t1 = _pow2k(t1, 5)                  # z^(2^255-32)
     return mul(t1, t0)                  # z^(2^255-21) = z^(p-2)
+
+
+#: shape/dtype contracts (grammar: ops/contracts.py): the reference's
+#: specs, limbs first
+_CONTRACTS = {
+    "from_bytes_le": {
+        "args": {"b": ("u8", (32, "B"))},
+        "static": (),
+        "out": ("i32", ("NLIMBS", "B")),
+    },
+    "to_bytes_le": {
+        "args": {"a": ("i32", ("NLIMBS", "B"))},
+        "static": (),
+        "out": ("u8", (32, "B")),
+    },
+    "reduce_full": {
+        "args": {"a": ("i32", ("NLIMBS", "B"))},
+        "static": (),
+        "out": ("i32", ("NLIMBS", "B")),
+    },
+    "mul": {
+        "on": "cpu",
+        "args": {"a": ("i32", ("NLIMBS", "B")), "b": ("i32", ("NLIMBS", "B"))},
+        "static": (),
+        "out": ("i32", ("NLIMBS", "B")),
+    },
+    "square": {
+        "on": "cpu",
+        "args": {"a": ("i32", ("NLIMBS", "B"))},
+        "static": (),
+        "out": ("i32", ("NLIMBS", "B")),
+    },
+    "fe_mul": {
+        "on": "cpu",
+        "args": {"a": ("i32", ("NLIMBS", "B")), "b": ("i32", ("NLIMBS", "B"))},
+        "static": (),
+        "out": ("i32", ("NLIMBS", "B")),
+    },
+    "fe_sq": {
+        "on": "cpu",
+        "args": {"a": ("i32", ("NLIMBS", "B"))},
+        "static": (),
+        "out": ("i32", ("NLIMBS", "B")),
+    },
+}

@@ -1,6 +1,5 @@
 """Device-resident per-validator comb tables for the keyed verify path
-(the port of cometbft_tpu/ops/precompute.py, without the mesh
-placements).
+(the port of cometbft_tpu/ops/precompute.py).
 
 Two table families:
 
@@ -31,14 +30,20 @@ tensor was made (no entry can map a key to it); a slot freed by
 eviction is written by copy-on-write, a new pool tensor.  Growth and
 compaction make new tensors too.  An entry held by a caller keeps its
 tensor alive, as a JAX array would.
+
+A mesh verify (parallel/mesh.py) reads an entry's tables sharded over
+its devices: ``KeySetTables.sharded_tables`` places them once per
+(entry, mesh), and the budget counts those placements beside the pools.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import hashlib
 import threading
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -48,6 +53,7 @@ from cometbft_tpu_torch.metrics import crypto_metrics as _crypto_metrics
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import curve as C
 from cometbft_tpu_torch.ops import field as F
+from cometbft_tpu_torch.ops import jitguard as _jitguard
 
 #: largest set that gets 8-bit per-key combs (3.25 MiB/key on device)
 KEY8_MAX = 256
@@ -227,6 +233,24 @@ def build_tables_kernel(pub: torch.Tensor, window_bits: int, shapes=((0, 0), (0,
     return table, valid
 
 
+def build_shapes(n: int, window_bits: int, device) -> tuple:
+    """The (Q, G) shapes of the build's two launches for ``n`` keys on
+    ``device`` (a lane per key, then a lane per (key, window)): the
+    launcher's picks on a card, ((0, 0), (0, 0)) where the plain version
+    runs."""
+    if torch.device(device).type != "cuda":
+        return ((0, 0), (0, 0))
+    return _build_shape_pick(n, 1), _build_shape_pick(n * (256 // window_bits), 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _build_shape_pick(lanes: int, launch: int) -> tuple[int, int]:
+    q, g = ctypes.c_int(), ctypes.c_int()
+    _build.library("build_tables").build_tables_shape(lanes, launch, ctypes.byref(q),
+                                                      ctypes.byref(g))
+    return q.value, g.value
+
+
 def comb_mul_keyed(table: torch.Tensor, key_ids: torch.Tensor,
                    windows: torch.Tensor, window_bits: int):
     """Per-key comb: table from build_tables_kernel, key_ids (*batch,),
@@ -264,6 +288,12 @@ class KeySetTables:
     #: a verify has run on this entry (its first one also waits for the
     #: pool copies the lookup queued)
     launched: bool = False
+    #: mesh placements of this entry's tables: key -> (value, device
+    #: bytes).  Extra device copies beyond the pool tensor, so the
+    #: cache's budget counts them (``placement_bytes``).  Guarded by
+    #: ``_mtx``, which is always taken last (never around a cache call).
+    placements: dict = field(default_factory=dict)
+    _mtx: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def key_ids(self, pubs: list[bytes]) -> np.ndarray:
         return np.fromiter(
@@ -273,8 +303,68 @@ class KeySetTables:
     def valid_device(self) -> torch.Tensor:
         """The validity mask on the table's device, copied once."""
         if self._valid_dev is None:
-            self._valid_dev = torch.as_tensor(self.valid).to(self.table.device)
+            with _jitguard.audited():
+                self._valid_dev = torch.as_tensor(self.valid).to(self.table.device)
         return self._valid_dev
+
+    def placement_bytes(self) -> int:
+        """Device bytes held by this entry's mesh placements."""
+        with self._mtx:
+            return sum(n for _, n in self.placements.values())
+
+    def sharded_tables(self, mesh):
+        """This set's tables sharded over ``mesh``'s devices (any object
+        with a ``flat`` tuple of devices, one shard each), placed once
+        per (entry, mesh) -> (per-shard tables, per-shard validity
+        masks, per_cap).
+
+        Ownership is strided: shard ``d`` owns slots ``d, d + ndev, ...``
+        (live slots cluster at one end of the pool, so contiguous blocks
+        would leave some shards without keys).  One gather puts the
+        pages in per-shard contiguous order: shard ``d``'s block holds
+        its slots at local positions ``slot // ndev``, each shard's
+        table is (nwin, 4, 26, per_cap * nent) and its mask (per_cap,).
+        When every shard's device is the pool's, the blocks stay views
+        of the permuted table (rows strided by the whole width, which
+        the keyed kernel takes); otherwise each block is copied to its
+        device.  The placement's bytes are the permuted table and mask.
+
+        The pool-sized work runs outside ``_mtx``; only the dict's swap
+        is locked.  Two threads racing a cold placement may both build
+        it; the loser's copy is dropped."""
+        key = ("sharded", mesh)
+        with self._mtx:
+            placed = self.placements.get(key)
+        if placed is None:
+            devices = tuple(torch.device(d) for d in mesh.flat)
+            ndev = len(devices)
+            nent = 1 << self.window_bits
+            cap = len(self.valid)
+            per_cap = -(-cap // ndev)
+            shard_cap = per_cap * ndev
+            # position d * per_cap + j <- slot j * ndev + d
+            slot_perm = np.arange(shard_cap).reshape(per_cap, ndev).T.ravel()
+            pad = slot_perm >= cap
+            idx = (np.where(pad, 0, slot_perm)[:, None] * nent + np.arange(nent)).ravel()
+            valid = np.concatenate([self.valid, np.zeros(shard_cap - cap, dtype=bool)])[slot_perm]
+            with _jitguard.audited():
+                table = self.table.index_select(3, torch.as_tensor(idx).to(self.table.device))
+                if pad.any():
+                    cols = (np.flatnonzero(pad)[:, None] * nent + np.arange(nent)).ravel()
+                    table[..., torch.as_tensor(cols).to(self.table.device)] = 0
+                local = all(d == self.table.device for d in devices)
+                width = per_cap * nent
+                tables, valids = [], []
+                for d, dev in enumerate(devices):
+                    block = table[..., d * width:(d + 1) * width]
+                    tables.append(block if local else block.to(dev, copy=True))
+                    valids.append(torch.as_tensor(valid[d * per_cap:(d + 1) * per_cap]).to(dev))
+            del table, block
+            nbytes = shard_cap * nent * (256 // self.window_bits) * 4 * F.NLIMBS * 4 + shard_cap
+            built = ((tuple(tables), tuple(valids), per_cap), nbytes)
+            with self._mtx:
+                placed = self.placements.setdefault(key, built)
+        return placed[0]
 
 
 def _pool_cap(nkeys: int) -> int:
@@ -359,7 +449,8 @@ class _KeyPool:
         slots = [self.free.pop() for _ in keys]
         idx = (np.array(slots, dtype=np.int64)[:, None] * self.nent
                + np.arange(self.nent)).ravel()
-        idx = torch.as_tensor(idx).to(self.device)
+        with _jitguard.audited():
+            idx = torch.as_tensor(idx).to(self.device)
         if self.held.isdisjoint(slots):
             self.table.index_copy_(3, idx, pages)
         else:
@@ -384,8 +475,9 @@ class _KeyPool:
         if order:
             gather = (np.array([s for _, s in order], dtype=np.int64)[:, None] * self.nent
                       + np.arange(self.nent)).ravel()
-            table[..., : len(gather)] = self.table.index_select(
-                3, torch.as_tensor(gather).to(self.device))
+            with _jitguard.audited():
+                gather = torch.as_tensor(gather).to(self.device)
+            table[..., : gather.numel()] = self.table.index_select(3, gather)
         valid = np.zeros(new_cap, dtype=bool)
         slots: OrderedDict[bytes, int] = OrderedDict()
         for i, (p, s) in enumerate(order):
@@ -519,29 +611,47 @@ class KeyTableCache:
     def _build_pages(self, missing: list[bytes], window_bits: int):
         """Comb pages (nwin, 4, 26, len(missing)*nent) and validity for
         ``missing`` keys, built on the cache's device into a tensor of
-        their own (the pool is not touched).  Runs outside the lock."""
+        their own (the pool is not touched).  Runs outside the lock.
+        The ``table_build`` seam (ops/jitguard.py) notes each new (keys,
+        window bits, launch shapes)."""
+        n = len(missing)
+        _jitguard.note_key("table_build",
+                           (n, window_bits, build_shapes(n, window_bits, self.device)))
         pub = np.stack([np.frombuffer(p, dtype=np.uint8) for p in missing], axis=-1)
-        table, valid = build_tables_kernel(torch.from_numpy(pub).to(self.device), window_bits)
-        return table, valid.cpu().numpy()
+        with _jitguard.audited():
+            table, valid = build_tables_kernel(torch.from_numpy(pub).to(self.device), window_bits)
+            return table, valid.cpu().numpy()
 
     def _sweep_stale_entries(self) -> None:
-        """Drop memoized entries whose pool version moved on.  Lock
-        held."""
+        """Drop memoized entries whose pool version moved on, and with
+        them the mesh placements they hold.  Lock held."""
         for k in [k for k, (v, e) in self._entries.items()
                   if v != self._pools[e.window_bits].version]:
             del self._entries[k]
+
+    def placement_bytes(self) -> int:
+        """Device bytes of the live memoized entries' mesh placements,
+        beyond the pool tensors.  Lock held."""
+        return sum(e.placement_bytes() for _, e in self._entries.values())
 
     def _evict_over_budget(self, keep: set[bytes]) -> None:
         """Drop LRU keys (never ones in ``keep``, the active set) until
         compaction brings the pools under budget, then compact.  Lock
         held.  Minimal: eviction stops as soon as the compacted
-        footprint fits.  A set larger than the budget stays resident."""
+        footprint fits.  A set larger than the budget stays resident.
+
+        The trigger counts the pools plus the live entries' mesh
+        placements; the stop condition only the compacted pools: the
+        compaction stales every memoized entry, and the sweep after it
+        releases their placements, which no key eviction could shrink."""
 
         def compacted_bytes(p: _KeyPool) -> int:
             return min(p.cap, _pool_cap(len(p.slots))) * p.key_bytes
 
+        # placements of entries already stale are garbage: dropping them
+        # often brings the cache under budget with no eviction
         self._sweep_stale_entries()
-        if sum(p.nbytes() for p in self._pools.values()) <= self._cap:
+        if sum(p.nbytes() for p in self._pools.values()) + self.placement_bytes() <= self._cap:
             return
         changed = False
         for pool in self._pools.values():
@@ -614,3 +724,48 @@ def tables_from_jax(table: np.ndarray, valid: np.ndarray,
         nbytes=table.nbytes,
         set_nbytes=len(unique) * (table.nbytes // max(len(valid), 1)),
     )
+
+
+#: shape/dtype contracts (grammar: ops/contracts.py): the reference's
+#: specs, with the comb of B an argument of comb_mul_base8 (the port's
+#: layout, entry index minor)
+_CONTRACTS = {
+    "build_tables_kernel": {
+        "on": "cpu",
+        "args": {"pub": ("u8", (32, "B"))},
+        "static": ("window_bits",),
+        "out": [
+            ("i32", ("nwin", 4, "NLIMBS", "B*nent")),
+            ("bool", ("B",)),
+        ],
+    },
+    "comb_mul_base8": {
+        "on": "cpu",
+        "args": {
+            "s_bytes": ("u8", (32, "B")),
+            "table": ("i32", (32, 3, "NLIMBS", 256)),
+        },
+        "static": (),
+        "out": [
+            ("i32", ("NLIMBS", "B")),
+            ("i32", ("NLIMBS", "B")),
+            ("i32", ("NLIMBS", "B")),
+            ("i32", ("NLIMBS", "B")),
+        ],
+    },
+    "comb_mul_keyed": {
+        "on": "cpu",
+        "args": {
+            "table": ("i32", ("nwin", 4, "NLIMBS", "cap*nent")),
+            "key_ids": ("i32", ("B",)),
+            "windows": ("i32", ("nwin", "B")),
+        },
+        "static": ("window_bits",),
+        "out": [
+            ("i32", ("NLIMBS", "B")),
+            ("i32", ("NLIMBS", "B")),
+            ("i32", ("NLIMBS", "B")),
+            ("i32", ("NLIMBS", "B")),
+        ],
+    },
+}

@@ -135,3 +135,29 @@ def limbs_to_nibbles(limbs16: torch.Tensor) -> torch.Tensor:
     windows (int32)."""
     nib = torch.stack([(limbs16 >> s) & 0xF for s in (0, 4, 8, 12)], dim=1)
     return nib.reshape(64, *limbs16.shape[1:]).to(torch.int32)
+
+
+#: shape/dtype contracts (grammar: ops/contracts.py): the reference's
+#: specs
+_CONTRACTS = {
+    "reduce_digest": {
+        "args": {"digest_le": ("u8", (64, "B"))},
+        "static": (),
+        "out": ("i64", (16, "B")),
+    },
+    "bytes_lt_l": {
+        "args": {"s_bytes": ("u8", (32, "B"))},
+        "static": (),
+        "out": ("bool", ("B",)),
+    },
+    "limbs_to_windows8": {
+        "args": {"limbs16": ("i64", (16, "B"))},
+        "static": (),
+        "out": ("i32", (32, "B")),
+    },
+    "limbs_to_nibbles": {
+        "args": {"limbs16": ("i64", (16, "B"))},
+        "static": (),
+        "out": ("i32", (64, "B")),
+    },
+}

@@ -179,3 +179,29 @@ def pad_message(msg_bytes: bytes) -> tuple[np.ndarray, int]:
     for j in range(16):
         buf[-1 - j] = (bitlen >> (8 * j)) & 0xFF
     return buf, nblocks
+
+
+#: shape/dtype contracts (grammar: ops/contracts.py).  The port's
+#: message words are int64 (the reference's uint64): torch's uint64
+#: lacks the shifts the rounds use.
+_CONTRACTS = {
+    "sha512_padded": {
+        "on": "cpu",
+        "args": {
+            "buf": ("u8", ("nblocks*128", "B")),
+            "nblocks_lane": ("i64", ("B",)),
+        },
+        "static": ("nblocks",),
+        "out": ("u8", (64, "B")),
+    },
+    "bytes_to_words": {
+        "args": {"buf": ("u8", ("nblocks*128", "B"))},
+        "static": (),
+        "out": ("i64", ("nblocks*16", "B")),
+    },
+    "words_to_bytes": {
+        "args": {"words": ("i64", (8, "B"))},
+        "static": (),
+        "out": ("u8", (64, "B")),
+    },
+}

@@ -212,10 +212,11 @@ def test_chaos_scope_and_one_shot():
     assert not D.CHAOS.enabled()
     assert D.fault_reason(ValueError()) == "launch:ValueError"
     assert D.fault_reason(D.TierUnavailable("x", "")) == "TierUnavailable"
-    # the reference's mesh kind: the port has no mesh tier to fault
-    jdispatch.ChaosPlan.parse("shard_loss@0-1")
-    with pytest.raises(ValueError, match="shard_loss"):
-        D.ChaosPlan.parse("shard_loss@0-1")
+    # the reference's mesh kind faults the mesh tiers and nothing else
+    port = D.ChaosPlan.parse("shard_loss@0-1")
+    assert port.windows == jdispatch.ChaosPlan.parse("shard_loss@0-1").windows
+    assert [t for t in D.TIER_ORDER if port.fault_at(t, 0.5, set())] == [
+        "keyed_mesh", "generic_mesh"]
 
 
 @pytest.mark.parametrize("rtt", [1e-6, 2e-5, 6.4e-4, 6.5e-4, 3e-3, 1.0])

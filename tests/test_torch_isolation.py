@@ -44,7 +44,7 @@ _CHILD = textwrap.dedent(
     assert host.verify() == (False, expected) and host.last_tier == "host"
     for name in ("crypto.dispatch", "crypto.health", "crypto.ed25519_native", "metrics",
                  "utils.flight", "utils.metrics", "utils.service", "utils.trace",
-                 "crypto.verify_queue"):
+                 "crypto.verify_queue", "parallel.mesh", "ops.jitguard", "ops.contracts"):
         assert "cometbft_tpu_torch." + name in sys.modules, name
     leaked = sorted(m for m in sys.modules
                     if m == "cometbft_tpu" or m.startswith("cometbft_tpu."))

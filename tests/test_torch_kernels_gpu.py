@@ -435,3 +435,97 @@ def test_verify_commit_on_the_card(dev, monkeypatch):
     finally:
         q.stop()
     assert VQ._QUEUE is None
+
+
+def test_mesh_on_repeated_shards_equals_keyed(dev, monkeypatch):
+    """The keyed and generic mesh on four shards of cuda:0 give the
+    single-device tiers' verdicts, planted invalids included; each shard
+    with lanes launches sha512_keyed and its verify once."""
+    from cometbft_tpu_torch.crypto import dispatch as D
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.parallel import mesh as MM
+
+    D.reset_for_tests()
+    monkeypatch.setattr(PR, "_caches", {})
+    mesh = MM.flat_mesh(["cuda:0"] * 4)
+    privs = [ed.priv_key_from_secret(b"gpu-mesh-%d" % i) for i in range(40)]
+    triples = []
+    for i in range(150):
+        p, m = privs[i % 40], b"gpu mesh vote %d" % i
+        s = p.sign(m)
+        if i % 17 == 3:
+            s = s[:40] + bytes([s[40] ^ 1]) + s[41:]
+        triples.append((p, m, s))
+
+    def verify(bv):
+        for p, m, s in triples:
+            bv.add(p.pub_key(), m, s)
+        return bv.verify()[1]
+
+    single = EV.TorchBatchVerifier(device=dev)
+    want = verify(single)
+    assert single.last_tier == "keyed" and want.count(False) == 9
+    for limit, tier in ((PR.TABLE_MAX_KEYS, "keyed_mesh"), (0, "generic_mesh")):
+        monkeypatch.setattr(PR, "TABLE_MAX_KEYS", limit)
+        bv = MM.ShardedTorchBatchVerifier(mesh=mesh)
+        _build.reset_launches()
+        assert verify(bv) == want and bv.last_tier == tier
+        kernel = "verify_keyed" if tier == "keyed_mesh" else "verify_generic"
+        shards = sum(1 for s in bv.last_shards if s["lanes"])
+        assert _build.LAUNCHES["sha512_keyed"] == _build.LAUNCHES[kernel] == shards
+    D.reset_for_tests()
+
+
+def test_sharded_verify_fn_on_repeated_shards(dev):
+    """sharded_verify_fn over a (2, 2) mesh of cuda:0 shards: the
+    planted invalid lanes, and only they, come back false; each block
+    launches sha512_keyed and verify_generic once."""
+    from cometbft_tpu_torch.models.commit import example_inputs
+    from cometbft_tpu_torch.parallel import mesh as MM
+
+    mesh = MM.make_mesh(["cuda:0"] * 4, shape=(2, 2))
+    ii, jj = np.meshgrid(np.arange(4), np.arange(8), indexing="ij")
+    invalid = (ii + 2 * jj) % 3 == 0
+    pub, sig, msg, msglen = example_inputs(shape=(4, 8), msglen=90, invalid=invalid)
+    _build.reset_launches()
+    out = MM.sharded_verify_fn(mesh, nblocks=2)(pub, sig, msg, msglen)
+    assert _build.LAUNCHES["sha512_keyed"] == _build.LAUNCHES["verify_generic"] == 4
+    assert np.array_equal(out.numpy(), ~invalid)
+    assert MM.all_valid(out) is False
+
+
+def test_transfer_window_trips_on_a_planted_sync(dev, monkeypatch):
+    """Armed and sealed, the window turns an implicit sync (``.item()``)
+    into an error and counts one transfer trip; a verify's own copies
+    are audited and pass; the mode is off again after the window."""
+    from cometbft_tpu_torch import metrics as M
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.ops import jitguard
+    from cometbft_tpu_torch.utils.metrics import Registry
+
+    cm = M.CryptoMetrics(Registry())
+    M.install_crypto_metrics(cm)
+    priv = ed.priv_key_from_secret(b"gpu-guard")
+
+    def verify():
+        bv = EV.TorchBatchVerifier(device=dev)
+        for i in range(80):
+            bv.add(priv.pub_key(), b"guard %d" % i, priv.sign(b"guard %d" % i))
+        return bv.verify()
+
+    jitguard.enable()
+    jitguard.reset()
+    try:
+        assert verify()[0]
+        jitguard.seal()
+        with pytest.raises(RuntimeError, match="synchronizing"):
+            with jitguard.transfer_window():
+                assert verify()[0]
+                torch.ones(1, device=dev).sum().item()
+        assert cm.guard_trips.labels(kind="transfer").get() == 1.0
+        assert torch.cuda.get_sync_debug_mode() == 0
+        assert torch.ones(1, device=dev).sum().item() == 1.0
+    finally:
+        jitguard.reset()
+        jitguard.enable(False)
+        M.install_crypto_metrics(None)
