@@ -158,7 +158,21 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    inside ``transfer_window`` with no new launch signature and no
    build; a planted ``.item()`` raises and counts one transfer trip, a
    planted new signature raises ``RetraceError``; then ``reset()``;
-15. a ``kernels`` JSON line, then the last line
+15. persistence and the light client (``light_sync_phase``, cell
+   light-sync1024: BASELINE config 3 at 150 validators, its depth cut
+   to 1024 heights): a chain whose set loses an original validator to a
+   newcomer at every 8th height, written block by block through
+   ``BlockStore.save_block`` and ``state.Store.save`` into sqlite
+   files, closed and opened again; then ``light.client.Client`` over
+   ``NodeProvider``s of those stores on a fresh KeyTableCache: the
+   skipping sync 1 -> 1024 (the direct skip refused, 1 -> 512 -> 1024;
+   cold once, then warm on fresh LightStores), a sequential sync to 64,
+   a backwards check from a root at 1024 (no launch), a flipped
+   signature in a third store (refused by the keyed tier's verdict), an
+   expired root, a missing height, and a forked witness
+   (``ErrLightClientAttack``, one LightClientAttackEvidence to each
+   provider); every check on the keyed or host tier;
+16. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --warm150 [TREE]
@@ -1991,13 +2005,34 @@ class FastSigner:
         self.r_pt = E.pt_mul(self.r, E.B_POINT)
 
     def sign(self, a: int, pub: bytes, msg: bytes) -> bytes:
-        E = self.E
-        r_enc = E.encode_point(self.r_pt)
-        k = int.from_bytes(hashlib.sha512(r_enc + pub + msg).digest(), "little") % E.L
-        sig = r_enc + ((self.r + k * a) % E.L).to_bytes(32, "little")
-        self.r += 1
-        self.r_pt = E.pt_add(self.r_pt, E.B_POINT)
-        return sig
+        return self.sign_all([(a, pub, msg)])[0]
+
+    def sign_all(self, jobs) -> list[bytes]:
+        """The signatures of ``jobs`` ((scalar, public key, message) each)
+        with the next nonces in turn, one field inversion for all their R
+        encodings (Montgomery's trick)."""
+        E, P = self.E, self.E.P
+        pts, pt = [], self.r_pt
+        for _ in jobs:
+            pts.append(pt)
+            pt = E.pt_add(pt, E.B_POINT)
+        prefix, acc = [], 1
+        for q in pts:
+            prefix.append(acc)
+            acc = acc * q[2] % P
+        inv, zinv = pow(acc, P - 2, P), [0] * len(pts)
+        for i in range(len(pts) - 1, -1, -1):
+            zinv[i] = prefix[i] * inv % P
+            inv = inv * pts[i][2] % P
+        sigs, r = [], self.r
+        for (a, pub, msg), q, zi in zip(jobs, pts, zinv):
+            x, y = q[0] * zi % P, q[1] * zi % P
+            r_enc = (y | ((x & 1) << 255)).to_bytes(32, "little")
+            k = int.from_bytes(hashlib.sha512(r_enc + pub + msg).digest(), "little") % E.L
+            sigs.append(r_enc + ((r + k * a) % E.L).to_bytes(32, "little"))
+            r += 1
+        self.r, self.r_pt = r, pt
+        return sigs
 
 
 def seeded_keys(tag: bytes, n: int, pubs=None) -> list:
@@ -2674,14 +2709,15 @@ def precommits(signer: FastSigner, vals, by_addr, bid, height: int, t_ns: int, r
 
     from cometbft_tpu_torch.types import PRECOMMIT_TYPE, Vote
 
-    votes = []
+    votes, jobs = [], []
     for idx, v in enumerate(vals.validators):
         a, pub = by_addr[v.address]
         vote = Vote(type=PRECOMMIT_TYPE, height=height, round=0, block_id=bid,
                     timestamp_ns=t_ns + int(rs.randint(0, 10**9)),
                     validator_address=v.address, validator_index=idx)
-        votes.append(replace(vote, signature=signer.sign(a, pub, vote.sign_bytes(CHAIN_ID))))
-    return votes
+        votes.append(vote)
+        jobs.append((a, pub, vote.sign_bytes(CHAIN_ID)))
+    return [replace(v, signature=sig) for v, sig in zip(votes, signer.sign_all(jobs))]
 
 
 def commit_of(votes, bid, height: int):
@@ -3452,6 +3488,477 @@ def guard_phase(dev, commit150, exp150, mesh_devs, smi: str) -> dict:
                 base_p50_ms={t: 1e3 * pct(v, 50) for t, v in base.items()}, launches=launches)
 
 
+# -- phase 15: persistence and the light client -------------------------
+
+#: light-sync1024: BASELINE config 3 (light/verifier.go skipping sync, 10k
+#: headers of 150-validator commits) at its full width, its depth cut to
+#: SYNC_HEIGHTS; one original validator leaves and a newcomer joins at
+#: every ROTATE_EVERY-th height
+SYNC_HEIGHTS = 1024
+SYNC_VALIDATORS = 150
+ROTATE_EVERY = 8
+SYNC_TXS = 4
+SYNC_WARM_RUNS = 5
+
+
+def open_stores(dirname: str):
+    """(BlockStore, state.Store) over ``open_db(..., "sqlite", dirname)``."""
+    from cometbft_tpu_torch.state import Store
+    from cometbft_tpu_torch.store import BlockStore
+    from cometbft_tpu_torch.utils.db import open_db
+
+    bdb, sdb = open_db("blockstore", "sqlite", dirname), open_db("state", "sqlite", dirname)
+    return BlockStore(bdb), Store(sdb), (bdb, sdb)
+
+
+def sync_block(state, height: int, txs, last_commit, signer, by_addr, rs, app_hash=None):
+    """The block ``state`` proposes at ``height`` (State.make_block, its
+    hashes filled), its part set and BlockID, and the commit of
+    ``state.validators`` over that BlockID (canonical precommits with
+    per-vote timestamps)."""
+    from dataclasses import replace
+
+    from cometbft_tpu_torch.types import BlockID
+    from cometbft_tpu_torch.types.part_set import BLOCK_PART_SIZE_BYTES
+
+    t_ns = HEADER_T0 + height * BLOCK_NS
+    block = state.make_block(height, txs, last_commit, (),
+                             state.validators.get_proposer().address, t_ns)
+    if app_hash is not None:
+        block = replace(block, header=replace(block.header, app_hash=app_hash)).with_hashes()
+    parts = block.make_part_set(BLOCK_PART_SIZE_BYTES)
+    bid = BlockID(hash=block.hash(), part_set_header=parts.header)
+    votes = precommits(signer, state.validators, by_addr, bid, height, t_ns + BLOCK_NS // 2, rs)
+    return block, parts, bid, commit_of(votes, bid, height)
+
+
+def store_chain(dirname: str, keys, newcomers, heights: int, every: int, rs, signer) -> dict:
+    """Writes a chain of ``heights`` blocks into a block store and a state
+    store over sqlite in ``dirname``, as a node writes them: each block
+    (SYNC_TXS txs, the previous height's commit, its hashes) through
+    ``BlockStore.save_block`` with its seen commit, and after it the next
+    ``State`` (validators forward one height; at every ``every``-th
+    height's set one original validator leaves and a newcomer joins,
+    update_with_change_set then one proposer step) through
+    ``state.Store.save``.  -> the sets by height, the rotated heights,
+    what each height's block needs to be forked (state, last commit),
+    and the save times."""
+    from dataclasses import replace
+
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.state import State
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    block_store, state_store, dbs = open_stores(dirname)
+    gen = GenesisDoc(chain_id=CHAIN_ID, genesis_time_ns=HEADER_T0, validators=tuple(
+        GenesisValidator(ed.Ed25519PubKey(pub), 10) for _, pub in keys))
+    state = State.from_genesis(gen)
+    state_store.save(state)
+    by_addr = {ed.Ed25519PubKey(pub).address(): (a, pub) for a, pub in keys}
+    originals = set(by_addr)
+    sets, rotated, saves = {1: state.validators, 2: state.next_validators}, [], []
+    last_commit, top = None, {}
+    for h in range(1, heights + 1):
+        txs = tuple(b"tx-%d-%d|" % (h, i) + rs.bytes(64) for i in range(SYNC_TXS))
+        block, parts, bid, commit = sync_block(state, h, txs, last_commit, signer, by_addr, rs)
+        if h == heights:
+            top = dict(state=state, last_commit=last_commit, txs=txs)
+        t0 = time.perf_counter()
+        block_store.save_block(block, parts, commit)
+        saves.append(time.perf_counter() - t0)
+        nxt, changed = state.next_validators.copy(), state.last_height_validators_changed
+        if (h + 2) % every == 1:
+            left = sorted(v.address for v in nxt.validators if v.address in originals)
+            out_v = nxt.get_by_address(left[(7 * h) % len(left)])[1]
+            a, pub = newcomers.pop(0)
+            by_addr[ed.Ed25519PubKey(pub).address()] = (a, pub)
+            nxt = nxt.update_with_change_set([(out_v.pub_key, 0),
+                                              (ed.Ed25519PubKey(pub), 10)])
+            changed = h + 2
+            if h + 2 <= heights:
+                rotated.append(h + 2)
+        state = replace(
+            state, last_block_height=h, last_block_id=bid, last_block_time_ns=block.header.time_ns,
+            validators=state.next_validators.copy(),
+            next_validators=nxt.increment_proposer_priority(1),
+            last_validators=state.validators.copy(), last_height_validators_changed=changed,
+            app_hash=hashlib.sha256(b"app-%d" % h).digest())
+        sets[h + 2] = state.next_validators
+        state_store.save(state)
+        last_commit = commit
+    for db in dbs:
+        db.close()
+    return dict(sets=sets, rotated=rotated, originals=originals, by_addr=by_addr, top=top,
+                saves=saves)
+
+
+def db_mib(dirname: str) -> float:
+    return sum(os.path.getsize(os.path.join(dirname, f)) for f in os.listdir(dirname)) / 2**20
+
+
+def copy_stores(src: str, dst: str) -> None:
+    """A copy of the closed sqlite files of ``src`` in ``dst``."""
+    import shutil
+
+    os.makedirs(dst)
+    for f in os.listdir(src):
+        shutil.copy2(os.path.join(src, f), os.path.join(dst, f))
+
+
+class HopLog:
+    """Wraps light.client's ``_verify`` and ``verify_adjacent`` while
+    installed: each check's (trusted height, new height, outcome, ms)."""
+
+    def __init__(self) -> None:
+        from cometbft_tpu_torch.light import client as LC
+
+        self.LC, self.hops = LC, []
+
+    def _wrap(self, fn):
+        def run(trusted, untrusted, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                fn(trusted, untrusted, *args, **kwargs)
+            except Exception as exc:
+                self.hops.append((trusted.height, untrusted.height, type(exc).__name__,
+                                  1e3 * (time.perf_counter() - t0)))
+                raise
+            self.hops.append((trusted.height, untrusted.height, "ok",
+                              1e3 * (time.perf_counter() - t0)))
+        return run
+
+    def __enter__(self) -> "HopLog":
+        self.saved = self.LC._verify, self.LC.verify_adjacent
+        self.LC._verify, self.LC.verify_adjacent = (self._wrap(f) for f in self.saved)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.LC._verify, self.LC.verify_adjacent = self.saved
+
+
+def need_launches(what: str, got: dict, want: dict, may: tuple = ()) -> None:
+    """Fails unless every kernel in ``want`` launched at least that often
+    and no kernel outside ``want`` and ``may`` launched (an empty
+    ``want``: none)."""
+    short = {k: got.get(k, 0) for k, n in want.items() if got.get(k, 0) < n}
+    extra = {k: n for k, n in got.items() if k not in want and k not in may}
+    if short or extra:
+        raise AssertionError(f"{what}: launches {got}, expected at least {want} and no other")
+
+
+def light_sync_phase(dev, smi: str, heights: int = SYNC_HEIGHTS, nval: int = SYNC_VALIDATORS,
+                     every: int = ROTATE_EVERY) -> dict:
+    """Phase 15, light-sync1024: a ``heights``-block chain of ``nval``
+    validators (store_chain) in sqlite stores, closed and opened again;
+    then light.client.Client over NodeProviders of those stores on a
+    fresh KeyTableCache: the skipping sync from height 1 to the top (cold
+    once, then warm on fresh LightStores; bisection must be needed), a
+    sequential sync to height 64, a backwards check from a trust root at
+    the top to 24 heights below it (no launch), three refusals (a flipped signature in a third
+    store, an expired root, a missing height) and an attack (a witness
+    whose store holds a conflicting top block: ErrLightClientAttack, one
+    LightClientAttackEvidence to each provider).  The launch counters at
+    0 before each run; every check on the keyed or host tier."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    from cometbft_tpu_torch.light import client as LC
+    from cometbft_tpu_torch.light import verifier as LV
+    from cometbft_tpu_torch.light.provider import LightBlockNotFoundError, NodeProvider
+    from cometbft_tpu_torch.light.store import LightStore
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.store import _COMMIT, _hkey
+    from cometbft_tpu_torch.types import codec
+    from cometbft_tpu_torch.types.evidence import LightClientAttackEvidence
+    from cometbft_tpu_torch.utils.db import MemDB
+
+    class RecordingProvider(NodeProvider):
+        """A NodeProvider that keeps the evidence it is sent and the
+        seconds its light_block calls took (``load_s``)."""
+
+        def __init__(self, *args) -> None:
+            super().__init__(*args)
+            self.reported: list = []
+            self.load_s = 0.0
+
+        def light_block(self, height: int):
+            t0 = time.perf_counter()
+            try:
+                return super().light_block(height)
+            finally:
+                self.load_s += time.perf_counter() - t0
+
+        def report_evidence(self, ev) -> None:
+            self.reported.append(ev)
+
+    warm_runs, seq_to, back_to = SYNC_WARM_RUNS, min(64, heights), max(1, heights - 24)
+    t_phase = time.perf_counter()
+    threads = live_threads()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="light_sync_", dir=root)
+    key = str(dev)
+    saved_cache = PR._caches.get(key)
+    PR._caches[key] = PR.KeyTableCache(dev)
+    res: dict = {}
+    opened: list = []
+    try:
+        rs = np.random.RandomState(SEED + 15)
+        signer = FastSigner(int.from_bytes(rs.bytes(32), "little"))
+        t0 = time.perf_counter()
+        keys = seeded_keys(b"sync-validator", nval)
+        newcomers = seeded_keys(b"sync-newcomer", heights // every + 1)
+        t_keys = time.perf_counter() - t0
+        main_dir = os.path.join(work, "main")
+        chain = store_chain(main_dir, keys, newcomers, heights, every, rs, signer)
+        t_data = time.perf_counter() - t0
+        sets, rotated, originals = chain["sets"], chain["rotated"], chain["originals"]
+        left = sum(v.address in originals for v in sets[heights].validators)
+        saves = chain["saves"]
+        mib = db_mib(main_dir)
+        print(f"light-sync{heights} [{smi}]: BASELINE config 3 (light/verifier.go skipping "
+              f"sync, 10k headers x 150-validator commits) at {nval} validators, depth cut to "
+              f"{heights} heights")
+        print(f"  data: {t_data:.2f} s ({t_keys:.2f} s of it the keys): {heights} blocks of "
+              f"{SYNC_TXS} txs, {heights * nval} precommits, {len(rotated)} rotations (a set "
+              f"in {every}: an original validator out, a newcomer in), {left} of the "
+              f"{nval} originals left at height {heights}; save_block p50 "
+              f"{1e3 * pct(saves, 50):.3f} ms, max {1e3 * max(saves):.3f} ms; sqlite files "
+              f"{mib:.2f} MiB")
+        res.update(data_s=t_data, save_p50_ms=1e3 * pct(saves, 50),
+                   save_max_ms=1e3 * max(saves), db_mib=mib, rotations=len(rotated),
+                   originals_left=left)
+
+        # a third store: one flipped signature byte in the commit at height
+        # heights // 2 (stored with the next block), the lane every check of
+        # that commit sends first; and a witness's store whose top block
+        # conflicts (another app_hash, the same signers)
+        bad_h = heights // 2
+        bad_dir, fork_dir = os.path.join(work, "bad"), os.path.join(work, "fork")
+        copy_stores(main_dir, bad_dir)
+        copy_stores(main_dir, fork_dir)
+        bstore, sstore, dbs = open_stores(bad_dir)
+        bad_commit = bstore.load_block_commit(bad_h)
+        sig0 = bad_commit.signatures[0]
+        flipped = sig0.signature[:40] + bytes([sig0.signature[40] ^ 1]) + sig0.signature[41:]
+        bad_commit = replace(bad_commit, signatures=(replace(sig0, signature=flipped),)
+                             + bad_commit.signatures[1:])
+        dbs[0].set(_hkey(_COMMIT, bad_h), codec.encode_commit(bad_commit))
+        for db in dbs:
+            db.close()
+        fstore, _, dbs = open_stores(fork_dir)
+        top = chain["top"]
+        fstore.prune_last_block()
+        fork_block, fork_parts, _, fork_commit = sync_block(
+            top["state"], heights, top["txs"], top["last_commit"], signer, chain["by_addr"], rs,
+            app_hash=hashlib.sha256(b"forked app state").digest())
+        fstore.save_block(fork_block, fork_parts, fork_commit)
+        for db in dbs:
+            db.close()
+
+        # everything from here reads stores opened again
+        t0 = time.perf_counter()
+        stores = {}
+        for name in ("main", "bad", "fork"):
+            b, s, dbs = open_stores(os.path.join(work, name))
+            opened.extend(dbs)
+            stores[name] = (b, s)
+        block_store, state_store = stores["main"]
+        if (block_store.base(), block_store.height()) != (1, heights):
+            raise AssertionError(f"light-sync: reopened store holds {block_store.base()}.."
+                                 f"{block_store.height()}")
+        primary = RecordingProvider(CHAIN_ID, block_store, state_store)
+        witness = RecordingProvider(CHAIN_ID, block_store, state_store)
+        sample = list(range(1, heights + 1, max(1, heights // 64)))
+        loads, lbs = [], []
+        for h in sample:
+            t1 = time.perf_counter()
+            block = block_store.load_block(h)
+            loads.append(time.perf_counter() - t1)
+            if block.hash() != block_store.load_block_meta(h).block_id.hash:
+                raise AssertionError(f"light-sync: block {h} loads with another hash")
+            t1 = time.perf_counter()
+            primary.light_block(h)
+            lbs.append(time.perf_counter() - t1)
+        print(f"  reopened: {time.perf_counter() - t0:.3f} s for {len(sample)} loads; load_block "
+              f"p50 {1e3 * pct(loads, 50):.3f} ms, NodeProvider.light_block p50 "
+              f"{1e3 * pct(lbs, 50):.3f} ms")
+        res.update(load_block_p50_ms=1e3 * pct(loads, 50),
+                   light_block_p50_ms=1e3 * pct(lbs, 50))
+
+        lb1 = primary.light_block(1)
+        trust = LC.TrustOptions(period_ns=TRUSTING_NS, height=1,
+                                hash=block_store.load_block_meta(1).block_id.hash)
+        now = HEADER_T0 + (heights + 10) * BLOCK_NS
+
+        def client(provider, witnesses, mode=LC.SKIPPING, options=trust):
+            return LC.Client(CHAIN_ID, options, provider, witnesses, LightStore(MemDB()),
+                             verification_mode=mode, device=dev)
+
+        # -- skipping sync, cold then warm --------------------------------
+        walls, runs = [], []
+        for run in range(1 + warm_runs):
+            _build.reset_launches()
+            primary.load_s = witness.load_s = 0.0
+            with FactoryLog() as log, HopLog() as hops:
+                t0 = time.perf_counter()
+                c = client(primary, [witness])
+                got = c.update(now=now)
+                wall = time.perf_counter() - t0
+                checks = log.take()
+            launches = launched()
+            if got is None or got.height != heights or got.hash() != \
+                    block_store.load_block_meta(heights).block_id.hash:
+                raise AssertionError(f"light-sync: update reached {got and got.height}")
+            trusted = [h for h in range(1, heights + 1) if c.store.get(h) is not None]
+            runs.append(dict(wall=wall, hops=hops.hops, checks=checks, launches=launches,
+                             trusted=trusted, load_ms=1e3 * (primary.load_s + witness.load_s),
+                             check_ms=sum(ms for *_, ms in hops.hops)))
+            if run:
+                walls.append(wall)
+            bad_tier = [t for _, t in checks if t not in ("keyed", "host")]
+            if bad_tier:
+                raise AssertionError(f"light-sync: checks answered by {bad_tier}")
+        cold = runs[0]
+        need_launches("light-sync, cold", cold["launches"],
+                      {"build_tables": 1, "sha512_keyed": 1, "verify_keyed": 1})
+        for r in runs[1:]:
+            need_launches("light-sync, warm", r["launches"],
+                          {"sha512_keyed": 1, "verify_keyed": 1})
+        first = cold["hops"][0]
+        if first[:2] != (1, heights) or first[2] != "ErrNewValSetCantBeTrusted":
+            raise AssertionError(f"light-sync: the first skip was {first}, not a refused "
+                                 f"1 -> {heights}")
+        path = [1] + [b for a, b, how, _ in cold["hops"] if how == "ok"]
+        if path != [1, heights // 2, heights] or cold["trusted"] != path:
+            raise AssertionError(f"light-sync: verified path {path}, trusted "
+                                 f"{cold['trusted']}, expected 1 -> {heights // 2} -> {heights}")
+        tally = {}
+        for sent, tier in cold["checks"]:
+            tally[f"{sent} sigs, {tier}"] = tally.get(f"{sent} sigs, {tier}", 0) + 1
+        split = {k: pct([r[k] for r in runs[1:]], 50) for k in ("load_ms", "check_ms")}
+        res.update(cold_ms=1e3 * cold["wall"], warm_p50_ms=1e3 * pct(walls, 50), warm_split=split,
+                   path=path, cold_launches=cold["launches"],
+                   warm_launches=runs[-1]["launches"], checks=cold["checks"])
+        print(f"  skipping sync 1 -> {heights}, cold: {1e3 * cold['wall']:.3f} ms; checks "
+              f"(trusted, new, outcome, ms): " + ", ".join(
+                  f"({a}, {b}, {how}, {ms:.3f})" for a, b, how, ms in cold["hops"]))
+        print(f"    bisection visited {path}; signatures sent and tier per verifier "
+              f"{cold['checks']} ({tally}); launches {cold['launches']}")
+        print(f"  skipping sync, warm on a fresh LightStore x{warm_runs}: p50 "
+              f"{1e3 * pct(walls, 50):.3f} ms (" + ", ".join(f"{1e3 * w:.3f}" for w in walls)
+              + f" ms); launches per run {runs[-1]['launches']}; p50 of its parts: the "
+              f"providers' light_block {split['load_ms']:.3f} ms (the witness's included), the "
+              f"header checks {split['check_ms']:.3f} ms, the rest (the root's own commit, "
+              f"validate_basic, the LightStore) the remainder")
+
+        # -- sequential, then backwards ------------------------------------
+        _build.reset_launches()
+        with FactoryLog() as log, HopLog() as hops:
+            c = client(primary, [], mode=LC.SEQUENTIAL)
+            t0 = time.perf_counter()
+            c.verify_light_block_at_height(seq_to, now)
+            seq_wall = time.perf_counter() - t0
+            seq_checks = log.take()
+        steps = [ms for a, b, how, ms in hops.hops if b == a + 1 and how == "ok"]
+        if len(steps) != seq_to - 1 or len(hops.hops) != seq_to - 1:
+            raise AssertionError(f"light-sync: sequential took {hops.hops}")
+        # a rotation's newcomer not yet in the pool is built on its way
+        need_launches("light-sync, sequential", launched(),
+                      {"sha512_keyed": seq_to, "verify_keyed": seq_to}, may=("build_tables",))
+        seq_sent = sorted({s for s, _ in seq_checks[1:]})
+        seq_tiers = sorted({t for _, t in seq_checks})
+        res.update(seq_p50_ms=pct(steps, 50), seq_wall_ms=1e3 * seq_wall)
+        print(f"  sequential 1 -> {seq_to}: {seq_to - 1} adjacent checks, p50 "
+              f"{pct(steps, 50):.3f} ms a header, {1e3 * seq_wall:.3f} ms in all; signatures "
+              f"sent per check {seq_sent}, tiers {seq_tiers}; launches {launched()}")
+        top_trust = LC.TrustOptions(period_ns=TRUSTING_NS, height=heights,
+                                    hash=block_store.load_block_meta(heights).block_id.hash)
+        c = client(primary, [], options=top_trust)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        back = c.verify_light_block_at_height(back_to, now)
+        back_wall = time.perf_counter() - t0
+        need_launches("light-sync, backwards", launched(), {})
+        if back.hash() != block_store.load_block_meta(back_to).block_id.hash:
+            raise AssertionError("light-sync: backwards verification gave another block")
+        res.update(back_ms=1e3 * back_wall)
+        print(f"  backwards {heights} -> {back_to} by hash links: {1e3 * back_wall:.3f} ms, "
+              f"launches {launched() or 'none'}")
+
+        # -- refusals ------------------------------------------------------
+        bad = NodeProvider(CHAIN_ID, *stores["bad"])
+        _build.reset_launches()
+        with FactoryLog() as log:
+            expect_error("light-sync, a flipped signature",
+                         lambda: client(bad, []).update(now=now),
+                         LV.ErrInvalidHeader, "invalid commit: wrong signature (#0)")
+            refused = log.take()
+        need_launches("light-sync, a flipped signature", launched(),
+                      {"sha512_keyed": 1, "verify_keyed": 1})
+        if refused[-1][1] != "keyed":
+            raise AssertionError(f"light-sync: the flipped signature was refused by "
+                                 f"{refused[-1]}, not the keyed tier")
+        short = LC.TrustOptions(period_ns=BLOCK_NS, height=1, hash=trust.hash)
+        expiry = lb1.time_ns + BLOCK_NS
+        expect_error("light-sync, an expired trust root",
+                     lambda: client(primary, [], options=short).update(now=now),
+                     LV.ErrOldHeaderExpired, f"trusted header expired at {expiry} (now {now})")
+        expect_error("light-sync, a height the primary lacks",
+                     lambda: client(primary, []).verify_light_block_at_height(heights + 1, now),
+                     LightBlockNotFoundError, f"no block at height {heights + 1}")
+        print(f"  refusals as the reference's: a flipped signature at height {bad_h} -> "
+              f"ErrInvalidHeader after {len(refused)} verifiers (the last {refused[-1]}); an "
+              f"expired trust root -> ErrOldHeaderExpired; height {heights + 1} -> "
+              f"LightBlockNotFoundError")
+
+        # -- an attack -----------------------------------------------------
+        forked = RecordingProvider(CHAIN_ID, *stores["fork"])
+        c = client(primary, [forked])
+        want_w = forked.light_block(heights).hash()
+        want_p = block_store.load_block_meta(heights).block_id.hash
+        expect_error("light-sync, a forked witness", lambda: c.update(now=now),
+                     LC.ErrLightClientAttack,
+                     f"witness header {want_w.hex()[:12]} conflicts with primary "
+                     f"{want_p.hex()[:12]} at height {heights}")
+        if len(primary.reported) != 1 or len(forked.reported) != 1 or not all(
+                isinstance(ev, LightClientAttackEvidence)
+                for ev in primary.reported + forked.reported):
+            raise AssertionError(f"light-sync: evidence reported {primary.reported!r} / "
+                                 f"{forked.reported!r}")
+        ev = primary.reported[0]
+        common = heights // 2
+        signers = {cs.validator_address for cs in
+                   forked.light_block(heights).commit.signatures if cs.is_commit()}
+        byz = signers & {v.address for v in sets[common].validators}
+        for e in (ev, forked.reported[0]):
+            if e.common_height != common or set(e.byzantine_validators) != byz:
+                raise AssertionError(f"light-sync: evidence at common height "
+                                     f"{e.common_height} names {len(e.byzantine_validators)} "
+                                     f"validators, expected {len(byz)} at {common}")
+        size = len(codec.encode_evidence(ev))
+        res.update(evidence_hash=ev.hash().hex(), evidence_bytes=size, byzantine=len(byz))
+        print(f"  attack: a witness with a conflicting block {heights} (another app_hash, "
+              f"{len(signers)} signers) -> ErrLightClientAttack; one LightClientAttackEvidence "
+              f"to each provider; common height {common}; byzantine validators: the "
+              f"{len(byz)} signers bonded at the common height; evidence to the primary "
+              f"{ev.hash().hex()}, {size} bytes")
+    finally:
+        for db in opened:
+            db.close()
+        shutil.rmtree(work)
+        if saved_cache is None:
+            PR._caches.pop(key, None)
+        else:
+            PR._caches[key] = saved_cache
+    res["launches"] = end_phase("light sync", threads)
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"  light sync phase: {res['wall_s']:.2f} s")
+    return res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--warm150"]:
         if len(sys.argv) > 2:
@@ -3630,6 +4137,9 @@ def run_all(torch) -> int:
     check_ladder("mesh phase")
     guard_phase(dev, commit150, exp150, mesh["mesh"], smi)
     check_ladder("guard phase")
+    # phase 15: persistence and the light client
+    light_sync_phase(dev, smi)
+    check_ladder("light sync phase")
     for line in registry.expose().splitlines():
         if line.startswith(("cometbft_crypto_dispatch_tier", "cometbft_crypto_dispatch_decisions",
                             "cometbft_crypto_device_hangs_total", "cometbft_crypto_key_pool")):

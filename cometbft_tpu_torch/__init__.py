@@ -17,8 +17,11 @@ Layout mirrors the reference:
   utils/protoio.py      the deterministic protobuf wire writer and reader
   utils/time.py         now_ns, the one clock (tests patch it)
   utils/bit_array.py    BitArray, the vote set's presence bits
+  utils/log.py          Logger, the leveled key-value logger
+  utils/db.py           the ordered key-value seam: MemDB, SQLiteDB, open_db
   version.py            BLOCK_PROTOCOL and the protocol constants
-  metrics/__init__.py   CryptoMetrics, HealthMetrics and their sinks
+  metrics/__init__.py   StoreMetrics, CryptoMetrics, HealthMetrics and
+                        their sinks
   crypto/edwards.py     pure-Python big-int oracle (host constants, signing)
   crypto/ed25519.py     Ed25519 key types over the oracle; CpuBatchVerifier,
                         the host tier
@@ -35,18 +38,30 @@ Layout mirrors the reference:
   crypto/tmhash.py, crypto/merkle.py  SHA-256 sums, the RFC 6962 tree and
                         its proofs
   types/canonical.py    canonical vote and proposal sign bytes
-  types/block.py        PartSetHeader, BlockID, Header, CommitSig, Commit
+  types/block.py        PartSetHeader, BlockID, Header, CommitSig, Commit,
+                        Block (its part set, encoding and derived hashes)
+  types/part_set.py     Part, PartSet: a block's merkle-proven parts
+  types/evidence.py     DuplicateVoteEvidence, LightClientAttackEvidence
+  types/block_meta.py   BlockMeta, the block store's per-height record
+  types/params.py       ConsensusParams and its hash
+  types/genesis.py      GenesisDoc and its JSON
   types/validator.py    Validator, ValidatorSet (proposer rotation, changes)
-  types/codec.py        header and commit wire codec: the reference's state
-                        carried into the port
+  types/codec.py        the wire codec of headers, commits, evidence,
+                        blocks, parts and proofs
   types/vote.py         Vote, Proposal
   types/vote_set.py     VoteSet: tallies, majorities, make_commit; each
                         vote through verify_or_fallback (the queue)
   types/validation.py   verify_commit, verify_commit_light,
                         verify_commit_light_trusting -- the callers of
                         create_batch_verifier
-  types/light_block.py  SignedHeader, LightBlock
+  types/light_block.py  SignedHeader, LightBlock and their encodings
+  store/__init__.py     BlockStore: blocks as parts, metas and commits
+  state/__init__.py     State, its codecs, the state Store
   light/verifier.py     verify, verify_adjacent, verify_non_adjacent
+  light/store.py        LightStore, the client's trusted blocks
+  light/provider.py     Provider, NodeProvider (a node's stores)
+  light/client.py       Client: skipping and sequential sync, backwards
+                        verification, witness comparison
   ops/_build.py         nvcc build of csrc/*.cu and g++ build of
                         csrc/host/*.cpp, loaded with ctypes
   ops/field.py          GF(2^255-19) limbs; fe_mul / fe_sq CUDA kernels

@@ -1,7 +1,23 @@
 """Light plane — header verification without full blocks (a part of
-cometbft_tpu/light/, copied: the verifier).  The client, providers,
-store and serving plane are not ported yet."""
+cometbft_tpu/light/, copied: the verifier, the trusted store, the
+providers but the RPC one, and the client).  The serving plane, the
+HTTP provider and the proxy come with RPC."""
 
+from cometbft_tpu_torch.light.client import (
+    Client,
+    ErrLightClientAttack,
+    LightClientError,
+    SEQUENTIAL,
+    SKIPPING,
+    TrustOptions,
+)
+from cometbft_tpu_torch.light.provider import (
+    LightBlockNotFoundError,
+    NodeProvider,
+    Provider,
+    ProviderError,
+)
+from cometbft_tpu_torch.light.store import LightStore
 from cometbft_tpu_torch.light.verifier import (
     DEFAULT_TRUST_LEVEL,
     VerificationError,
@@ -11,7 +27,18 @@ from cometbft_tpu_torch.light.verifier import (
 )
 
 __all__ = [
+    "Client",
     "DEFAULT_TRUST_LEVEL",
+    "ErrLightClientAttack",
+    "LightBlockNotFoundError",
+    "LightClientError",
+    "LightStore",
+    "NodeProvider",
+    "Provider",
+    "ProviderError",
+    "SEQUENTIAL",
+    "SKIPPING",
+    "TrustOptions",
     "VerificationError",
     "verify",
     "verify_adjacent",

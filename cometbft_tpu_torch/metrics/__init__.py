@@ -1,6 +1,7 @@
-"""The crypto plane's metrics structs: ``CryptoMetrics`` and
-``HealthMetrics`` with their process-wide sinks (a copy of
-cometbft_tpu/metrics/__init__.py:630-925, the series the port writes).
+"""The metrics structs the port writes: ``StoreMetrics`` (the block
+store's), and the crypto plane's ``CryptoMetrics`` and ``HealthMetrics``
+with their process-wide sinks (a copy of cometbft_tpu/metrics/__init__.py:
+565-591 and 630-925, in the reference's order).
 
 Each struct takes a ``utils.metrics.Registry``, or None for no-op
 metrics (the reference's NopMetrics).  The sinks are no-ops until a
@@ -32,6 +33,35 @@ class _Nop:
 
 
 _NOP = _Nop()
+
+
+class StoreMetrics:
+    """Block-store persistence timings (no metricsgen analog; the
+    reference leaves store/store.go unmeasured)."""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.block_save_seconds = _NOP
+            self.block_load_seconds = _NOP
+            self.block_prune_seconds = _NOP
+            return
+        s = "store"
+        self.block_save_seconds = reg.histogram(
+            s, "block_save_seconds",
+            "Seconds per SaveBlock batch (parts + meta + commits, "
+            "one atomic write group).",
+            buckets=DEFAULT_TIME_BUCKETS,
+        )
+        self.block_load_seconds = reg.histogram(
+            s, "block_load_seconds",
+            "Seconds per LoadBlock (meta + parts + decode).",
+            buckets=DEFAULT_TIME_BUCKETS,
+        )
+        self.block_prune_seconds = reg.histogram(
+            s, "block_prune_seconds",
+            "Seconds per PruneBlocks batch.",
+            buckets=DEFAULT_TIME_BUCKETS,
+        )
 
 
 class CryptoMetrics:

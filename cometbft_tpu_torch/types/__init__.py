@@ -1,7 +1,8 @@
-"""Domain types (a part of cometbft_tpu/types/, copied): Block, Vote,
-Commit, ValidatorSet, VoteSet, canonical sign-bytes, the header and
-commit codec, light blocks and commit verification.  The part set,
-evidence, params and genesis are not ported yet."""
+"""Domain types (a copy of cometbft_tpu/types/ but its event bus):
+Block, Vote, Commit, ValidatorSet, VoteSet, PartSet, BlockMeta, evidence,
+params, genesis, canonical sign-bytes, the wire codec, light blocks and
+commit verification.  ``types/event_bus.py`` comes with state
+execution."""
 
 from cometbft_tpu_torch.types.block import (
     BLOCK_ID_FLAG_ABSENT,
@@ -22,6 +23,13 @@ from cometbft_tpu_torch.types.canonical import (
     PREVOTE_TYPE,
     PROPOSAL_TYPE,
 )
+from cometbft_tpu_torch.types.evidence import (
+    DuplicateVoteEvidence,
+    LightClientAttackEvidence,
+)
+from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+from cometbft_tpu_torch.types.params import ConsensusParams, DEFAULT_CONSENSUS_PARAMS
+from cometbft_tpu_torch.types.part_set import Part, PartSet
 from cometbft_tpu_torch.types.validation import (
     verify_commit,
     verify_commit_light,
@@ -45,12 +53,20 @@ __all__ = [
     "Commit",
     "CommitSig",
     "ConflictingVoteError",
+    "ConsensusParams",
+    "DEFAULT_CONSENSUS_PARAMS",
     "Data",
+    "DuplicateVoteEvidence",
+    "GenesisDoc",
+    "GenesisValidator",
     "Header",
+    "LightClientAttackEvidence",
     "NIL_BLOCK_ID",
     "PRECOMMIT_TYPE",
     "PREVOTE_TYPE",
     "PROPOSAL_TYPE",
+    "Part",
+    "PartSet",
     "PartSetHeader",
     "Proposal",
     "Validator",

@@ -2,16 +2,14 @@
 copy of cometbft_tpu/types/block.py).
 
 Mirrors the capability surface of the reference's types/block.go: header
-merkle hashing over field encodings and commit reconstruction of
-per-vote sign bytes (the input to batch verification).  ``Block`` keeps
-its hash and ``validate_basic``; its part set, wire encoding and
-``with_hashes`` (the reference's block.py:308-339) reach the part set
-and the evidence codec, which are not ported yet.
+merkle hashing over field encodings, commit reconstruction of per-vote
+sign bytes (the input to batch verification), and part-set chunking for
+gossip (types/part_set.go).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 from cometbft_tpu_torch.crypto import merkle, tmhash
 from cometbft_tpu_torch.types import canonical
@@ -308,8 +306,35 @@ class Block:
     def hash(self) -> bytes | None:
         return self.header.hash()
 
+    def make_part_set(self, part_size: int):
+        from cometbft_tpu_torch.types.part_set import PartSet
+
+        return PartSet.from_bytes(self.encode(), part_size)
+
+    def encode(self) -> bytes:
+        """Deterministic wire encoding of the whole block."""
+        from cometbft_tpu_torch.types import codec
+
+        return codec.encode_block(self)
+
     def validate_basic(self) -> None:
         if self.header.height < 1:
             raise ValueError("block height must be >= 1")
         if self.last_commit is not None:
             self.last_commit.validate_basic()
+
+    def with_hashes(self) -> "Block":
+        """Fill the header's derived hashes (data, commit, evidence)."""
+        from cometbft_tpu_torch.types import codec
+
+        h = replace(
+            self.header,
+            data_hash=self.data.hash(),
+            last_commit_hash=(
+                self.last_commit.hash() if self.last_commit else b""
+            ),
+            evidence_hash=merkle.hash_from_byte_slices(
+                [codec.encode_evidence(ev) for ev in self.evidence]
+            ),
+        )
+        return replace(self, header=h)

@@ -1,7 +1,5 @@
 """Light blocks: header + commit + validator set (a copy of
-cometbft_tpu/types/light_block.py:1-115; reference: types/light.go).
-``LightBlock``'s wire encoding (the reference's :117-136) needs the
-validator-set codec of ``state``, which is not ported yet.
+cometbft_tpu/types/light_block.py; reference: types/light.go).
 
 The unit of light-client verification: a ``SignedHeader`` proves what
 the validators signed; the ``ValidatorSet`` lets a client check those
@@ -115,6 +113,24 @@ class LightBlock:
             raise LightBlockError(
                 "validator set does not match header validators_hash"
             )
+
+    def encode(self) -> bytes:
+        from cometbft_tpu_torch.state import encode_validator_set
+
+        w = ProtoWriter()
+        w.message(1, self.signed_header.encode())
+        w.message(2, encode_validator_set(self.validator_set))
+        return w.finish()
+
+    @classmethod
+    def decode(cls, data: bytes) -> "LightBlock":
+        from cometbft_tpu_torch.state import decode_validator_set
+
+        f = ProtoReader(data).to_dict()
+        return cls(
+            signed_header=SignedHeader.decode(_codec_bz(f[1][0])),
+            validator_set=decode_validator_set(_codec_bz(f[2][0])),
+        )
 
 
 __all__ = ["LightBlock", "LightBlockError", "SignedHeader"]
