@@ -113,9 +113,9 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    submissions), every future = the oracle's, the consensus wait beside
    a prefetch launch's wall, the coalesced sizes, the spec cache on a
    header submitted again, the overlap ratio, the
-   ``crypto_verify_queue_*`` series and a clean ``stop()``, then four
-   warm mixes, prefetch buffers capped and uncapped in turn, and the
-   same work without a queue for its sigs/s; prober: a
+   ``crypto_verify_queue_*`` series and a clean ``stop()``, then two
+   warm mixes, and the same work without a queue for its sigs/s;
+   prober: a
    ``HealthProber`` at 0.5 s with the default canaries (host, keyed,
    generic) demotes keyed under a chaos device_loss and promotes it with
    reason ``probes`` after it; seed: each tier's single-batch rows at
@@ -172,7 +172,25 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    expired root, a missing height, and a forked witness
    (``ErrLightClientAttack``, one LightClientAttackEvidence to each
    provider); every check on the keyed or host tier;
-16. a ``kernels`` JSON line, then the last line
+16. blocksync catch-up (``blocksync_phase``, cell blocksync1024: BASELINE
+   config 4 at 1024 validators, its depth cut to BS_HEIGHTS): a source
+   node (``BlockExecutor`` over a ``KVStoreApp``, sqlite stores) builds
+   the chain height by height, a val: tx pair rotating one validator
+   every 64 heights, each commit signed by the height's own set in
+   worker processes (``SignerPool``); a byzantine copy of its stores
+   serves block 300 with a flipped LastCommit signature, an honest copy
+   the rest; ``verify_keyed`` and ``sha512_keyed`` held to their plain
+   versions on a cold verify-ahead step's 8192 lanes (4-bit combs); then
+   three syncs of a fresh node (``BlocksyncReactor`` over the loopback:
+   ``LoopbackSwitch``, one delivery thread per direction carrying the
+   wire bytes; a started ``VerifyQueue`` with the default factory):
+   (a) cold tables, prefetch depth 8, (b) warm, (c) warm, depth 0.
+   Each prints its walls, blocks/s, the per-step split, the cache hits,
+   the prefetch batches, launches and the busy share, and must store the
+   source's blocks and states key for key, reach its app hash, hand the
+   source's state to consensus, stop the byzantine peer once and no
+   honest one, and count no pool-routine error;
+17. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --warm150 [TREE]
@@ -1022,7 +1040,7 @@ def check_fused(name: str, plan, expected, dev, prefixes=()) -> dict:
     out = torch.empty((64, n), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     launch = lambda: sha_lib.sha512_keyed_launch(rows.data_ptr(), rows.stride(0), bucket, nblocks,
-                                                 out.data_ptr(), n, stream)
+                                                 out.data_ptr(), n, stream, None, None)
     sms, wms = cuda_ms(launch, 200), cuda_ms(digest_fn, 200)
     spfms = device_ms(digest_fn, 200)
     spms = device_ms(lambda: EV.keyed_digest_plain(rows, bucket, nblocks), 3)
@@ -2426,10 +2444,8 @@ def queue_phase(dev, commit150, exp150, commit1k, wide, wide_exp, registry, smi:
     Every future = the oracle's verdict; then the spec cache answers a
     header submitted again, and stop() leaves no thread behind.  A
     consensus pair's cost through the idle queue and inline comes
-    first; after the first queue, the mix runs four more times on fresh
-    queues with warm tables, rotated: prefetch buffers capped at
-    ``PREFETCH_BATCH`` as shipped, and uncapped (``DEFAULT_MAX_BATCH``,
-    the reference's), each with the tiers that answered; then once
+    first; after the first queue, the mix runs twice more on fresh
+    queues with warm tables, each with the tiers that answered; then once
     without a queue (``sync_mix``)."""
     from cometbft_tpu_torch.crypto import ed25519 as ed
     from cometbft_tpu_torch.crypto import verify_queue as VQ
@@ -2513,14 +2529,12 @@ def queue_phase(dev, commit150, exp150, commit1k, wide, wide_exp, registry, smi:
     for line in registry.expose().splitlines():
         if line.startswith("cometbft_crypto_verify_queue") and "_bucket" not in line:
             print(f"  metric {line}")
-    capped = VQ.PREFETCH_BATCH
     tiers = ("keyed", "generic", "host", "python")
-    for r, cap in enumerate((capped, VQ.DEFAULT_MAX_BATCH, VQ.DEFAULT_MAX_BATCH, capped)):
-        label = f"warm {r + 1}, prefetch buffers of at most {cap}"
+    for r in range(2):
+        label = f"warm {r + 1}, buffers of at most {VQ.DEFAULT_MAX_BATCH}"
         threads = live_threads()
         answered0 = [registry_value(registry, "cometbft_crypto_dispatch_tier", f'"{t}"')
                      for t in tiers]
-        VQ.PREFETCH_BATCH = cap
         q = VQ.VerifyQueue()
         q.start()
         VQ.install_queue(q)
@@ -2529,7 +2543,6 @@ def queue_phase(dev, commit150, exp150, commit1k, wide, wide_exp, registry, smi:
             overlap = q.stats()["overlap_ratio"]
         finally:
             q.stop()
-            VQ.PREFETCH_BATCH = capped
         end_phase("queue", threads)
         answered = {t: int(registry_value(registry, "cometbft_crypto_dispatch_tier", f'"{t}"')
                            - a) for t, a in zip(tiers, answered0)}
@@ -3959,6 +3972,787 @@ def light_sync_phase(dev, smi: str, heights: int = SYNC_HEIGHTS, nval: int = SYN
     return res
 
 
+# -- phase 16: blocksync catch-up ------------------------------------------
+
+#: blocksync1024: BASELINE config 4 (internal/blocksync fast-sync replay, 1k
+#: blocks x 1k-validator commits) at full width: BS_HEIGHTS applied blocks
+#: and one more, whose LastCommit commits the last; a val: tx pair every
+#: BS_ROTATE_EVERY heights brings a newcomer in at power 10 and takes an
+#: original to power 0.  Depth cut from 1000 to 512: timed on an NVIDIA
+#: H100 host (PERF.md section 4), 64 heights' build and three syncs put
+#: 1000 heights beyond 1000 s
+BS_HEIGHTS = 512
+BS_VALIDATORS = 1024
+BS_ROTATE_EVERY = 64
+BS_TXS = 4
+BS_BAD_HEIGHT = 300
+BS_SIGNERS = 8
+
+
+class LoopbackLink:
+    """One direction of a loopback connection: a FIFO of (channel, bytes)
+    that one delivery thread hands to ``dst.receive`` in order, as
+    MConnection delivers a channel's messages.  ``src`` is the sender as
+    the receiving node sees it.  After ``close`` nothing more is
+    delivered."""
+
+    def __init__(self, name: str, dst) -> None:
+        import queue
+
+        self.dst, self.src, self.closed = dst, None, False
+        self.q: queue.Queue = queue.Queue()
+        self.thread = threading.Thread(target=self._run, name=name, daemon=True)
+
+    def put(self, channel: int, msg: bytes) -> bool:
+        if self.closed:
+            return False
+        self.q.put((channel, bytes(msg)))
+        return True
+
+    def _run(self) -> None:
+        from cometbft_tpu_torch.p2p import Envelope
+
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            if not self.closed:
+                self.dst.receive(Envelope(item[0], self.src, item[1]))
+
+    def close(self) -> None:
+        self.closed = True
+        self.q.put(None)
+
+
+class LoopbackPeer:
+    """Another node as one node sees it: ``send`` and ``try_send`` put a
+    message on the link to it."""
+
+    def __init__(self, peer_id: str, link: LoopbackLink) -> None:
+        self.id, self._link = peer_id, link
+
+    def send(self, channel: int, msg: bytes) -> bool:
+        return self._link.put(channel, msg)
+
+    try_send = send
+
+
+class LoopbackSwitch:
+    """What a reactor reads of its switch (``peers.get``, ``broadcast``,
+    ``stop_peer_for_error``) over in-process links that carry the wire
+    bytes.  A stop is recorded, closes the connection both ways and calls
+    ``on_stop(peer_id)`` when set."""
+
+    def __init__(self, node_id: str, reactor) -> None:
+        self.id, self.reactor = node_id, reactor
+        self.peers: dict = {}
+        self.links: dict = {}
+        self.threads: list = []
+        self.stops: list = []
+        self.on_stop = None
+        reactor.set_switch(self)
+
+    def broadcast(self, channel: int, msg: bytes) -> None:
+        for peer in list(self.peers.values()):
+            peer.try_send(channel, msg)
+
+    def stop_peer_for_error(self, peer, reason) -> None:
+        self.stops.append((peer.id, str(reason)))
+        other = self.links[peer.id][1]
+        disconnect(self, other, reason)
+        if self.on_stop is not None:
+            self.on_stop(peer.id)
+
+
+def connect(a: LoopbackSwitch, b: LoopbackSwitch) -> None:
+    """A loopback connection between two switches: one link and one
+    delivery thread each way, then each reactor's ``add_peer``."""
+    ab = LoopbackLink(f"loop-{a.id}-{b.id}", b.reactor)
+    ba = LoopbackLink(f"loop-{b.id}-{a.id}", a.reactor)
+    a.peers[b.id], b.peers[a.id] = LoopbackPeer(b.id, ab), LoopbackPeer(a.id, ba)
+    ab.src, ba.src = b.peers[a.id], a.peers[b.id]
+    a.links[b.id], b.links[a.id] = (ab, b), (ba, a)
+    for link in (ab, ba):
+        a.threads.append(link.thread)
+        link.thread.start()
+    a.reactor.add_peer(a.peers[b.id])
+    b.reactor.add_peer(b.peers[a.id])
+
+
+def disconnect(a: LoopbackSwitch, b: LoopbackSwitch, reason=None) -> None:
+    """Closes both directions and calls each side's ``remove_peer``."""
+    for x, y in ((a, b), (b, a)):
+        peer = x.peers.pop(y.id, None)
+        link = x.links.pop(y.id, (None,))[0]
+        if link is not None:
+            link.close()
+        if peer is not None:
+            x.reactor.remove_peer(peer, reason)
+
+
+def close_switches(switches) -> None:
+    """Closes every link of ``switches`` and joins every delivery thread
+    they ever started."""
+    for sw in switches:
+        for other in [o for _, o in sw.links.values()]:
+            disconnect(sw, other)
+    for sw in switches:
+        for thread in sw.threads:
+            thread.join(10)
+
+
+class ConsensusRecorder:
+    """Stands in for the consensus reactor: keeps the state blocksync
+    hands over and when."""
+
+    def __init__(self) -> None:
+        self.states: list = []
+        self.at = None
+        self.done = threading.Event()
+
+    def switch_to_consensus(self, state) -> None:
+        self.states.append(state)
+        self.at = time.perf_counter()
+        self.done.set()
+
+
+# One worker of SignerPool: reads pickled (height, block id, votes) jobs from
+# stdin and writes each job's signatures, until it reads None.
+_SIGN_WORKER = (
+    "import pickle, sys\n"
+    "from chip_smoke import CHAIN_ID, FastSigner\n"
+    "from cometbft_tpu_torch.types import PRECOMMIT_TYPE, BlockID, PartSetHeader, Vote\n"
+    "signer = FastSigner(int(sys.argv[1]))\n"
+    "inp, out = sys.stdin.buffer, sys.stdout.buffer\n"
+    "while True:\n"
+    "    job = pickle.load(inp)\n"
+    "    if job is None:\n"
+    "        break\n"
+    "    height, (h, total, ph), votes = job\n"
+    "    bid = BlockID(hash=h, part_set_header=PartSetHeader(total=total, hash=ph))\n"
+    "    jobs = [(a, pub, Vote(type=PRECOMMIT_TYPE, height=height, round=0, block_id=bid,\n"
+    "                          timestamp_ns=ts, validator_address=addr,\n"
+    "                          validator_index=idx).sign_bytes(CHAIN_ID))\n"
+    "            for idx, a, pub, addr, ts in votes]\n"
+    "    pickle.dump(signer.sign_all(jobs), out)\n"
+    "    out.flush()\n"
+)
+
+
+class SignerPool:
+    """``n`` worker processes that sign a height's precommits in parallel,
+    worker k with FastSigner nonces from r0 + k * 2**48 (disjoint ranges).
+    Plain subprocesses, each killed in ``close`` if it has not ended."""
+
+    def __init__(self, n: int, r0: int) -> None:
+        from cometbft_tpu_torch.crypto import edwards as E
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.procs = []
+        try:
+            for k in range(n):
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _SIGN_WORKER, str((r0 + k * 2**48) % E.L)],
+                    cwd=root, stdin=subprocess.PIPE, stdout=subprocess.PIPE))
+        except BaseException:
+            self.close()
+            raise
+        self._busy: list = []
+
+    def submit(self, height: int, bid, votes) -> None:
+        """Starts signing ``votes`` ((index, scalar, public key, address,
+        timestamp) each) for ``bid`` at ``height``."""
+        import pickle
+
+        step = -(-len(votes) // len(self.procs))
+        key = (bid.hash, bid.part_set_header.total, bid.part_set_header.hash)
+        self._busy = []
+        for proc, i in zip(self.procs, range(0, len(votes), step)):
+            pickle.dump((height, key, votes[i : i + step]), proc.stdin)
+            proc.stdin.flush()
+            self._busy.append(proc)
+
+    def collect(self) -> list[bytes]:
+        """The signatures of the last ``submit``, in its order."""
+        import pickle
+
+        sigs: list[bytes] = []
+        for proc in self._busy:
+            sigs += pickle.load(proc.stdout)
+        return sigs
+
+    def close(self) -> None:
+        import pickle
+
+        for proc in self.procs:
+            try:
+                pickle.dump(None, proc.stdin)
+                proc.stdin.close()
+                proc.wait(timeout=10)
+            except Exception:  # noqa: BLE001 -- the worker is killed below
+                pass
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+
+
+def bs_txs(h: int, ntx: int, rs) -> list[bytes]:
+    """``ntx`` kvstore txs ``k<h>-<i>=<hex>`` of 64 to 100 bytes."""
+    out = []
+    for i in range(ntx):
+        head = b"k%d-%d=" % (h, i)
+        n = int(rs.randint(64, 101)) - len(head)
+        out.append(head + rs.bytes(n // 2 + 1).hex().encode()[:n])
+    return out
+
+
+def db_image(db) -> dict:
+    """key -> sha256 of the value, over every key of ``db``."""
+    return {bytes(k): hashlib.sha256(bytes(v)).digest() for k, v in db.iterator()}
+
+
+def bs_node(dirname: str, gen, dev, validate: bool = True):
+    """A node's stores, app and executor: sqlite block and state stores in
+    ``dirname`` (the genesis state saved), a KVStoreApp over a MemDB after
+    InitChain with the genesis set, its local proxy connections and an
+    EventBus.  ``validate=False``: the executor trusts the blocks (the
+    source node builds its own chain; the syncing node validates every
+    block).  -> dict."""
+    from cometbft_tpu_torch.abci import InitChainRequest, ValidatorUpdate
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApp
+    from cometbft_tpu_torch.mempool import NopMempool
+    from cometbft_tpu_torch.proxy import local_client_creator, new_app_conns
+    from cometbft_tpu_torch.state import State
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.types.event_bus import EventBus
+    from cometbft_tpu_torch.utils.db import MemDB
+    from cometbft_tpu_torch.utils.log import NopLogger
+
+    block_store, state_store, dbs = open_stores(dirname)
+    state = State.from_genesis(gen)
+    state_store.save(state)
+    app_db = MemDB()
+    app = KVStoreApp(app_db)
+    app.init_chain(InitChainRequest(chain_id=gen.chain_id, validators=tuple(
+        ValidatorUpdate("ed25519", v.pub_key.bytes(), v.power) for v in gen.validators)))
+    conns = new_app_conns(local_client_creator(app))
+    conns.start()
+    bus = EventBus()
+    bus.start()
+    ex = BlockExecutor(state_store, conns.consensus, NopMempool(), block_store=block_store,
+                       event_bus=bus, logger=NopLogger(), device=dev)
+    if not validate:
+        ex.validate_block = lambda state, block: None
+    return dict(block_store=block_store, state_store=state_store, dbs=dbs, state=state, app=app,
+                app_db=app_db, conns=conns, bus=bus, exec=ex)
+
+
+def close_node(node: dict) -> None:
+    for svc in (node["conns"], node["bus"]):
+        if svc.is_running():
+            svc.stop()
+    for db in node["dbs"]:
+        db.close()
+
+
+def bs_chain(work: str, dev, heights: int, nval: int, every: int, ntx: int, rs,
+             nsigners: int = BS_SIGNERS) -> dict:
+    """Builds the served chain as a node does, one height after another:
+    State.make_block (time: the median of the last commit's timestamps),
+    BlockExecutor.apply_block over a KVStoreApp, save_block with the
+    height's commit: every validator of the height's own set precommits
+    with its own timestamp, signed in ``nsigners`` worker processes while
+    the block applies.  At every ``every``-th height two val: txs bring a
+    newcomer in at power 10 and take an original to power 0 (the set two
+    heights later).  After height ``heights`` the stores' images, the
+    app's persisted record and the state are kept; then block heights + 1
+    (not applied) carries the last commit.  -> dict."""
+    import base64
+
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.state import encode_state
+    from cometbft_tpu_torch.state.execution import median_time
+    from cometbft_tpu_torch.types import BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.types.part_set import BLOCK_PART_SIZE_BYTES
+
+    t0 = time.perf_counter()
+    keys = seeded_keys(b"bs-validator", nval)
+    newcomers = seeded_keys(b"bs-newcomer", heights // every + 1)
+    t_keys = time.perf_counter() - t0
+    gen = GenesisDoc(chain_id=CHAIN_ID, genesis_time_ns=HEADER_T0, validators=tuple(
+        GenesisValidator(ed.Ed25519PubKey(pub), 10) for _, pub in keys))
+    src_dir = os.path.join(work, "source")
+    node = bs_node(src_dir, gen, dev, validate=False)
+    by_addr = {ed.Ed25519PubKey(pub).address(): (a, pub) for a, pub in keys}
+    originals = sorted(pub for _, pub in keys)
+    signers = SignerPool(nsigners, int.from_bytes(rs.bytes(32), "little"))
+    state, last_commit, out = node["state"], None, {}
+    sign_s = apply_s = save_s = 0.0
+    rotations, ntxs = [], 0
+    try:
+        for h in range(1, heights + 2):
+            txs = bs_txs(h, ntx, rs)
+            if h <= heights and h % every == 0:
+                a, pub = newcomers.pop(0)
+                by_addr[ed.Ed25519PubKey(pub).address()] = (a, pub)
+                gone = originals.pop((7 * h) % len(originals))
+                txs += [b"val:%s!10" % base64.b64encode(pub), b"val:%s!0" % base64.b64encode(gone)]
+                rotations.append(h)
+            ntxs += len(txs)
+            t_ns = (state.last_block_time_ns if h == 1
+                    else median_time(last_commit, state.last_validators))
+            block = state.make_block(h, tuple(txs),
+                                     last_commit if last_commit is not None else Commit(), (),
+                                     state.validators.get_proposer().address, t_ns)
+            parts = block.make_part_set(BLOCK_PART_SIZE_BYTES)
+            bid = BlockID(hash=block.hash(), part_set_header=parts.header)
+            t1 = time.perf_counter()
+            votes = []
+            for idx, v in enumerate(state.validators.validators):
+                a, pub = by_addr[v.address]
+                votes.append((idx, a, pub, v.address,
+                              t_ns + BLOCK_NS // 2 + int(rs.randint(0, 10**9))))
+            signers.submit(h, bid, votes)
+            t2 = time.perf_counter()
+            if h <= heights:
+                state = node["exec"].apply_block(state, bid, block)
+            t3 = time.perf_counter()
+            sigs = signers.collect()
+            commit = Commit(height=h, round=0, block_id=bid, signatures=tuple(
+                CommitSig(block_id_flag=BLOCK_ID_FLAG_COMMIT, validator_address=addr,
+                          timestamp_ns=ts, signature=sig)
+                for (_, _, _, addr, ts), sig in zip(votes, sigs)))
+            t4 = time.perf_counter()
+            if h > heights:
+                out.update(block_image=db_image(node["dbs"][0]),
+                           state_image=db_image(node["dbs"][1]),
+                           app_record=node["app_db"].get(b"kvstore:state"),
+                           app_hash=node["app"].app_hash, state=encode_state(state),
+                           height=state.last_block_height)
+            node["block_store"].save_block(block, parts, commit)
+            t5 = time.perf_counter()
+            sign_s += (t2 - t1) + (t4 - t3)
+            apply_s += t3 - t2
+            save_s += t5 - t4
+            last_commit = commit
+    finally:
+        signers.close()
+        close_node(node)
+    out.update(gen=gen, src_dir=src_dir, rotations=rotations, txs=ntxs, keys_s=t_keys,
+               data_s=time.perf_counter() - t0, sign_s=sign_s, apply_s=apply_s, save_s=save_s,
+               originals_left=len(originals), mib=db_mib(src_dir))
+    return out
+
+
+def bs_byzantine(src_dir: str, dst_dir: str, height: int) -> None:
+    """A copy of the source's stores in which block ``height`` carries its
+    LastCommit with signature #0 flipped: its parts and meta rewritten
+    (the header, hence the block hash, unchanged)."""
+    from dataclasses import replace
+
+    from cometbft_tpu_torch.store import _META, _hkey, _pkey
+    from cometbft_tpu_torch.types import codec
+    from cometbft_tpu_torch.types.block_meta import BlockMeta
+    from cometbft_tpu_torch.types.part_set import BLOCK_PART_SIZE_BYTES
+
+    copy_stores(src_dir, dst_dir)
+    block_store, _, dbs = open_stores(dst_dir)
+    try:
+        block = block_store.load_block(height)
+        lc = block.last_commit
+        sig0 = lc.signatures[0]
+        flipped = sig0.signature[:40] + bytes([sig0.signature[40] ^ 1]) + sig0.signature[41:]
+        bad = replace(block, last_commit=replace(
+            lc, signatures=(replace(sig0, signature=flipped),) + lc.signatures[1:]))
+        parts = bad.make_part_set(BLOCK_PART_SIZE_BYTES)
+        old = block_store.load_block_meta(height).block_id.part_set_header.total
+        if parts.header.total != old:
+            raise AssertionError(f"blocksync: the flipped block has {parts.header.total} parts, "
+                                 f"not {old}")
+        ops = [(_pkey(height, i), codec.encode_part(parts.get_part(i)))
+               for i in range(parts.header.total)]
+        ops.append((_hkey(_META, height), BlockMeta.from_parts(bad, parts).encode()))
+        dbs[0].write_batch(ops)
+    finally:
+        for db in dbs:
+            db.close()
+
+
+def bs_run(name: str, dev, chain: dict, byz_dir: str, honest_dir: str, work: str, depth: int,
+           registry, timeout_s: float) -> dict:
+    """One sync of a fresh node (fresh sqlite stores, a fresh KVStoreApp,
+    the genesis state, BlocksyncReactor(block_sync=True) with
+    ``prefetch_depth=depth``, a started VerifyQueue with the default
+    factory) from two serving nodes over the loopback: the byzantine one
+    first, the honest one when the byzantine one is stopped.  The launch
+    counters at 0 and the tracer's ring cleared just before the sync
+    starts; the per-step split is read from the ring's spans.  -> dict."""
+    import shutil
+
+    from cometbft_tpu_torch.blocksync import reactor as R
+    from cometbft_tpu_torch.crypto import batch as B
+    from cometbft_tpu_torch.crypto import dispatch as D
+    from cometbft_tpu_torch.crypto import verify_queue as VQ
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.utils.log import NopLogger
+    from cometbft_tpu_torch.utils.trace import TRACER
+
+    gen = chain["gen"]
+    sync_dir = os.path.join(work, f"sync-{name}")
+    node = bs_node(sync_dir, gen, dev)
+    servers, switches, reactor = [], [], None
+    q = VQ.VerifyQueue(verifier_factory=None if dev.type == "cuda" else
+                       (lambda pk: B.create_batch_verifier(pk, device="cpu")))
+    made = []
+    real_factory = B.create_batch_verifier
+    res: dict = {}
+    try:
+        for sname, sdir in (("byzantine", byz_dir), ("honest", honest_dir)):
+            bstore, sstore, dbs = open_stores(sdir)
+            servers.append(dbs)
+            r = R.BlocksyncReactor(sstore.load(), None, bstore, False, logger=NopLogger(),
+                                   device=dev)
+            switches.append(LoopbackSwitch(sname, r))
+        recorder = ConsensusRecorder()
+        reactor = R.BlocksyncReactor(node["state"], node["exec"], node["block_store"], True,
+                                     consensus_reactor=recorder, logger=NopLogger(),
+                                     prefetch_depth=depth, device=dev)
+        syncer = LoopbackSwitch("syncer", reactor)
+        byz_sw, honest_sw = switches
+        switches.append(syncer)
+
+        def on_stop(peer_id: str) -> None:
+            if peer_id == "byzantine" and "honest" not in syncer.peers:
+                connect(syncer, honest_sw)
+
+        syncer.on_stop = on_stop
+        redone: list = []
+        redo = reactor.pool.redo_request
+
+        def redo_request(height: int) -> str:
+            pid = redo(height)
+            redone.append((height, pid))
+            return pid
+
+        reactor.pool.redo_request = redo_request
+
+        def make(pub_key, device=None):
+            verifier = real_factory(pub_key, device=device)
+            made.append((verifier, threading.current_thread().name))
+            return verifier
+
+        B.create_batch_verifier = make
+        hits0 = registry_value(registry, "cometbft_crypto_verify_queue_spec_cache", 'result="hit"')
+        miss0 = registry_value(registry, "cometbft_crypto_verify_queue_spec_cache",
+                               'result="miss"')
+        busy0 = busy_seconds(registry)
+        q.start()
+        VQ.install_queue(q)
+        for r in (sw.reactor for sw in switches):
+            r.start()
+        _build.reset_launches()
+        TRACER.clear()
+        t0 = time.perf_counter()
+        connect(syncer, byz_sw)
+        if not recorder.done.wait(timeout_s):
+            raise AssertionError(f"blocksync {name}: no switch to consensus in {timeout_s} s "
+                                 f"(applied up to {reactor.state.last_block_height}, pool "
+                                 f"{reactor.pool.status()}, errors "
+                                 f"{reactor.pool_routine_errors})")
+        launches = launched()
+        busy = busy_seconds(registry) - busy0
+        cost = D.LADDER.cost_snapshot()
+        res["cost"] = {b: [(e["tier"], e["sigs_per_sec"], e["samples"], e["source"])
+                           for e in cost["table"] if e["bucket"] == b]
+                       for b in (512, 1024, 2048, 4096, 8192)}
+        res["orders"] = [(o["bucket"], o["order"], o["reorders"]) for o in cost["orders"]]
+        res.update(
+            t0=t0, wall_switch=recorder.at - t0, launches=launches, busy=busy, redone=redone,
+            stops=syncer.stops, pool_errors=reactor.pool_routine_errors,
+            hits=registry_value(registry, "cometbft_crypto_verify_queue_spec_cache",
+                                'result="hit"') - hits0,
+            misses=registry_value(registry, "cometbft_crypto_verify_queue_spec_cache",
+                                  'result="miss"') - miss0,
+            state=recorder.states[-1], q_stats=q.stats(),
+            verifiers=[(len(v), v.last_tier, where) for v, where in made],
+            servers_stops=[sw.stops for sw in (byz_sw, honest_sw)],
+            pool_tid=reactor._pool_thread.ident)
+    finally:
+        B.create_batch_verifier = real_factory
+        for sw in switches:
+            if sw.reactor.is_running():
+                sw.reactor.stop()
+        if reactor is not None and reactor._pool_thread is not None:
+            reactor._pool_thread.join(30)
+        close_switches(switches)
+        if q.is_running():
+            q.stop()
+        close_node(node)
+        for dbs in servers:
+            for db in dbs:
+                db.close()
+    export = TRACER.export()
+    if export["otherData"]["dropped_spans"]:
+        raise AssertionError(f"blocksync {name}: the tracer's ring of {TRACER.capacity} spans "
+                             f"dropped {export['otherData']['dropped_spans']}")
+    res.update(bs_steps([e for e in export["traceEvents"] if e["ph"] == "X"],
+                        res["pool_tid"], TRACER.epoch - res["t0"]))
+    # the synced node's stores, opened again, and its app, against the source's
+    block_store, state_store, dbs = open_stores(sync_dir)
+    try:
+        res["block_image"], res["state_image"] = db_image(dbs[0]), db_image(dbs[1])
+    finally:
+        for db in dbs:
+            db.close()
+    res["app_record"] = node["app_db"].get(b"kvstore:state")
+    res["app_hash"] = node["app"].app_hash
+    res["mib"] = db_mib(sync_dir)
+    shutil.rmtree(sync_dir)
+    return res
+
+
+#: the per-step split of a sync, by label: (span name, parent or None
+#: for any, the span's args that must match)
+BS_STEPS = (
+    ("decode_bs_message", "blocksync/decode", None, {"kind": "block"}),
+    ("part set", "blocksync/part_set", None, {}),
+    ("verify_commit_light", "verify_commit", "blocksync/sync_step", {}),
+    ("save_block", "store/save_block", None, {}),
+    ("apply_block", "exec/apply_block", None, {}),
+    ("validate_block's verify_commit", "verify_commit", "exec/apply_block", {}),
+    ("FinalizeBlock", "abci/finalize_block", None, {}),
+    ("Commit", "abci/commit", None, {}),
+    ("state save", "state/save", None, {}),
+    ("prefetch (sign bytes, submit)", "blocksync/prefetch", None, {}),
+)
+
+
+def bs_steps(events: list, pool_tid: int, offset_s: float) -> dict:
+    """A sync's split from the tracer's spans: each BS_STEPS label's
+    durations (seconds), the pool wait (the gaps between the pool
+    thread's consecutive ``blocksync/sync_step`` spans), and the sync's
+    wall to the end of its last ``exec/apply_block`` (``offset_s``: the
+    tracer's epoch less the sync's start) with its height."""
+    steps: dict[str, list[float]] = {}
+    for label, span, parent, args in BS_STEPS:
+        steps[label] = [e["dur"] / 1e6 for e in events if e["name"] == span
+                        and (parent is None or e["args"].get("parent") == parent)
+                        and all(e["args"].get(k) == v for k, v in args.items())]
+    sync = sorted((e for e in events if e["name"] == "blocksync/sync_step"
+                   and e["tid"] == pool_tid), key=lambda e: e["ts"])
+    steps["pool wait"] = [(b["ts"] - a["ts"] - a["dur"]) / 1e6 for a, b in zip(sync, sync[1:])]
+    applied = [e for e in events if e["name"] == "exec/apply_block"]
+    last = max(applied, key=lambda e: e["ts"])
+    return {"steps": steps, "top": max(e["args"]["height"] for e in applied),
+            "wall_applied": offset_s + (last["ts"] + last["dur"]) / 1e6}
+
+
+def prefetch_triples(src_dir: str, depth: int):
+    """(public key, sign bytes, signature) of every precommit of heights
+    1..depth in the source's stores, signature #0 of height 1 flipped ->
+    (triples, the verdicts the oracle gives)."""
+    block_store, state_store, dbs = open_stores(src_dir)
+    triples = []
+    try:
+        for h in range(1, depth + 1):
+            commit, vals = block_store.load_block_commit(h), state_store.load_validators(h)
+            for i, cs in enumerate(commit.signatures):
+                triples.append((vals.get_by_index(i).pub_key.bytes(),
+                                commit.vote_sign_bytes(CHAIN_ID, i), cs.signature))
+    finally:
+        for db in dbs:
+            db.close()
+    pub, msg, sig = triples[0]
+    triples[0] = (pub, msg, sig[:40] + bytes([sig[40] ^ 1]) + sig[41:])
+    expected = oracle_verdicts(triples[:1]) + [True] * (len(triples) - 1)
+    return triples, expected
+
+
+def busy_seconds(registry) -> float:
+    """The health plane's device busy seconds, summed over devices."""
+    total = 0.0
+    for line in registry.expose().splitlines():
+        if line.startswith("cometbft_crypto_device_busy_seconds_total"):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def image_diff(got: dict, want: dict) -> str:
+    """'' when the two images are equal, else the first few differences."""
+    missing = sorted(set(want) - set(got))[:3]
+    extra = sorted(set(got) - set(want))[:3]
+    differ = sorted(k for k in set(got) & set(want) if got[k] != want[k])[:3]
+    if not (missing or extra or differ):
+        return ""
+    return f"missing {missing}, extra {extra}, different {differ}"
+
+
+def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
+                    nval: int = BS_VALIDATORS, every: int = BS_ROTATE_EVERY,
+                    bad: int = BS_BAD_HEIGHT, nsigners: int = BS_SIGNERS,
+                    timeout_s: float = 600.0) -> dict:
+    """Phase 16, blocksync1024: a ``heights`` + 1 block chain of ``nval``
+    validators built by a source node (bs_chain) into sqlite stores; a
+    byzantine copy whose block ``bad`` carries a flipped LastCommit
+    signature, and an honest copy; then three syncs of a fresh node over
+    the loopback (bs_run): (a) on a fresh KeyTableCache, prefetch depth 8,
+    (b) warm tables, depth 8, (c) warm, depth 0.  Each must store the
+    source's blocks and states key for key, reach its app record and hash
+    and hand over its state, stop the byzantine peer once and no honest
+    one, count no pool-routine error, verify every batch at or above the
+    device threshold on the keyed tier (the host tier only below it) and
+    launch verify_keyed; (a) builds the tables of the set's keys and of
+    one newcomer per rotation inside the synced heights, (b) and (c)
+    build none."""
+    import shutil
+    import tempfile
+
+    from cometbft_tpu_torch.crypto import verify_queue as VQ
+    from cometbft_tpu_torch.ops import ed25519_verify as EV
+    from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.state import encode_state
+    from cometbft_tpu_torch.utils.trace import TRACER
+
+    t_phase = time.perf_counter()
+    threads = live_threads()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="blocksync_", dir=root)
+    key = str(dev)
+    saved_cache = PR._caches.get(key)
+    ring = TRACER.capacity
+    threshold = EV.runtime_device_min_batch(dev)
+    res: dict = {}
+    try:
+        TRACER.set_capacity(64 * heights + 4096)
+        rs = np.random.RandomState(SEED + 16)
+        chain = bs_chain(work, dev, heights, nval, every, BS_TXS, rs, nsigners)
+        # a val: tx at height h changes the set that signs height h + 2
+        newcomers = sum(1 for h in chain["rotations"] if h + 2 <= heights)
+        print(f"blocksync{nval} [{smi}]: BASELINE config 4 (internal/blocksync fast-sync "
+              f"replay, 1k blocks x 1k-validator commits) at {nval} validators, "
+              f"{heights} heights")
+        print(f"  data: {chain['data_s']:.2f} s ({chain['keys_s']:.2f} s of it the keys; "
+              f"signing {chain['sign_s']:.2f} s in {nsigners} workers, apply_block "
+              f"{chain['apply_s']:.2f} s, save_block {chain['save_s']:.2f} s): "
+              f"{heights + 1} blocks, {chain['txs']} txs, {(heights + 1) * nval} precommits, "
+              f"{len(chain['rotations'])} rotations ({newcomers} newcomers sign inside the "
+              f"synced heights); sqlite {chain['mib']:.2f} MiB; device threshold {threshold}")
+        res.update(data_s=chain["data_s"], sign_s=chain["sign_s"], src_mib=chain["mib"],
+                   rotations=len(chain["rotations"]))
+        byz_dir, honest_dir = os.path.join(work, "byzantine"), os.path.join(work, "honest")
+        bs_byzantine(chain["src_dir"], byz_dir, bad)
+        copy_stores(chain["src_dir"], honest_dir)
+        want_state = chain["state"]
+        # the kernels at the shapes of a cold verify-ahead step: the
+        # commits of heights 1..8 (1024 keys, 4-bit combs) in one
+        # 8192-lane slice, signature #0 flipped as the byzantine block's
+        PR._caches[key] = PR.KeyTableCache(dev)
+        triples, expected = prefetch_triples(chain["src_dir"], VQ.DEFAULT_PREFETCH_DEPTH)
+        _, _, plan, verdicts, _ = run_verify(triples, dev)
+        if verdicts != expected:
+            raise AssertionError("blocksync: the prefetch batch's verdicts are not the oracle's")
+        res["prefetch_check"] = check_fused(f"blocksync-prefetch ({len(triples)} lanes)", plan,
+                                            expected, dev)
+        for name, depth, cold in (("a", VQ.DEFAULT_PREFETCH_DEPTH, True),
+                                  ("b", VQ.DEFAULT_PREFETCH_DEPTH, False), ("c", 0, False)):
+            if cold:
+                PR._caches[key] = PR.KeyTableCache(dev)
+            built0 = PR._caches[key].stats["keys_built"]
+            r = bs_run(name, dev, chain, byz_dir, honest_dir, work, depth, registry, timeout_s)
+            r["keys_built"] = PR._caches[key].stats["keys_built"] - built0
+            for what, got, want in (("block store", r["block_image"], chain["block_image"]),
+                                    ("state store", r["state_image"], chain["state_image"])):
+                diff = image_diff(got, want)
+                if diff:
+                    raise AssertionError(f"blocksync ({name}): the synced {what} differs from "
+                                         f"the source's: {diff}")
+            if r["app_record"] != chain["app_record"] or r["app_hash"] != chain["app_hash"]:
+                raise AssertionError(f"blocksync ({name}): the app's state or hash differs")
+            if encode_state(r["state"]) != want_state or r["top"] != heights:
+                raise AssertionError(f"blocksync ({name}): handed over the state at "
+                                     f"{r['state'].last_block_height}, applied to {r['top']}")
+            if [p for p, _ in r["stops"]] != ["byzantine"] or any(r["servers_stops"]):
+                raise AssertionError(f"blocksync ({name}): stops {r['stops']}, the servers' "
+                                     f"{r['servers_stops']}")
+            if r["pool_errors"]:
+                raise AssertionError(f"blocksync ({name}): {r['pool_errors']} pool-routine "
+                                     f"errors")
+            # every batch at or above the threshold on the keyed tier;
+            # the host tier only below it
+            off = [(n, t) for n, t, _ in r["verifiers"]
+                   if n and t != "keyed" and not (t == "host" and n < threshold)]
+            if off:
+                raise AssertionError(f"blocksync ({name}): verifies (signatures, tier) {off} "
+                                     f"off the keyed tier (device threshold {threshold})")
+            want_built = nval + newcomers if cold else 0
+            if r["keys_built"] != want_built:
+                raise AssertionError(f"blocksync ({name}): {r['keys_built']} keys built, not "
+                                     f"{want_built}")
+            want = {"sha512_keyed": 1, "verify_keyed": 1}
+            if cold:
+                want["build_tables"] = 1 + newcomers
+            need_launches(f"blocksync ({name})", r["launches"], want)
+            bs_print(name, depth, cold, r, heights, nval)
+            res[name] = {k: r[k] for k in ("wall_applied", "wall_switch", "launches", "busy",
+                                           "hits", "misses", "redone", "mib", "keys_built")}
+            res[name]["steps"] = {k: (1e3 * pct(v, 50), 1e3 * max(v))
+                                  for k, v in r["steps"].items() if v}
+    finally:
+        TRACER.set_capacity(ring)
+        shutil.rmtree(work)
+        if saved_cache is None:
+            PR._caches.pop(key, None)
+        else:
+            PR._caches[key] = saved_cache
+    res["launches"] = end_phase("blocksync", threads)
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"  blocksync phase: {res['wall_s']:.2f} s")
+    return res
+
+
+def bs_print(name: str, depth: int, cold: bool, r: dict, heights: int, nval: int) -> None:
+    """One run's lines: walls, rates, the per-step split, the cache, the
+    coalesced prefetch batches, launches, busy share, stops."""
+    wall = r["wall_applied"]
+    sigs = sum(n for n, _, _ in r["verifiers"])
+    queue_sizes = [n for n, _, where in r["verifiers"] if where.startswith("verify-queue")]
+    inline = [n for n, _, where in r["verifiers"] if not where.startswith("verify-queue")]
+    tiers = sorted({t for n, t, _ in r["verifiers"] if n})
+    steps = r["steps"]
+
+    def line(label: str) -> str:
+        xs = steps.get(label)
+        if not xs:
+            return f"{label} -"
+        return f"{label} {1e3 * pct(xs, 50):.3f} / {1e3 * max(xs):.3f}"
+
+    print(f"  ({name}) {'cold' if cold else 'warm'} tables, prefetch depth {depth}: "
+          f"{heights} blocks applied in {wall:.3f} s ({heights / wall:.2f} blocks/s, "
+          f"{heights * nval / wall:.0f} commit signatures/s), switch to consensus at "
+          f"{r['wall_switch']:.3f} s")
+    print(f"    p50 / max ms per step (tracer spans): " + "; ".join(
+        line(k) for k in ("pool wait",) + tuple(label for label, *_ in BS_STEPS)))
+    print(f"    spec cache: {r['hits']:.0f} hits, {r['misses']:.0f} misses "
+          f"({r['hits'] / (2 * heights):.1f} hits per verify); prefetch batches "
+          f"{len(queue_sizes)} (coalesced sizes p50 "
+          f"{pct(queue_sizes, 50) if queue_sizes else 0:.0f}, max "
+          f"{max(queue_sizes, default=0)}), verifiers outside the queue {len(inline)} "
+          f"({sum(inline)} signatures); {sigs} signatures sent to verifiers, tiers {tiers}")
+    by_tier: dict = {}
+    for n, tier, _ in r["verifiers"]:
+        if n:
+            by_tier[tier] = by_tier.get(tier, 0) + 1
+    print(f"    launches {r['launches']}; keys built {r['keys_built']}; verifiers per tier "
+          f"{by_tier}; busy share {r['busy'] / wall:.3f} ({r['busy']:.3f} s); sqlite "
+          f"{r['mib']:.2f} MiB; stops {r['stops']}, redone {r['redone']}")
+    print(f"    cost model after the run (tier: sigs/s, samples, source): " + "; ".join(
+        f"bucket {b}: " + ", ".join(f"{t} {v:.0f} {n} {src}" for t, v, n, src in rows)
+        for b, rows in r["cost"].items() if rows) + f"; adopted orders {r['orders']}")
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--warm150"]:
         if len(sys.argv) > 2:
@@ -4140,6 +4934,9 @@ def run_all(torch) -> int:
     # phase 15: persistence and the light client
     light_sync_phase(dev, smi)
     check_ladder("light sync phase")
+    # phase 16: blocksync catch-up
+    bsync = blocksync_phase(dev, smi, registry)
+    check_ladder("blocksync phase")
     for line in registry.expose().splitlines():
         if line.startswith(("cometbft_crypto_dispatch_tier", "cometbft_crypto_dispatch_decisions",
                             "cometbft_crypto_device_hangs_total", "cometbft_crypto_key_pool")):
@@ -4155,6 +4952,7 @@ def run_all(torch) -> int:
             "replaces": ("cometbft_tpu/ops/sha512.py:116" if kname.startswith("sha")
                          else "cometbft_tpu/ops/field.py:338"),
             "launches": main150["launches"][kname],
+            "blocksync_launches": bsync["a"]["launches"].get(kname, 0),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None,
@@ -4164,6 +4962,7 @@ def run_all(torch) -> int:
         "source": "cometbft_tpu_torch/csrc/verify_keyed.cu",
         "replaces": "cometbft_tpu/ops/field.py:338",
         "launches": main150["launches"]["verify_keyed"],
+        "blocksync_launches": bsync["a"]["launches"].get("verify_keyed", 0),
         "max_abs_err": vk150["err"], "ms": vk150["ms"], "plain_ms": vk150["plain_ms"],
         "bound_ms": vk150["bound"][0], "bound_by": vk150["bound"][1],
         "library_ms": None, "G": vk150["group"],
@@ -4174,6 +4973,7 @@ def run_all(torch) -> int:
         "source": "cometbft_tpu_torch/csrc/sha512.cu",
         "replaces": "cometbft_tpu/ops/sha512.py:116",
         "launches": main150["launches"]["sha512_keyed"],
+        "blocksync_launches": bsync["a"]["launches"].get("sha512_keyed", 0),
         "max_abs_err": sha["err"], "ms": sha["ms"], "plain_ms": sha["plain_ms"],
         "bound_ms": sha["bound"][0], "bound_by": sha["bound"][1],
         "library_ms": None,
@@ -4183,6 +4983,7 @@ def run_all(torch) -> int:
         "source": "cometbft_tpu_torch/csrc/verify_generic.cu",
         "replaces": "cometbft_tpu/ops/field.py:338",
         "launches": gen150["launches"]["verify_generic"],
+        "blocksync_launches": bsync["a"]["launches"].get("verify_generic", 0),
         "max_abs_err": vg150["err"], "ms": vg150["ms"], "plain_ms": vg150["plain_ms"],
         "bound_ms": vg150["bound"][0], "bound_by": vg150["bound"][1],
         "library_ms": None, "shape": list(vg150["shape"]),
@@ -4193,6 +4994,7 @@ def run_all(torch) -> int:
         "source": "cometbft_tpu_torch/csrc/build_tables.cu",
         "replaces": "cometbft_tpu/ops/precompute.py:115",
         "launches": main150["launches"]["build_tables"],
+        "blocksync_launches": bsync["a"]["launches"].get("build_tables", 0),
         "max_abs_err": b["err"], "ms": b["ms"], "plain_ms": b["plain_ms"],
         "bound_ms": b["bound"][0], "bound_by": b["bound"][1],
         "library_ms": None, "shapes": [list(x) for x in b["choice"]],

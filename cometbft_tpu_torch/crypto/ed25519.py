@@ -25,15 +25,20 @@ SEED_SIZE = 32
 
 
 class Ed25519PubKey(PubKey):
-    __slots__ = ("_bytes",)
+    __slots__ = ("_bytes", "_address")
 
     def __init__(self, data: bytes):
         if len(data) != PUB_KEY_SIZE:
             raise ValueError(f"ed25519 pubkey must be {PUB_KEY_SIZE} bytes")
         self._bytes = bytes(data)
+        self._address: bytes | None = None
 
     def address(self) -> bytes:
-        return hashlib.sha256(self._bytes).digest()[:20]
+        # computed once per key: a 1024-validator set's sort, proposer
+        # step and lookups ask for every address several times a block
+        if self._address is None:
+            self._address = hashlib.sha256(self._bytes).digest()[:20]
+        return self._address
 
     def bytes(self) -> bytes:
         return self._bytes

@@ -38,8 +38,7 @@ factory is not guarded either: a factory that raises fails the batch.
 
 The defaults are the reference's, as module constants and constructor
 arguments (the reference reads ``CMT_TPU_*`` variables; the port reads
-none), plus a cap on a prefetch buffer's size that the reference does
-not have (``PREFETCH_BATCH``).  Observability: ``crypto_verify_queue_*``, the
+none).  Observability: ``crypto_verify_queue_*``, the
 ``verify_queue/prepare`` and ``verify_queue/launch`` spans, and
 ``crypto_host_device_overlap_ratio``: the cumulative share of launch
 wall time covered by host preparation of another buffer.
@@ -64,8 +63,8 @@ PRIORITY_LIGHT = "light_client"
 PRIORITY_INGEST = "ingest"
 _PRIORITIES = (PRIORITY_CONSENSUS, PRIORITY_PREFETCH, PRIORITY_LIGHT, PRIORITY_INGEST)
 
-#: blocksync prefetch depth in blocks (0 disables prefetch); blocksync,
-#: which owns it, is not ported yet
+#: blocksync prefetch depth in blocks (0 disables prefetch), the
+#: default of ``BlocksyncReactor(prefetch_depth=...)``
 DEFAULT_PREFETCH_DEPTH = 8
 #: speculative-cache capacity in entries
 DEFAULT_SPEC_CACHE_CAP = 65536
@@ -76,12 +75,8 @@ DEFAULT_CHECKTX_WAIT_MS = 5
 #: light_client micro-batcher: the same two bounds
 DEFAULT_LIGHT_BATCH = 1024
 DEFAULT_LIGHT_WAIT_MS = 10
-#: largest coalesced batch: one MAX_LAUNCH slice
+#: largest coalesced batch, in every lane: one MAX_LAUNCH slice
 DEFAULT_MAX_BATCH = 8192
-#: largest prefetch buffer (at most ``max_batch``): one commit at 1k
-#: validators, so a prepare holds the collector for one block's host
-#: work, not a depth's worth
-PREFETCH_BATCH = 1024
 #: how long a caller waits on a future before QueueUnavailable
 DEFAULT_WAIT_S = 120.0
 
@@ -232,9 +227,8 @@ class VerifyQueue(BaseService):
     ``crypto.batch.create_batch_verifier``, on ``cuda``).  ``launch``
     replaces the launch phase: ``launch(items) -> list[bool]`` over
     (pub_key, msg, sig) tuples (tests gate it to pin the overlap).
-    ``use_cache=False`` turns the speculative cache off.  A buffer holds
-    at most ``max_batch`` requests, a prefetch buffer ``PREFETCH_BATCH``
-    (the reference caps every lane at ``max_batch``)."""
+    ``use_cache=False`` turns the speculative cache off.  A buffer of
+    any lane holds at most ``max_batch`` requests."""
 
     def __init__(self, verifier_factory=None, launch=None,
                  max_batch: int = DEFAULT_MAX_BATCH,
@@ -249,8 +243,7 @@ class VerifyQueue(BaseService):
                              "cometbft_tpu_torch.crypto.verify_queue"))
         self._factory = verifier_factory
         self._launch = launch
-        self._max_batch = {p: max_batch for p in _PRIORITIES}
-        self._max_batch[PRIORITY_PREFETCH] = min(PREFETCH_BATCH, max_batch)
+        self._max_batch = max_batch
         self._batchers: dict[str, _LaneBatcher] = {
             PRIORITY_INGEST: _LaneBatcher(checktx_batch, checktx_wait_ms),
             PRIORITY_LIGHT: _LaneBatcher(light_batch, light_wait_ms),
@@ -395,7 +388,7 @@ class VerifyQueue(BaseService):
                 if gate is not None and not gate.ready(self._pending[p], self._draining):
                     continue
                 if self._pending[p] and not self._prepared[p]:
-                    take = min(len(self._pending[p]), self._max_batch[p])
+                    take = min(len(self._pending[p]), self._max_batch)
                     reqs = [self._pending[p].popleft() for _ in range(take)]
                     self._preparing_lane = p
                     _crypto_metrics().verify_queue_depth.labels(priority=p).set(

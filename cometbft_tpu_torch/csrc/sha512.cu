@@ -471,14 +471,20 @@ extern "C" int sha512_padded_launch(const void* buf, int nblocks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `ev0` and `ev1`, when not null, are CUDA events recorded on `stream`
+// just before and just after the kernel, in this one call.
 extern "C" int sha512_keyed_launch(const void* buf, int64_t ld, int bucket, int nblocks,
-                                   void* out, int64_t n, void* stream) {
+                                   void* out, int64_t n, void* stream, void* ev0, void* ev1) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ev0 != nullptr) cudaEventRecord(static_cast<cudaEvent_t>(ev0), st);
   if (n > 0) {
     const unsigned grid = static_cast<unsigned>((n + LANES - 1) / LANES);
-    sha512_keyed_kernel<<<grid, SPLIT, 0, static_cast<cudaStream_t>(stream)>>>(
+    sha512_keyed_kernel<<<grid, SPLIT, 0, st>>>(
         static_cast<const uint8_t*>(buf), ld, bucket, nblocks, static_cast<uint8_t*>(out), n);
   }
-  return static_cast<int>(cudaGetLastError());
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (ev1 != nullptr) cudaEventRecord(static_cast<cudaEvent_t>(ev1), st);
+  return rc;
 }
 
 #else  // a host C++ compiler: sha512_keyed's per-lane body on the CPU

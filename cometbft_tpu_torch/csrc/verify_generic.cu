@@ -347,21 +347,27 @@ int launch(const vg::Args& a, cudaStream_t stream) {
 // C interface, loaded with ctypes: launches on `stream`, does not
 // synchronise, returns cudaGetLastError() (0 on success).  `q8` may be
 // null.  (quarters, group) is a compiled shape, or (0, 0) for the
-// launcher's choice (verify_generic_shape).
+// launcher's choice (verify_generic_shape).  `ev0` and `ev1`, when not
+// null, are CUDA events recorded on `stream` just before and just after
+// the kernel, in this one call.
 extern "C" int verify_generic_launch(const void* buf, int64_t ld, const void* digest,
                                      const void* b_comb, void* mult, void* ok, void* q8,
-                                     int64_t n, int quarters, int group, void* stream) {
+                                     int64_t n, int quarters, int group, void* stream,
+                                     void* ev0, void* ev1) {
   const vg::Args a{static_cast<const uint8_t*>(buf), ld, static_cast<const uint8_t*>(digest),
                    static_cast<const int32_t*>(b_comb), static_cast<int32_t*>(mult),
                    static_cast<uint8_t*>(ok), static_cast<int32_t*>(q8), n};
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   if (quarters == 0 && group == 0) vg::pick_shape(n, quarters, group);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  if (ev0 != nullptr) cudaEventRecord(static_cast<cudaEvent_t>(ev0), st);
 #define VG_LAUNCH(Q, G) \
-  if (quarters == Q && group == G) return launch<Q, G>(a, st);
+  if (quarters == Q && group == G) rc = launch<Q, G>(a, st);
   VG_SHAPES(VG_LAUNCH)
 #undef VG_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (ev1 != nullptr) cudaEventRecord(static_cast<cudaEvent_t>(ev1), st);
+  return rc;
 }
 
 // The dynamic shared memory one block takes at a shape, in bytes; -1 for

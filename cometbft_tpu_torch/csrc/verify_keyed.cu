@@ -227,11 +227,15 @@ int launch_group(const vk::Args& a, int group, cudaStream_t st) {
 // C interface, loaded with ctypes: launches on `stream`, does not
 // synchronise, returns cudaGetLastError() (0 on success).  `q8` may be
 // null.  window_bits is 8 or 4; group is 1, 8 or 32 threads per lane,
-// or 0 for the launcher's choice (verify_keyed_group).
+// or 0 for the launcher's choice (verify_keyed_group).  `ev0` and `ev1`,
+// when not null, are CUDA events recorded on `stream` just before and
+// just after the kernel, in this one call (its device time, with no
+// host gap between the launch and its events).
 extern "C" int verify_keyed_launch(const void* buf, int64_t ld, int bucket, const void* digest,
                                    const void* table, int64_t m, const void* key_valid,
                                    int64_t cap, const void* b_table, void* ok, void* q8,
-                                   int64_t n, int window_bits, int group, void* stream) {
+                                   int64_t n, int window_bits, int group, void* stream,
+                                   void* ev0, void* ev1) {
   const vk::Args a{static_cast<const uint8_t*>(buf), ld, bucket,
                    static_cast<const uint8_t*>(digest), static_cast<const int32_t*>(table), m,
                    static_cast<const uint8_t*>(key_valid), cap,
@@ -241,7 +245,11 @@ extern "C" int verify_keyed_launch(const void* buf, int64_t ld, int bucket, cons
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   if (group == 0) group = pt::pick_group(n);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return window_bits == 8 ? launch_group<8>(a, group, st) : launch_group<4>(a, group, st);
+  if (ev0 != nullptr) cudaEventRecord(static_cast<cudaEvent_t>(ev0), st);
+  const int rc =
+      window_bits == 8 ? launch_group<8>(a, group, st) : launch_group<4>(a, group, st);
+  if (ev1 != nullptr) cudaEventRecord(static_cast<cudaEvent_t>(ev1), st);
+  return rc;
 }
 
 // The dynamic shared memory one block (one warp) takes at group size

@@ -1,7 +1,9 @@
-"""The metrics structs the port writes: ``StoreMetrics`` (the block
-store's), and the crypto plane's ``CryptoMetrics`` and ``HealthMetrics``
-with their process-wide sinks (a copy of cometbft_tpu/metrics/__init__.py:
-565-591 and 630-925, in the reference's order).
+"""The metrics structs the port writes: the event bus's, state
+execution's, blocksync's, statesync's ``backfilled_blocks``, the ABCI
+proxy's, the block store's (``StoreMetrics``), and the crypto plane's
+``CryptoMetrics`` and ``HealthMetrics`` with their process-wide sinks (a
+copy of cometbft_tpu/metrics/__init__.py: 352-535, 565-591 and 630-925,
+in the reference's order).
 
 Each struct takes a ``utils.metrics.Registry``, or None for no-op
 metrics (the reference's NopMetrics).  The sinks are no-ops until a
@@ -31,8 +33,175 @@ class _Nop:
     def child(self, *values):
         return self
 
+    def remove(self, **kv) -> None:
+        pass
+
+    def __bool__(self) -> bool:
+        # falsy so hot paths can skip work that only feeds gauges
+        # (e.g. EventBus queue-depth mirroring) when metrics are off
+        return False
+
 
 _NOP = _Nop()
+
+
+class EventBusMetrics:
+    """Event-bus publish latency and subscriber backpressure (no
+    reference analog; event_bus.go publishes unmeasured)."""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.publish_duration_seconds = _NOP
+            self.subscriber_queue_depth = _NOP
+            self.subscriber_dropped_total = _NOP
+            return
+        s = "event_bus"
+        self.publish_duration_seconds = reg.histogram(
+            s, "publish_duration_seconds",
+            "Wall seconds per event publish (query matching + "
+            "delivery to every subscriber queue).",
+            buckets=DEFAULT_TIME_BUCKETS,
+        )
+        self.subscriber_queue_depth = reg.gauge(
+            s, "subscriber_queue_depth",
+            "Deepest undelivered-message queue per subscriber client.",
+            labels=("client_id",),
+        )
+        self.subscriber_dropped_total = reg.counter(
+            s, "subscriber_dropped_total",
+            "Subscriptions canceled out-of-capacity (slow consumer). "
+            "Label-less on purpose: client ids are per-connection, so "
+            "labeling would leak counter children under WS churn — "
+            "the canceled client is named in the event-bus log line.",
+        )
+
+
+class StateMetrics:
+    """(state/metrics.go Metrics)"""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.block_processing_time = _NOP
+            self.consensus_param_updates = _NOP
+            self.validator_set_updates = _NOP
+            self.pruned_blocks = _NOP
+            self.process_proposal_total = _NOP
+            return
+        s = "state"
+        self.block_processing_time = reg.histogram(
+            s, "block_processing_time",
+            "Seconds spent processing a block (FinalizeBlock).",
+            buckets=DEFAULT_TIME_BUCKETS,
+        )
+        self.pruned_blocks = reg.counter(
+            s, "pruned_blocks", "Blocks removed by the background pruner."
+        )
+        self.consensus_param_updates = reg.counter(
+            s, "consensus_param_updates",
+            "Number of consensus parameter updates by the app.",
+        )
+        self.validator_set_updates = reg.counter(
+            s, "validator_set_updates",
+            "Number of validator set updates by the app.",
+        )
+        self.process_proposal_total = reg.counter(
+            s, "process_proposal_total",
+            "ProcessProposal verdicts by result (accept, reject) — a "
+            "nonzero reject count on an honest node is the observable "
+            "proof that a forged proposal was refused before any "
+            "prevote endorsed it.",
+            labels=("result",),
+        )
+
+
+class BlockSyncMetrics:
+    """(internal/blocksync/metrics.go Metrics) — the fast-sync plane.
+
+    Reference parity (syncing, num_txs, total_txs, block_size_bytes,
+    latest_block_height) plus the request-pipeline depth and peer
+    timeout/evict counters the reference keeps internal to BlockPool.
+    """
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.syncing = self.latest_block_height = _NOP
+            self.num_txs = self.total_txs = self.block_size_bytes = _NOP
+            self.request_pipeline_depth = _NOP
+            self.peer_timeouts = self.peer_evictions = _NOP
+            return
+        s = "blocksync"
+        self.syncing = reg.gauge(
+            s, "syncing",
+            "1 while the node is fast-syncing blocks, 0 otherwise.",
+        )
+        self.latest_block_height = reg.gauge(
+            s, "latest_block_height",
+            "Latest height applied by the block syncer.",
+        )
+        self.num_txs = reg.gauge(
+            s, "num_txs",
+            "Transactions in the latest synced block.",
+        )
+        self.total_txs = reg.counter(
+            s, "total_txs",
+            "Total transactions applied by the block syncer.",
+        )
+        self.block_size_bytes = reg.gauge(
+            s, "block_size_bytes",
+            "Size of the latest synced block in bytes.",
+        )
+        self.request_pipeline_depth = reg.gauge(
+            s, "request_pipeline_depth",
+            "Block requests currently in flight across peers "
+            "(pool.go maxPendingRequests window occupancy).",
+        )
+        self.peer_timeouts = reg.counter(
+            s, "peer_timeouts",
+            "Peers dropped for letting a block request exceed the "
+            "request timeout.",
+        )
+        self.peer_evictions = reg.counter(
+            s, "peer_evictions",
+            "Peers evicted from the pool for serving an invalid "
+            "block (RedoRequest path).",
+        )
+
+
+class StateSyncMetrics:
+    """(statesync/metrics.go Metrics) — the snapshot-restore plane: only
+    ``backfilled_blocks``, which blocksync counts after a handoff; the
+    rest comes with statesync."""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.backfilled_blocks = _NOP
+            return
+        s = "statesync"
+        self.backfilled_blocks = reg.counter(
+            s, "backfilled_blocks",
+            "Blocks fetched to close the snapshot-to-head gap after a "
+            "snapshot restore (blocksync running in the post-statesync "
+            "handoff).",
+        )
+
+
+class ProxyMetrics:
+    """(proxy/metrics.go Metrics) — every ABCI call on all four
+    logical connections, timed at the proxy seam."""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.method_timing_seconds = _NOP
+            return
+        self.method_timing_seconds = reg.histogram(
+            "abci", "method_timing_seconds",
+            "Wall seconds per ABCI call, by method and logical "
+            "connection (consensus | mempool | query | snapshot) — "
+            "proxy/metrics.go MethodTiming.",
+            buckets=(0.0001, 0.0004, 0.002, 0.009, 0.02, 0.1, 0.65, 2,
+                     6, 25),
+            labels=("method", "connection"),
+        )
 
 
 class StoreMetrics:

@@ -70,14 +70,14 @@ SOURCES = {
         "sha512.cu",
         {
             "sha512_padded_launch": (_VP, _I32, _VP, _VP, _I64, _VP),
-            "sha512_keyed_launch": (_VP, _I64, _I32, _I32, _VP, _I64, _VP),
+            "sha512_keyed_launch": (_VP, _I64, _I32, _I32, _VP, _I64, _VP, _VP, _VP),
         },
     ),
     "verify_keyed": (
         "verify_keyed.cu",
         {
             "verify_keyed_launch": (_VP, _I64, _I32, _VP, _VP, _I64, _VP, _I64,
-                                    _VP, _VP, _VP, _I64, _I32, _I32, _VP),
+                                    _VP, _VP, _VP, _I64, _I32, _I32, _VP, _VP, _VP),
             "verify_keyed_group": (_I64,),
             "verify_keyed_smem_bytes": (_I32,),
         },
@@ -86,7 +86,7 @@ SOURCES = {
         "verify_generic.cu",
         {
             "verify_generic_launch": (_VP, _I64, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32,
-                                      _VP),
+                                      _VP, _VP, _VP),
             "verify_generic_shape": (_I64, _PI32, _PI32),
             "verify_generic_smem_bytes": (_I32, _I32),
         },

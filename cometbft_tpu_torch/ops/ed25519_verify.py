@@ -57,12 +57,24 @@ threshold (``runtime_device_min_batch``), or with a message over 4096
 bytes, a batch takes the host tier.  Only a typed tier fault (a chaos
 fault, a launch the watchdog declared hung) moves a batch down the
 walk; a kernel that fails to build or to launch raises to the caller.
+
+On a card the cost model's sample for a device tier's batch is the
+device time of its kernels, not the batch's wall as in the reference:
+inside ``execute`` each launcher records a CUDA event just before and
+just after its kernel in the same call (``device_timing``), and the
+sample is the sum of those intervals.  A wall follows the host's load: a
+blocksync node's verify queue shares the interpreter with the sync, and
+there a batch's wall is mostly the wait for the interpreter lock; it
+also holds the packing, whose cost follows the messages' lengths, so an
+estimate learned on one workload would misrank the tiers on another.
+The host tier's sample, and a device tier's on the CPU, stay the wall.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 import time
 from collections import deque
 
@@ -140,6 +152,62 @@ def build_padded_input(r_enc, a_enc, msg, msglen, nblocks: int):
     return buf.to(torch.uint8), nblocks_lane[0]
 
 
+#: this thread's device timing: ``.pairs``, a list of (start, end)
+#: CUDA events while a device_timing block runs (else absent), and
+#: ``.pool``, device index -> events to reuse
+_TIMING = threading.local()
+
+
+class device_timing:
+    """``with device_timing() as t``: every sha512_keyed, verify_keyed
+    and verify_generic launch this thread makes inside the block records
+    a CUDA event just before and just after its kernel, in the launcher's
+    own call; after the kernels have run, ``t.seconds()`` is the sum of
+    those intervals, or None when nothing launched on a card.  Blocks do
+    not nest."""
+
+    def __init__(self) -> None:
+        self.pairs: list = []
+
+    def __enter__(self):
+        self.pairs = _TIMING.pairs = []
+        return self
+
+    def __exit__(self, *exc):
+        del _TIMING.pairs
+        pool = _TIMING.__dict__.setdefault("pool", {})
+        for dev, ev0, ev1 in self.pairs:
+            pool.setdefault(dev, []).extend((ev0, ev1))
+        return False
+
+    def seconds(self) -> float | None:
+        if not self.pairs:
+            return None
+        self.pairs[-1][2].synchronize()
+        return sum(ev0.elapsed_time(ev1) for _, ev0, ev1 in self.pairs) / 1e3
+
+
+def _launch_events(device) -> tuple:
+    """(start, end) event handles for a launcher to record around its
+    kernel on ``device`` inside a :class:`device_timing` block, else
+    (None, None).  An event is created by recording it once on the
+    device's stream (PyTorch creates a CUDA event at its first record)."""
+    pairs = getattr(_TIMING, "pairs", None)
+    if pairs is None:
+        return None, None
+    pool = _TIMING.__dict__.setdefault("pool", {}).setdefault(device.index, [])
+    evs = []
+    for _ in range(2):
+        if pool:
+            evs.append(pool.pop())
+        else:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(device))
+            evs.append(ev)
+    pairs.append((device.index, evs[0], evs[1]))
+    return evs[0].cuda_event, evs[1].cuda_event
+
+
 def _le32(rows: torch.Tensor) -> torch.Tensor:
     b = rows.to(torch.int32)
     return b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24)
@@ -182,7 +250,7 @@ def keyed_digest(buf: torch.Tensor, bucket: int, nblocks: int) -> torch.Tensor:
     out = torch.empty((64, n), dtype=torch.uint8, device=buf.device)
     rc = _build.library("sha512").sha512_keyed_launch(
         buf.data_ptr(), buf.stride(0), bucket, nblocks, out.data_ptr(), n,
-        torch.cuda.current_stream(buf.device).cuda_stream,
+        torch.cuda.current_stream(buf.device).cuda_stream, *_launch_events(buf.device),
     )
     _build.check(rc, "sha512_keyed")
     _build.LAUNCHES["sha512_keyed"] += 1
@@ -282,6 +350,7 @@ def verify_keyed_fused(buf, digest, table, key_valid, b_table, bucket: int,
         m, key_valid.data_ptr(), key_valid.shape[0], b_table.data_ptr(),
         ok.data_ptr(), None if out_point is None else out_point.data_ptr(), n,
         window_bits, group, torch.cuda.current_stream(buf.device).cuda_stream,
+        *_launch_events(buf.device),
     )
     _build.check(rc, "verify_keyed")
     _build.LAUNCHES["verify_keyed"] += 1
@@ -348,6 +417,7 @@ def verify_generic_fused(buf, digest, bucket: int, shape=None, want_q: bool = Fa
         buf.data_ptr(), buf.stride(0), digest.data_ptr(), b_comb.data_ptr(),
         mult.data_ptr(), ok.data_ptr(), None if q8 is None else q8.data_ptr(), n,
         *(shape or (0, 0)), torch.cuda.current_stream(buf.device).cuda_stream,
+        *_launch_events(buf.device),
     )
     _build.check(rc, "verify_generic")
     _build.LAUNCHES["verify_generic"] += 1
@@ -893,6 +963,7 @@ class TorchBatchVerifier(BatchVerifier):
             if tier not in ("host", _dispatch.FLOOR_TIER) and not ladder.active(tier):
                 continue  # demoted since the plan was made
             t_tier = time.perf_counter()
+            timing = device_timing()
             try:
                 if tier == _dispatch.FLOOR_TIER:
                     ok, results = self._run_python(plan)
@@ -903,7 +974,8 @@ class TorchBatchVerifier(BatchVerifier):
                     # make the next rung count the queue wait again
                     note_qw = not queue_wait_noted
                     queue_wait_noted = True
-                    results = self._launch_tier(tier, plan, note_queue_wait=note_qw)
+                    with timing:
+                        results = self._launch_tier(tier, plan, note_queue_wait=note_qw)
                     ok = all(results)
                     _crypto_metrics().kernel_time_seconds.observe(time.perf_counter() - t_tier)
             except (_dispatch.TierFault, _dispatch.TierUnavailable) as exc:
@@ -917,6 +989,7 @@ class TorchBatchVerifier(BatchVerifier):
                 continue
             seconds = time.perf_counter() - t_tier
             if tier in _dispatch.DEVICE_TIERS:
+                seconds = timing.seconds() or seconds
                 cold = tier not in _RAN_TIERS
                 _RAN_TIERS.add(tier)
                 if tier in ("keyed", "keyed_mesh"):

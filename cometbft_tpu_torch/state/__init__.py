@@ -9,19 +9,19 @@ persists snapshots plus historical validator sets and params so
 lagging peers, evidence verification, and the light client can look up
 the set at any height.
 
-Left out until ABCI is ported: ``Store.save_finalize_block_response``
-and ``load_finalize_block_response`` (they encode the reference's
-``abci/types.FinalizeBlockResponse``).  ``Store.__init__`` keeps the
-reference's format marker and its check for legacy ABCI responses, and
-``prune`` still clears that prefix, so a state DB reads the same in both
+``Store.save_finalize_block_response`` persists each height's
+``FinalizeBlockResponse`` in ``abci/codec``'s bytes, under the
+reference's format marker, so a state DB reads the same in both
 packages.  The reference's ``trustguard.check_sink`` in ``Store.save``
-(its line 272) is left out.
+(its line 272) is left out; ``Store.save`` runs in a ``state/save``
+span (utils/trace.py), which the reference does not have.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from cometbft_tpu_torch.abci.types import FinalizeBlockResponse
 from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey
 from cometbft_tpu_torch.types.block import Block, BlockID, Commit, Data, Header
 from cometbft_tpu_torch.types.genesis import GenesisDoc
@@ -29,6 +29,7 @@ from cometbft_tpu_torch.types.params import ConsensusParams
 from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
 from cometbft_tpu_torch.utils.db import DB
 from cometbft_tpu_torch.utils.protoio import ProtoReader, ProtoWriter
+from cometbft_tpu_torch.utils.trace import TRACER
 from cometbft_tpu_torch.version import BLOCK_PROTOCOL
 
 
@@ -276,21 +277,22 @@ class Store:
     def save(self, state: State) -> None:
         """Persist the snapshot plus height-indexed validator/params
         lookups, in one atomic batch (state/store.go save)."""
-        next_height = state.last_block_height + 1
-        ops: list[tuple[bytes, bytes | None]] = []
-        if next_height == 1:
-            next_height = state.initial_height
-            # Genesis: index the initial sets too.
-            ops.append(self._vals_op(next_height, state.validators))
-        ops.append(self._vals_op(next_height + 1, state.next_validators))
-        ops.append(
-            (
-                _hkey(_PARAMS, next_height),
-                encode_consensus_params(state.consensus_params),
+        with TRACER.span("state/save", cat="state", height=state.last_block_height):
+            next_height = state.last_block_height + 1
+            ops: list[tuple[bytes, bytes | None]] = []
+            if next_height == 1:
+                next_height = state.initial_height
+                # Genesis: index the initial sets too.
+                ops.append(self._vals_op(next_height, state.validators))
+            ops.append(self._vals_op(next_height + 1, state.next_validators))
+            ops.append(
+                (
+                    _hkey(_PARAMS, next_height),
+                    encode_consensus_params(state.consensus_params),
+                )
             )
-        )
-        ops.append((_STATE_KEY, encode_state(state)))
-        self._db.write_batch(ops)
+            ops.append((_STATE_KEY, encode_state(state)))
+            self._db.write_batch(ops)
 
     def bootstrap(self, state: State) -> None:
         """Seed the store from an out-of-band state (statesync)
@@ -331,6 +333,17 @@ class Store:
         ):
             return decode_consensus_params(raw)
         raise StateError(f"no consensus params at height {height}")
+
+    def save_finalize_block_response(
+        self, height: int, resp: FinalizeBlockResponse
+    ) -> None:
+        self._db.set(_hkey(_ABCI_RESP, height), resp.encode())
+
+    def load_finalize_block_response(
+        self, height: int
+    ) -> FinalizeBlockResponse | None:
+        raw = self._db.get(_hkey(_ABCI_RESP, height))
+        return FinalizeBlockResponse.decode(raw) if raw is not None else None
 
     def prune(self, retain_height: int) -> None:
         """Delete historical validators/params/responses below

@@ -82,17 +82,19 @@ class Logger:
         with self._lock:
             self._sink.write(line + "\n")
 
-    def debug(self, msg: str, **kv: Any) -> None:
+    # ``args`` format ``msg`` as ``logging`` does, so a service's
+    # start/stop lines (utils/service.py) can go to this logger too
+    def debug(self, msg: str, *args: Any, **kv: Any) -> None:
         if self._enabled(0):
-            self._emit("debug", msg, kv)
+            self._emit("debug", msg % args if args else msg, kv)
 
-    def info(self, msg: str, **kv: Any) -> None:
+    def info(self, msg: str, *args: Any, **kv: Any) -> None:
         if self._enabled(1):
-            self._emit("info", msg, kv)
+            self._emit("info", msg % args if args else msg, kv)
 
-    def error(self, msg: str, **kv: Any) -> None:
+    def error(self, msg: str, *args: Any, **kv: Any) -> None:
         if self._enabled(2):
-            self._emit("error", msg, kv)
+            self._emit("error", msg % args if args else msg, kv)
 
 
 class NopLogger(Logger):

@@ -106,6 +106,16 @@ class Metric:
                 child = self._children.setdefault(values, self._new_child())
         return child
 
+    def remove(self, **kv: str) -> None:
+        """Drop one labelset's child so a retired label value (a
+        departed peer, a closed WS client) stops exposing a stale
+        series instead of lingering forever."""
+        if not self.label_names:
+            return  # the label-less child always exists
+        key = tuple(str(kv.get(n, "")) for n in self.label_names)
+        with self._mtx:
+            self._children.pop(key, None)
+
     # label-less convenience passthroughs
     def inc(self, amount: float = 1.0) -> None:
         self._children[()].inc(amount)

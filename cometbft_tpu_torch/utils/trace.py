@@ -9,12 +9,21 @@ The port puts them around whole batches, never per-signature work:
   of one batch on the keyed or generic tier (ops/ed25519_verify.py);
 - ``verify_queue/prepare`` and ``verify_queue/launch``: the verify
   queue's host phase and its launch (crypto/verify_queue.py), so the
-  overlap shows as a prepare inside another batch's launch.
+  overlap shows as a prepare inside another batch's launch;
+- a blocksync step's parts: ``blocksync/decode`` (kind, bytes) for each
+  received message, ``blocksync/sync_step`` (height) for each block
+  pair validated and applied, inside it ``blocksync/part_set``,
+  ``verify_commit``, ``store/save_block``, ``blocksync/prefetch``
+  (sigs) and ``exec/apply_block``, which holds ``verify_commit``, the
+  ``abci/*`` calls and ``state/save`` (blocksync/reactor.py,
+  state/execution.py, state/__init__.py; the reference has only the
+  executor's and the verify's).
 
 A disabled tracer returns one shared no-op span.  The ring's capacity
 and the on/off switch are constructor arguments (the reference reads
 ``CMT_TPU_TRACE_RING`` and ``CMT_TPU_TRACE``; the port reads no
-environment variable): ``TRACER.set_enabled(False)`` turns it off.
+environment variable): ``TRACER.set_enabled(False)`` turns it off and
+``TRACER.set_capacity(n)`` resizes the ring.
 """
 
 from __future__ import annotations
@@ -199,6 +208,15 @@ class SpanTracer:
 
     def set_enabled(self, enabled: bool) -> None:
         self.enabled = bool(enabled)
+
+    def set_capacity(self, capacity: int) -> None:
+        """Resize the ring to ``capacity`` events, keeping the newest."""
+        with self._mtx:
+            self._events = deque(self._events, maxlen=max(capacity, 1))
+
+    @property
+    def capacity(self) -> int:
+        return self._events.maxlen
 
 
 #: the process-wide tracer: every span of the port records here

@@ -530,6 +530,74 @@ def test_cold_runs_stay_out_of_the_cost_model(votes, stand_in_cache, monkeypatch
     assert verify() == (entry, [("keyed", 1)])
 
 
+class _FakeEvent:
+    """A stand-in for a CUDA event: ``elapsed_time`` is 1 ms."""
+
+    def __init__(self, handle: int) -> None:
+        self.cuda_event = handle
+
+    def synchronize(self) -> None:
+        pass
+
+    def elapsed_time(self, end) -> float:
+        return 1.0
+
+
+def test_device_timing_hands_out_events_only_inside_its_block(monkeypatch):
+    """``_launch_events`` gives a launcher (None, None) outside a
+    device_timing block and a (start, end) pair of handles inside it,
+    from the thread's pool; ``seconds()`` sums the pairs' intervals and
+    the block's end returns the events to the pool."""
+    dev = types.SimpleNamespace(index=0)
+    pool = [_FakeEvent(k) for k in range(1, 5)]
+    monkeypatch.setattr(EV._TIMING, "pool", {0: list(pool)}, raising=False)
+    assert EV._launch_events(dev) == (None, None)
+    with EV.device_timing() as t:
+        assert EV._launch_events(dev) == (4, 3)
+        assert EV._launch_events(dev) == (2, 1)
+    assert t.seconds() == pytest.approx(0.002)
+    assert sorted(e.cuda_event for e in EV._TIMING.pool[0]) == [1, 2, 3, 4]
+    assert EV._launch_events(dev) == (None, None)
+    with EV.device_timing() as t:
+        pass
+    assert t.seconds() is None
+
+
+def test_a_device_tiers_sample_is_its_kernels_time(votes, stand_in_cache, monkeypatch):
+    """On a card a device tier's cost-model sample is its kernels' time
+    from the launchers' events (the reference takes the batch's wall): a
+    run that waits -- here a sleep, in a node the interpreter lock held
+    by its other threads -- adds nothing to it.  Where no kernel timed
+    itself (the plain versions on the CPU) the sample is the wall."""
+    triples, _ = votes
+    monkeypatch.setattr(EV, "_RAN_TIERS", {"keyed"})
+    dev = types.SimpleNamespace(index=0)
+    monkeypatch.setattr(EV._TIMING, "pool", {0: [_FakeEvent(k) for k in range(4)]},
+                        raising=False)
+
+    def run(launch_events):
+        def waits(tier, plan):
+            if launch_events:
+                EV._launch_events(dev)      # a kernel's pair: 1 ms
+            time.sleep(0.2)
+            return np.ones(plan.n, bool)
+
+        D.reset_for_tests()
+        bv = _port(triples, device_min_batch=0, cache=stand_in_cache)
+        monkeypatch.setattr(bv, "_run_tier", waits)
+        plan = bv.plan()
+        plan.entry.launched = True
+        t0 = time.perf_counter()
+        assert bv.execute(plan)[0] and bv.last_tier == "keyed"
+        assert time.perf_counter() - t0 >= 0.2
+        [row] = D.LADDER.cost_snapshot()["table"]
+        assert (row["tier"], row["samples"]) == ("keyed", 1)
+        return row["sigs_per_sec"] * 1e-3 / plan.n
+
+    assert run(True) == pytest.approx(1.0)           # n signatures in 1 ms
+    assert run(False) < 1.0 / 200                     # the wall: over 0.2 s
+
+
 def test_a_card_ledger_in_the_checkout_changes_no_test(votes, stand_in_cache, monkeypatch,
                                                        tmp_path):
     """chip_smoke.py appends its tier rows to the port's perf ledger in

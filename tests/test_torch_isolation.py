@@ -44,7 +44,11 @@ _CHILD = textwrap.dedent(
     assert host.verify() == (False, expected) and host.last_tier == "host"
     for name in ("crypto.dispatch", "crypto.health", "crypto.ed25519_native", "metrics",
                  "utils.flight", "utils.metrics", "utils.service", "utils.trace",
-                 "crypto.verify_queue", "parallel.mesh", "ops.jitguard", "ops.contracts"):
+                 "crypto.verify_queue", "parallel.mesh", "ops.jitguard", "ops.contracts",
+                 "p2p", "p2p.base_reactor", "p2p.conn.connection", "abci", "abci.types",
+                 "abci.codec", "abci.kvstore", "proxy", "mempool", "mempool.ingest",
+                 "blocksync", "blocksync.pool", "blocksync.reactor", "state.execution",
+                 "types.event_bus", "utils.pubsub", "utils.fail"):
         assert "cometbft_tpu_torch." + name in sys.modules, name
     leaked = sorted(m for m in sys.modules
                     if m == "cometbft_tpu" or m.startswith("cometbft_tpu."))

@@ -437,6 +437,75 @@ def test_verify_commit_on_the_card(dev, monkeypatch):
     assert VQ._QUEUE is None
 
 
+def test_cost_sample_is_the_kernels_time_on_the_card(dev, monkeypatch):
+    """A warm keyed verify of a 150-validator commit whose packing is
+    held up 0.1 s: the cost model's sample is the kernels' device time
+    from the launchers' events (sha512_keyed and verify_keyed, under 10
+    ms), not the batch's wall."""
+    import time
+
+    from cometbft_tpu_torch.crypto import dispatch as D
+
+    monkeypatch.setattr(PR, "_caches", {})
+    vals, _, votes, _ = _precommit_set(150, b"gpu-sample", "gpu-chain")
+
+    def verify():
+        bv = EV.TorchBatchVerifier(device=dev)
+        for v in votes:
+            bv.add(vals.get_by_index(v.validator_index).pub_key, v.sign_bytes("gpu-chain"),
+                   v.signature)
+        ok, _ = bv.verify()
+        assert ok and bv.last_tier == "keyed"
+
+    verify()                       # cold: the tables' build, no sample
+    D.reset_for_tests()
+    pack = EV.pack_inputs
+
+    def slow_pack(*args, **kwargs):
+        time.sleep(0.1)
+        return pack(*args, **kwargs)
+
+    monkeypatch.setattr(EV, "pack_inputs", slow_pack)
+    try:
+        t0 = time.perf_counter()
+        verify()
+        wall = time.perf_counter() - t0
+        [row] = [r for r in D.LADDER.cost_snapshot()["table"] if r["tier"] == "keyed"]
+    finally:
+        D.reset_for_tests()
+    assert wall >= 0.1 and row["samples"] == 1
+    assert 150 / row["sigs_per_sec"] < 0.01
+
+
+def test_blocksync_on_the_card(dev, monkeypatch):
+    """chip_smoke's blocksync phase at a small size: a 24-height chain of
+    128 validators (a light verify sends 86 signatures, over the device
+    threshold of 64) served over the loopback by a byzantine and an
+    honest peer, synced three times (cold, warm, no prefetch) on the
+    card.  The
+    phase checks the synced stores, app and handed-over state against
+    the source's, the one stop, no pool-routine error, the launches of
+    build_tables, sha512_keyed and verify_keyed, and verify_keyed at a
+    prefetch batch's shape against its plain version."""
+    import chip_smoke
+    from cometbft_tpu_torch import metrics as M
+    from cometbft_tpu_torch.crypto import dispatch as D
+    from cometbft_tpu_torch.utils.metrics import Registry
+
+    registry = Registry()
+    monkeypatch.setattr(M, "_CRYPTO", M.CryptoMetrics(registry))
+    monkeypatch.setattr(M, "_HEALTH", M.HealthMetrics(registry))
+    D.reset_for_tests()           # the static order: no estimate from another test
+    try:
+        res = chip_smoke.blocksync_phase(dev, "gpu test", registry, heights=24, nval=128,
+                                         every=10, bad=10, nsigners=2, timeout_s=120)
+        chip_smoke.check_ladder("blocksync on the card")
+    finally:
+        D.reset_for_tests()
+    assert res["a"]["launches"]["build_tables"] >= 1
+    assert res["prefetch_check"]["err"] == 0
+
+
 def test_mesh_on_repeated_shards_equals_keyed(dev, monkeypatch):
     """The keyed and generic mesh on four shards of cuda:0 give the
     single-device tiers' verdicts, planted invalids included; each shard

@@ -404,28 +404,41 @@ def test_consensus_busy_check_and_enqueue_hold_one_lock(monkeypatch):
     assert held and all(held)
 
 
-def test_prefetch_buffers_are_capped(monkeypatch):
-    """A prefetch buffer holds at most ``PREFETCH_BATCH`` requests (one
-    block at 1k validators); the other lanes keep ``max_batch``."""
-    assert vq.VerifyQueue()._max_batch == {
-        vq.PRIORITY_CONSENSUS: 8192, vq.PRIORITY_PREFETCH: 1024,
-        vq.PRIORITY_LIGHT: 8192, vq.PRIORITY_INGEST: 8192}
-    monkeypatch.setattr(vq, "PREFETCH_BATCH", 2)
-    gate = Gate()
-    q = vq.VerifyQueue(launch=gate, max_batch=4)
-    q.start()
-    try:
-        first = q.submit_many(_fake(ed.Ed25519PubKey, b"a", 1), vq.PRIORITY_PREFETCH)
-        assert gate.started.wait(WAIT)
-        rest = q.submit_many(_fake(ed.Ed25519PubKey, b"b", 5), vq.PRIORITY_PREFETCH)
-        votes = q.submit_many(_fake(ed.Ed25519PubKey, b"c", 6), vq.PRIORITY_CONSENSUS)
-        _until(lambda: q.stats()["prepared"]["consensus"] == 1, "the votes prepared")
-        gate.release.set()
-        assert all(f.result(WAIT) is not None for f in first + rest + votes)
-    finally:
-        gate.release.set()
-        q.stop()
-    assert [len(b) for b in gate.launched] == [1, 4, 2, 2, 2, 1]
+def test_prefetch_buffers_are_capped():
+    """Every lane's buffer, prefetch's included, holds at most
+    ``max_batch`` requests, as in the reference: a blocksync step's
+    prefetch (8 commits of 1024 signatures) coalesces into one 8192-lane
+    buffer.  Both queues get one script: a prefetch batch held in the
+    gate, then 5 prefetch and 6 consensus requests at ``max_batch`` 4.
+    Each lane's buffers, in order, and the first buffer launched after
+    the hold (consensus preempts prefetch) are the reference's."""
+    assert vq.VerifyQueue()._max_batch == jvq.VerifyQueue()._max_batch == 8192
+
+    def run(mod, pk_cls):
+        gate = Gate()
+        q = mod.VerifyQueue(launch=gate, max_batch=4)
+        q.start()
+        try:
+            first = q.submit_many(_fake(pk_cls, b"a", 1), mod.PRIORITY_PREFETCH)
+            assert gate.started.wait(WAIT)
+            rest = q.submit_many(_fake(pk_cls, b"b", 5), mod.PRIORITY_PREFETCH)
+            votes = q.submit_many(_fake(pk_cls, b"c", 6), mod.PRIORITY_CONSENSUS)
+            _until(lambda: q.stats()["prepared"]["consensus"] == 1, "the votes prepared")
+            gate.release.set()
+            assert [f.result(WAIT) for f in first + rest + votes] == \
+                _verdicts(_fake(pk_cls, b"a", 1) + _fake(pk_cls, b"b", 5)
+                          + _fake(pk_cls, b"c", 6))
+        finally:
+            gate.release.set()
+            q.stop()
+        lanes = {"prefetch": [], "consensus": []}
+        for batch in gate.launched:
+            lanes["consensus" if batch[0].startswith(b"c") else "prefetch"].append(len(batch))
+        return lanes, gate.launched[1][0][:1]
+
+    want = ({"prefetch": [1, 4, 1], "consensus": [4, 2]}, b"c")
+    assert run(jvq, jed.Ed25519PubKey) == want
+    assert run(vq, ed.Ed25519PubKey) == want
 
 
 def test_result_length_mismatch_fails_the_batch():
