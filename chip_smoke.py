@@ -181,15 +181,21 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    serves block 300 with a flipped LastCommit signature, an honest copy
    the rest; ``verify_keyed`` and ``sha512_keyed`` held to their plain
    versions on a cold verify-ahead step's 8192 lanes (4-bit combs); then
-   three syncs of a fresh node (``BlocksyncReactor`` over the loopback:
-   ``LoopbackSwitch``, one delivery thread per direction carrying the
-   wire bytes; a started ``VerifyQueue`` with the default factory):
-   (a) cold tables, prefetch depth 8, (b) warm, (c) warm, depth 0.
-   Each prints its walls, blocks/s, the per-step split, the cache hits,
-   the prefetch batches, launches and the busy share, and must store the
+   two syncs of a fresh node between three nodes over 127.0.0.1 TCP
+   (each a ``p2p.test_util.make_switch``: its own ``NodeKey``, a
+   ``MultiplexTransport``, secret connections, MConnection, a ``Switch``
+   with the ``BlocksyncReactor`` under "BLOCKSYNC"; the syncer dials the
+   byzantine server, then the honest one when the byzantine peer is
+   removed; a started ``VerifyQueue`` with the default factory):
+   (a) cold tables, prefetch depth 8, (c) warm, depth 0.  Each prints
+   its walls, blocks/s, the per-step split with the syncer's
+   ``switch_dispatch``, a BlockResponse's bytes, the bytes each way per
+   peer, each handshake's ms, the frame backend, the cache hits, the
+   prefetch batches, launches and the busy share, and must store the
    source's blocks and states key for key, reach its app hash, hand the
-   source's state to consensus, stop the byzantine peer once and no
-   honest one, and count no pool-routine error;
+   source's state to consensus, stop the byzantine peer (by node ID)
+   once for "sent invalid block" and no honest one, and count no
+   pool-routine error and no send timeout;
 17. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -211,6 +217,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -3989,118 +3996,6 @@ BS_BAD_HEIGHT = 300
 BS_SIGNERS = 8
 
 
-class LoopbackLink:
-    """One direction of a loopback connection: a FIFO of (channel, bytes)
-    that one delivery thread hands to ``dst.receive`` in order, as
-    MConnection delivers a channel's messages.  ``src`` is the sender as
-    the receiving node sees it.  After ``close`` nothing more is
-    delivered."""
-
-    def __init__(self, name: str, dst) -> None:
-        import queue
-
-        self.dst, self.src, self.closed = dst, None, False
-        self.q: queue.Queue = queue.Queue()
-        self.thread = threading.Thread(target=self._run, name=name, daemon=True)
-
-    def put(self, channel: int, msg: bytes) -> bool:
-        if self.closed:
-            return False
-        self.q.put((channel, bytes(msg)))
-        return True
-
-    def _run(self) -> None:
-        from cometbft_tpu_torch.p2p import Envelope
-
-        while True:
-            item = self.q.get()
-            if item is None:
-                return
-            if not self.closed:
-                self.dst.receive(Envelope(item[0], self.src, item[1]))
-
-    def close(self) -> None:
-        self.closed = True
-        self.q.put(None)
-
-
-class LoopbackPeer:
-    """Another node as one node sees it: ``send`` and ``try_send`` put a
-    message on the link to it."""
-
-    def __init__(self, peer_id: str, link: LoopbackLink) -> None:
-        self.id, self._link = peer_id, link
-
-    def send(self, channel: int, msg: bytes) -> bool:
-        return self._link.put(channel, msg)
-
-    try_send = send
-
-
-class LoopbackSwitch:
-    """What a reactor reads of its switch (``peers.get``, ``broadcast``,
-    ``stop_peer_for_error``) over in-process links that carry the wire
-    bytes.  A stop is recorded, closes the connection both ways and calls
-    ``on_stop(peer_id)`` when set."""
-
-    def __init__(self, node_id: str, reactor) -> None:
-        self.id, self.reactor = node_id, reactor
-        self.peers: dict = {}
-        self.links: dict = {}
-        self.threads: list = []
-        self.stops: list = []
-        self.on_stop = None
-        reactor.set_switch(self)
-
-    def broadcast(self, channel: int, msg: bytes) -> None:
-        for peer in list(self.peers.values()):
-            peer.try_send(channel, msg)
-
-    def stop_peer_for_error(self, peer, reason) -> None:
-        self.stops.append((peer.id, str(reason)))
-        other = self.links[peer.id][1]
-        disconnect(self, other, reason)
-        if self.on_stop is not None:
-            self.on_stop(peer.id)
-
-
-def connect(a: LoopbackSwitch, b: LoopbackSwitch) -> None:
-    """A loopback connection between two switches: one link and one
-    delivery thread each way, then each reactor's ``add_peer``."""
-    ab = LoopbackLink(f"loop-{a.id}-{b.id}", b.reactor)
-    ba = LoopbackLink(f"loop-{b.id}-{a.id}", a.reactor)
-    a.peers[b.id], b.peers[a.id] = LoopbackPeer(b.id, ab), LoopbackPeer(a.id, ba)
-    ab.src, ba.src = b.peers[a.id], a.peers[b.id]
-    a.links[b.id], b.links[a.id] = (ab, b), (ba, a)
-    for link in (ab, ba):
-        a.threads.append(link.thread)
-        link.thread.start()
-    a.reactor.add_peer(a.peers[b.id])
-    b.reactor.add_peer(b.peers[a.id])
-
-
-def disconnect(a: LoopbackSwitch, b: LoopbackSwitch, reason=None) -> None:
-    """Closes both directions and calls each side's ``remove_peer``."""
-    for x, y in ((a, b), (b, a)):
-        peer = x.peers.pop(y.id, None)
-        link = x.links.pop(y.id, (None,))[0]
-        if link is not None:
-            link.close()
-        if peer is not None:
-            x.reactor.remove_peer(peer, reason)
-
-
-def close_switches(switches) -> None:
-    """Closes every link of ``switches`` and joins every delivery thread
-    they ever started."""
-    for sw in switches:
-        for other in [o for _, o in sw.links.values()]:
-            disconnect(sw, other)
-    for sw in switches:
-        for thread in sw.threads:
-            thread.join(10)
-
-
 class ConsensusRecorder:
     """Stands in for the consensus reactor: keeps the state blocksync
     hands over and when."""
@@ -4380,15 +4275,111 @@ def bs_byzantine(src_dir: str, dst_dir: str, height: int) -> None:
             db.close()
 
 
+class Handshakes:
+    """Stands in for ``handshake_duration_seconds`` in the installed
+    P2PMetrics: forwards each observation to the histogram and keeps it."""
+
+    def __init__(self, histogram) -> None:
+        self.histogram, self.seconds = histogram, []
+
+    def observe(self, value: float) -> None:
+        self.seconds.append(value)
+        self.histogram.observe(value)
+
+
+class ThreadCPU:
+    """CPU seconds (user + system: /proc/<pid>/task/<tid>/stat, in clock
+    ticks) each thread spent between ``start`` and ``stop``.  A ``sh``
+    loop outside the interpreter reads every thread's counters each
+    ``period`` seconds, so the sampling takes no interpreter time from the
+    threads it measures and a thread that ends keeps its last sample;
+    ``stop`` reads the living threads once more.  ``roles`` maps a
+    thread's native id to a label; the rest go under their Python names,
+    threads Python did not start (torch's, the CUDA driver's) under
+    "native threads", and an unlabelled thread that ended under
+    "ended (unnamed)"."""
+
+    def __init__(self, period: float = 1.0) -> None:
+        self.tick = os.sysconf("SC_CLK_TCK")
+        self.period = period
+        self.roles: dict = {}
+        self._alive0: dict = {}     # native id -> name, at start
+        self._proc = self._out = None
+        self.process0 = self.wall0 = 0.0
+
+    def _stat_cpu(self, line: str) -> tuple[int, float]:
+        fields = line.rsplit(")", 1)[1].split()
+        return int(line.split(" ", 1)[0]), (int(fields[11]) + int(fields[12])) / self.tick
+
+    def start(self) -> None:
+        import tempfile
+
+        self._alive0 = {t.native_id: t.name for t in threading.enumerate()}
+        self._out = tempfile.TemporaryFile()
+        self._proc = subprocess.Popen(
+            ["sh", "-c", f"while :; do cat /proc/{os.getpid()}/task/*/stat 2>/dev/null; "
+                         f"echo; sleep {self.period}; done"],
+            stdout=self._out, stderr=subprocess.DEVNULL, start_new_session=True)
+        self.process0, self.wall0 = time.process_time(), time.perf_counter()
+
+    def close(self) -> None:
+        """Kills the loop's process group (the shell, and its ``cat`` or
+        ``sleep``) and reaps the shell."""
+        if self._proc is None:
+            return
+        os.killpg(self._proc.pid, signal.SIGKILL)
+        self._proc.wait()
+        self._proc = None
+
+    def stop(self) -> dict:
+        """-> {label: CPU s} and, under "process" and "wall", the
+        process's CPU seconds and the wall seconds since ``start``."""
+        out = {"process": time.process_time() - self.process0,
+               "wall": time.perf_counter() - self.wall0}
+        names = {t.native_id: t.name for t in threading.enumerate()}
+        lines = []
+        for tid in names:
+            try:
+                with open(f"/proc/self/task/{tid}/stat") as f:
+                    lines.append(f.read())
+            except OSError:       # the thread ended after enumerate()
+                pass
+        self.close()
+        self._out.seek(0)
+        samples = self._out.read().decode().split("\n\n")
+        self._out.close()
+        first: dict = {}
+        last: dict = {}
+        for line in samples[0].splitlines():
+            tid, cpu = self._stat_cpu(line)
+            first[tid] = last[tid] = cpu
+        for line in "\n".join(samples[1:] + lines).splitlines():
+            if ")" in line:
+                tid, cpu = self._stat_cpu(line)
+                last[tid] = cpu
+        for tid, cpu in last.items():
+            # a thread missing from the first sample was born during the run
+            label = self.roles.get(tid) or names.get(tid) or self._alive0.get(tid) or (
+                "native threads" if tid in first else "ended (unnamed)")
+            out[label] = out.get(label, 0.0) + cpu - first.get(tid, 0.0)
+        return out
+
+
 def bs_run(name: str, dev, chain: dict, byz_dir: str, honest_dir: str, work: str, depth: int,
-           registry, timeout_s: float) -> dict:
+           registry, timeout_s: float, handshakes: Handshakes) -> dict:
     """One sync of a fresh node (fresh sqlite stores, a fresh KVStoreApp,
     the genesis state, BlocksyncReactor(block_sync=True) with
     ``prefetch_depth=depth``, a started VerifyQueue with the default
-    factory) from two serving nodes over the loopback: the byzantine one
-    first, the honest one when the byzantine one is stopped.  The launch
-    counters at 0 and the tracer's ring cleared just before the sync
-    starts; the per-step split is read from the ring's spans.  -> dict."""
+    factory) from two serving nodes over 127.0.0.1 TCP: three switches of
+    ``p2p.test_util.make_switch`` (each its own node key), the syncer
+    dialling the byzantine one first and the honest one when the
+    byzantine peer is removed.  The launch counters at 0 and the
+    tracer's ring cleared just before the dial; the per-step split, the
+    syncer's dispatches and a BlockResponse's bytes are read from the
+    ring's spans, the bytes each way from the peers' flow monitors, the
+    handshakes from ``handshakes``, each thread's CPU seconds by role
+    (ThreadCPU; a connection's three threads as "syncer ..." or
+    "server ...").  -> dict."""
     import shutil
 
     from cometbft_tpu_torch.blocksync import reactor as R
@@ -4396,6 +4387,7 @@ def bs_run(name: str, dev, chain: dict, byz_dir: str, honest_dir: str, work: str
     from cometbft_tpu_torch.crypto import dispatch as D
     from cometbft_tpu_torch.crypto import verify_queue as VQ
     from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.p2p.test_util import make_switch
     from cometbft_tpu_torch.utils.log import NopLogger
     from cometbft_tpu_torch.utils.trace import TRACER
 
@@ -4407,27 +4399,60 @@ def bs_run(name: str, dev, chain: dict, byz_dir: str, honest_dir: str, work: str
                        (lambda pk: B.create_batch_verifier(pk, device="cpu")))
     made = []
     real_factory = B.create_batch_verifier
+    cpu = ThreadCPU()
     res: dict = {}
+
+    def label_threads(side: str, add_peer):
+        def labelled(peer) -> None:
+            for th in (peer.mconn._send_thread, peer.mconn._recv_thread,
+                       peer.mconn._ping_thread):
+                cpu.roles[th.native_id] = f"{side} {th.name}"
+            add_peer(peer)
+        return labelled
+
     try:
         for sname, sdir in (("byzantine", byz_dir), ("honest", honest_dir)):
             bstore, sstore, dbs = open_stores(sdir)
             servers.append(dbs)
             r = R.BlocksyncReactor(sstore.load(), None, bstore, False, logger=NopLogger(),
                                    device=dev)
-            switches.append(LoopbackSwitch(sname, r))
+            r.add_peer = label_threads("server", r.add_peer)
+            switches.append(make_switch(network=CHAIN_ID, moniker=sname,
+                                        reactors={"BLOCKSYNC": r}))
         recorder = ConsensusRecorder()
         reactor = R.BlocksyncReactor(node["state"], node["exec"], node["block_store"], True,
                                      consensus_reactor=recorder, logger=NopLogger(),
                                      prefetch_depth=depth, device=dev)
-        syncer = LoopbackSwitch("syncer", reactor)
+        syncer = make_switch(network=CHAIN_ID, moniker="syncer",
+                             reactors={"BLOCKSYNC": reactor})
         byz_sw, honest_sw = switches
         switches.append(syncer)
+        byz_id, honest_id = (sw.node_info().node_id for sw in (byz_sw, honest_sw))
+        stopped: dict = {sw.node_info().moniker: [] for sw in switches}
+        for sw in switches:
+            real_stop = sw.stop_peer_for_error
 
-        def on_stop(peer_id: str) -> None:
-            if peer_id == "byzantine" and "honest" not in syncer.peers:
-                connect(syncer, honest_sw)
+            def stop_peer_for_error(peer, reason, sw=sw, real_stop=real_stop) -> None:
+                if sw.peers.has(peer.id):
+                    stopped[sw.node_info().moniker].append((peer.id, reason))
+                real_stop(peer, reason)
 
-        syncer.on_stop = on_stop
+            sw.stop_peer_for_error = stop_peer_for_error
+        recv_tids, wire = set(), {}
+        add, remove = reactor.add_peer, reactor.remove_peer
+
+        def add_peer(peer) -> None:
+            recv_tids.add(peer.mconn._recv_thread.ident)
+            add(peer)
+
+        def remove_peer(peer, reason=None) -> None:
+            wire[peer.id] = peer.status()
+            remove(peer, reason)
+            if peer.id == byz_id and syncer.is_running() and not syncer.peers.has(honest_id):
+                syncer.dial_peers_async([honest_sw.transport.listen_addr])
+
+        reactor.add_peer = label_threads("syncer", add_peer)
+        reactor.remove_peer = remove_peer
         redone: list = []
         redo = reactor.pool.redo_request
 
@@ -4448,21 +4473,29 @@ def bs_run(name: str, dev, chain: dict, byz_dir: str, honest_dir: str, work: str
         miss0 = registry_value(registry, "cometbft_crypto_verify_queue_spec_cache",
                                'result="miss"')
         busy0 = busy_seconds(registry)
+        shakes0 = len(handshakes.seconds)
         q.start()
         VQ.install_queue(q)
-        for r in (sw.reactor for sw in switches):
-            r.start()
+        for sw in switches:
+            sw.start()
         _build.reset_launches()
         TRACER.clear()
+        cpu.start()
         t0 = time.perf_counter()
-        connect(syncer, byz_sw)
+        if not syncer.dial_peer_with_address(byz_sw.transport.listen_addr):
+            raise AssertionError(f"blocksync {name}: the syncer could not dial the byzantine "
+                                 f"server")
         if not recorder.done.wait(timeout_s):
             raise AssertionError(f"blocksync {name}: no switch to consensus in {timeout_s} s "
                                  f"(applied up to {reactor.state.last_block_height}, pool "
                                  f"{reactor.pool.status()}, errors "
                                  f"{reactor.pool_routine_errors})")
         launches = launched()
+        res["cpu"] = cpu.stop()
         busy = busy_seconds(registry) - busy0
+        stops = {k: list(v) for k, v in stopped.items()}
+        for peer in syncer.peers.copy():
+            wire[peer.id] = peer.status()
         cost = D.LADDER.cost_snapshot()
         res["cost"] = {b: [(e["tier"], e["sigs_per_sec"], e["samples"], e["source"])
                            for e in cost["table"] if e["bucket"] == b]
@@ -4470,23 +4503,28 @@ def bs_run(name: str, dev, chain: dict, byz_dir: str, honest_dir: str, work: str
         res["orders"] = [(o["bucket"], o["order"], o["reorders"]) for o in cost["orders"]]
         res.update(
             t0=t0, wall_switch=recorder.at - t0, launches=launches, busy=busy, redone=redone,
-            stops=syncer.stops, pool_errors=reactor.pool_routine_errors,
+            stops=stops, byz_id=byz_id, honest_id=honest_id,
+            syncer_id=syncer.node_info().node_id, pool_errors=reactor.pool_routine_errors,
             hits=registry_value(registry, "cometbft_crypto_verify_queue_spec_cache",
                                 'result="hit"') - hits0,
             misses=registry_value(registry, "cometbft_crypto_verify_queue_spec_cache",
                                   'result="miss"') - miss0,
             state=recorder.states[-1], q_stats=q.stats(),
             verifiers=[(len(v), v.last_tier, where) for v, where in made],
-            servers_stops=[sw.stops for sw in (byz_sw, honest_sw)],
-            pool_tid=reactor._pool_thread.ident)
+            wire={("byzantine" if pid == byz_id else "honest"): (st["send"]["bytes"],
+                                                                st["recv"]["bytes"])
+                  for pid, st in wire.items()},
+            handshakes=handshakes.seconds[shakes0:], pool_tid=reactor._pool_thread.ident)
     finally:
         B.create_batch_verifier = real_factory
+        cpu.close()
         for sw in switches:
-            if sw.reactor.is_running():
-                sw.reactor.stop()
+            if sw.is_running():
+                sw.stop()
+            else:
+                sw.transport.on_stop()   # never started: close its listener
         if reactor is not None and reactor._pool_thread is not None:
             reactor._pool_thread.join(30)
-        close_switches(switches)
         if q.is_running():
             q.stop()
         close_node(node)
@@ -4497,8 +4535,16 @@ def bs_run(name: str, dev, chain: dict, byz_dir: str, honest_dir: str, work: str
     if export["otherData"]["dropped_spans"]:
         raise AssertionError(f"blocksync {name}: the tracer's ring of {TRACER.capacity} spans "
                              f"dropped {export['otherData']['dropped_spans']}")
-    res.update(bs_steps([e for e in export["traceEvents"] if e["ph"] == "X"],
-                        res["pool_tid"], TRACER.epoch - res["t0"]))
+    events = [e for e in export["traceEvents"] if e["ph"] == "X"]
+    res.update(bs_steps(events, res["pool_tid"], TRACER.epoch - res["t0"]))
+    res["steps"]["switch_dispatch (syncer)"] = [
+        e["dur"] / 1e6 for e in events if e["name"] == "switch_dispatch" and e["tid"] in recv_tids]
+    res["block_bytes"] = [e["args"]["bytes"] for e in events if e["name"] == "blocksync/decode"
+                          and e["args"].get("kind") == "block"]
+    dropped = [e["args"]["dropped"] for e in events
+               if e["name"] == "channel_enqueue" and "dropped" in e["args"]]
+    res["send_timeouts"] = dropped.count("timeout")
+    res["try_send_failures"] = dropped.count("full")
     # the synced node's stores, opened again, and its app, against the source's
     block_store, state_store, dbs = open_stores(sync_dir)
     try:
@@ -4596,22 +4642,26 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
     """Phase 16, blocksync1024: a ``heights`` + 1 block chain of ``nval``
     validators built by a source node (bs_chain) into sqlite stores; a
     byzantine copy whose block ``bad`` carries a flipped LastCommit
-    signature, and an honest copy; then three syncs of a fresh node over
-    the loopback (bs_run): (a) on a fresh KeyTableCache, prefetch depth 8,
-    (b) warm tables, depth 8, (c) warm, depth 0.  Each must store the
+    signature, and an honest copy; then two syncs of a fresh node from
+    them over 127.0.0.1 TCP (bs_run): (a) on a fresh KeyTableCache,
+    prefetch depth 8, (c) warm tables, depth 0.  Each must store the
     source's blocks and states key for key, reach its app record and hash
-    and hand over its state, stop the byzantine peer once and no honest
-    one, count no pool-routine error, verify every batch at or above the
-    device threshold on the keyed tier (the host tier only below it) and
-    launch verify_keyed; (a) builds the tables of the set's keys and of
-    one newcomer per rotation inside the synced heights, (b) and (c)
-    build none."""
+    and hand over its state, stop the byzantine peer (by node ID) once
+    for "sent invalid block" and no honest one (a server stops the syncer
+    only for the connection the syncer closed), count no pool-routine
+    error and no send timeout, verify every batch at or above the device
+    threshold on the keyed tier (the host tier only below it) and launch
+    verify_keyed; (a) builds the tables of the set's keys and of one
+    newcomer per rotation inside the synced heights, (c) none."""
     import shutil
     import tempfile
 
+    from cometbft_tpu_torch import metrics as M
     from cometbft_tpu_torch.crypto import verify_queue as VQ
     from cometbft_tpu_torch.ops import ed25519_verify as EV
     from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.p2p.conn import connection as MC
+    from cometbft_tpu_torch.p2p.conn import secret_connection as SC
     from cometbft_tpu_torch.state import encode_state
     from cometbft_tpu_torch.utils.trace import TRACER
 
@@ -4623,17 +4673,24 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
     key = str(dev)
     saved_cache = PR._caches.get(key)
     ring = TRACER.capacity
+    saved_p2p = M.p2p_metrics()
+    p2p = M.P2PMetrics(registry)
+    p2p.handshake_duration_seconds = handshakes = Handshakes(p2p.handshake_duration_seconds)
     threshold = EV.runtime_device_min_batch(dev)
-    res: dict = {}
+    backend = "evp" if SC._NATIVE_PUMP.cmt_frame_backend() == 1 else "portable"
+    wire_errors = (SC.SecretConnectionError, MC.MConnError, OSError)
+    res: dict = {"frame_backend": backend}
     try:
-        TRACER.set_capacity(64 * heights + 4096)
+        M.install_p2p_metrics(p2p)
+        TRACER.set_capacity(128 * heights + 8192)
         rs = np.random.RandomState(SEED + 16)
         chain = bs_chain(work, dev, heights, nval, every, BS_TXS, rs, nsigners)
         # a val: tx at height h changes the set that signs height h + 2
         newcomers = sum(1 for h in chain["rotations"] if h + 2 <= heights)
         print(f"blocksync{nval} [{smi}]: BASELINE config 4 (internal/blocksync fast-sync "
               f"replay, 1k blocks x 1k-validator commits) at {nval} validators, "
-              f"{heights} heights")
+              f"{heights} heights, between nodes over 127.0.0.1 TCP (secret connections, "
+              f"frame backend {backend})")
         print(f"  data: {chain['data_s']:.2f} s ({chain['keys_s']:.2f} s of it the keys; "
               f"signing {chain['sign_s']:.2f} s in {nsigners} workers, apply_block "
               f"{chain['apply_s']:.2f} s, save_block {chain['save_s']:.2f} s): "
@@ -4656,12 +4713,12 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
             raise AssertionError("blocksync: the prefetch batch's verdicts are not the oracle's")
         res["prefetch_check"] = check_fused(f"blocksync-prefetch ({len(triples)} lanes)", plan,
                                             expected, dev)
-        for name, depth, cold in (("a", VQ.DEFAULT_PREFETCH_DEPTH, True),
-                                  ("b", VQ.DEFAULT_PREFETCH_DEPTH, False), ("c", 0, False)):
+        for name, depth, cold in (("a", VQ.DEFAULT_PREFETCH_DEPTH, True), ("c", 0, False)):
             if cold:
                 PR._caches[key] = PR.KeyTableCache(dev)
             built0 = PR._caches[key].stats["keys_built"]
-            r = bs_run(name, dev, chain, byz_dir, honest_dir, work, depth, registry, timeout_s)
+            r = bs_run(name, dev, chain, byz_dir, honest_dir, work, depth, registry, timeout_s,
+                       handshakes)
             r["keys_built"] = PR._caches[key].stats["keys_built"] - built0
             for what, got, want in (("block store", r["block_image"], chain["block_image"]),
                                     ("state store", r["state_image"], chain["state_image"])):
@@ -4674,12 +4731,16 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
             if encode_state(r["state"]) != want_state or r["top"] != heights:
                 raise AssertionError(f"blocksync ({name}): handed over the state at "
                                      f"{r['state'].last_block_height}, applied to {r['top']}")
-            if [p for p, _ in r["stops"]] != ["byzantine"] or any(r["servers_stops"]):
-                raise AssertionError(f"blocksync ({name}): stops {r['stops']}, the servers' "
-                                     f"{r['servers_stops']}")
-            if r["pool_errors"]:
+            stops = r["stops"]
+            server_stops = [(pid, type(why).__name__) for pid, why in stops["byzantine"]
+                            if pid != r["syncer_id"] or not isinstance(why, wire_errors)]
+            if [(p, str(why)) for p, why in stops["syncer"]] != \
+                    [(r["byz_id"], "sent invalid block")] or server_stops or stops["honest"]:
+                raise AssertionError(f"blocksync ({name}): stops {stops} (the byzantine server "
+                                     f"is {r['byz_id']}, the syncer {r['syncer_id']})")
+            if r["pool_errors"] or r["send_timeouts"]:
                 raise AssertionError(f"blocksync ({name}): {r['pool_errors']} pool-routine "
-                                     f"errors")
+                                     f"errors, {r['send_timeouts']} send timeouts")
             # every batch at or above the threshold on the keyed tier;
             # the host tier only below it
             off = [(n, t) for n, t, _ in r["verifiers"]
@@ -4697,10 +4758,13 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
             need_launches(f"blocksync ({name})", r["launches"], want)
             bs_print(name, depth, cold, r, heights, nval)
             res[name] = {k: r[k] for k in ("wall_applied", "wall_switch", "launches", "busy",
-                                           "hits", "misses", "redone", "mib", "keys_built")}
+                                           "hits", "misses", "redone", "mib", "keys_built",
+                                           "wire", "handshakes", "send_timeouts", "cpu")}
             res[name]["steps"] = {k: (1e3 * pct(v, 50), 1e3 * max(v))
                                   for k, v in r["steps"].items() if v}
+            res[name]["block_bytes"] = (pct(r["block_bytes"], 50), max(r["block_bytes"]))
     finally:
+        M.install_p2p_metrics(saved_p2p)
         TRACER.set_capacity(ring)
         shutil.rmtree(work)
         if saved_cache is None:
@@ -4714,8 +4778,10 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
 
 
 def bs_print(name: str, depth: int, cold: bool, r: dict, heights: int, nval: int) -> None:
-    """One run's lines: walls, rates, the per-step split, the cache, the
-    coalesced prefetch batches, launches, busy share, stops."""
+    """One run's lines: walls, rates, the per-step split, the wire (the
+    syncer's dispatches, a BlockResponse's bytes, the bytes each way per
+    peer, the handshakes), the cache, the coalesced prefetch batches,
+    launches, busy share, stops."""
     wall = r["wall_applied"]
     sigs = sum(n for n, _, _ in r["verifiers"])
     queue_sizes = [n for n, _, where in r["verifiers"] if where.startswith("verify-queue")]
@@ -4734,7 +4800,23 @@ def bs_print(name: str, depth: int, cold: bool, r: dict, heights: int, nval: int
           f"{heights * nval / wall:.0f} commit signatures/s), switch to consensus at "
           f"{r['wall_switch']:.3f} s")
     print(f"    p50 / max ms per step (tracer spans): " + "; ".join(
-        line(k) for k in ("pool wait",) + tuple(label for label, *_ in BS_STEPS)))
+        line(k) for k in ("pool wait",) + tuple(label for label, *_ in BS_STEPS)
+        + ("switch_dispatch (syncer)",)))
+    sizes = r["block_bytes"]
+    names = {r["byz_id"]: "byzantine", r["honest_id"]: "honest", r["syncer_id"]: "syncer"}
+    print(f"    wire: BlockResponse bytes p50 {pct(sizes, 50):.0f}, max {max(sizes)} "
+          f"({len(sizes)} received); bytes sent / received by the syncer per peer "
+          f"(flow monitors) {r['wire']}; handshakes ms (both ends of each connection) "
+          f"{[round(1e3 * x, 3) for x in r['handshakes']]}; send timeouts "
+          f"{r['send_timeouts']}, try_send failures {r['try_send_failures']}")
+    cpu = dict(r["cpu"])
+    process, cwall = cpu.pop("process"), cpu.pop("wall")
+    print(f"    CPU s by thread from the dial to the switch ({process:.2f} s of process CPU "
+          f"in {cwall:.2f} s; /proc ticks): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(cpu.items(), key=lambda kv: -kv[1]) if v >= 0.05))
+    stops = {who: [(names.get(pid, pid), str(why)) for pid, why in got]
+             for who, got in r["stops"].items()}
+    redone = [(h, names.get(pid, pid)) for h, pid in r["redone"]]
     print(f"    spec cache: {r['hits']:.0f} hits, {r['misses']:.0f} misses "
           f"({r['hits'] / (2 * heights):.1f} hits per verify); prefetch batches "
           f"{len(queue_sizes)} (coalesced sizes p50 "
@@ -4747,7 +4829,7 @@ def bs_print(name: str, depth: int, cold: bool, r: dict, heights: int, nval: int
             by_tier[tier] = by_tier.get(tier, 0) + 1
     print(f"    launches {r['launches']}; keys built {r['keys_built']}; verifiers per tier "
           f"{by_tier}; busy share {r['busy'] / wall:.3f} ({r['busy']:.3f} s); sqlite "
-          f"{r['mib']:.2f} MiB; stops {r['stops']}, redone {r['redone']}")
+          f"{r['mib']:.2f} MiB; stops by switch {stops}, redone {redone}")
     print(f"    cost model after the run (tier: sigs/s, samples, source): " + "; ".join(
         f"bucket {b}: " + ", ".join(f"{t} {v:.0f} {n} {src}" for t, v, n, src in rows)
         for b, rows in r["cost"].items() if rows) + f"; adopted orders {r['orders']}")

@@ -75,6 +75,12 @@ Layout mirrors the reference:
                         entries and verify_stream, TorchBatchVerifier
                         (the ladder's walk) and the calibrated threshold
   models/commit.py      commit_verify_step: the generic tier as one step
+  utils/flowrate.py     Monitor: a connection's rate accounting and limit
+  p2p/                  the wire: NodeKey, NetAddress, NodeInfo, Peer,
+                        MultiplexTransport, Switch, make_switch; p2p/conn/:
+                        SecretConnection (handshake_crypto.py, and
+                        frame_native.py over csrc/host/frame_crypto.cpp,
+                        built with g++), MConnection
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that argument they raise.

@@ -12,6 +12,7 @@ native RLC check per batch) as its host tier.
 from __future__ import annotations
 
 import hashlib
+import os
 import time
 
 from cometbft_tpu_torch.crypto import BatchVerifier, PrivKey, PubKey, edwards
@@ -79,6 +80,11 @@ class Ed25519PrivKey(PrivKey):
 
     def type(self) -> str:
         return KEY_TYPE
+
+
+def gen_priv_key() -> Ed25519PrivKey:
+    """A fresh key from ``os.urandom`` (reference GenPrivKey)."""
+    return Ed25519PrivKey(os.urandom(SEED_SIZE))
 
 
 def priv_key_from_secret(secret: bytes) -> Ed25519PrivKey:

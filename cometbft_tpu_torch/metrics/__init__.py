@@ -1,15 +1,17 @@
 """The metrics structs the port writes: the event bus's, state
 execution's, blocksync's, statesync's ``backfilled_blocks``, the ABCI
 proxy's, the block store's (``StoreMetrics``), and the crypto plane's
-``CryptoMetrics`` and ``HealthMetrics`` with their process-wide sinks (a
-copy of cometbft_tpu/metrics/__init__.py: 352-535, 565-591 and 630-925,
-in the reference's order).
+``CryptoMetrics`` and ``HealthMetrics``, and the wire plane's
+``P2PMetrics``, with their process-wide sinks (a copy of
+cometbft_tpu/metrics/__init__.py: 176-298, 352-535, 565-591, 630-925
+and 1051-1060).
 
 Each struct takes a ``utils.metrics.Registry``, or None for no-op
 metrics (the reference's NopMetrics).  The sinks are no-ops until a
 caller installs a real struct (``install_crypto_metrics``,
-``install_health_metrics``); the last one installed wins.  Names and
-labels are the reference's, so a dashboard reads both packages alike.
+``install_health_metrics``, ``install_p2p_metrics``); the last one
+installed wins.  Names and labels are the reference's, so a dashboard
+reads both packages alike.
 """
 
 from __future__ import annotations
@@ -414,6 +416,129 @@ class HealthMetrics:
             "cumulative ratio): ~0 lockstep, ->1 host work overlaps the device.")
 
 
+class P2PMetrics:
+    """(p2p/metrics.go Metrics) — wire-plane telemetry.
+
+    Reference parity (peers, per-peer/per-type message bytes, pending
+    send bytes, per-peer txs) plus the queue-depth/backpressure series
+    the reference keeps internal to MConnection: per-channel send-queue
+    gauges, send timeout/failure counters, ping RTT, flowrate
+    throughput, and SecretConnection handshake/frame accounting.
+    """
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.peers = _NOP
+            self.message_receive_bytes_total = _NOP
+            self.message_send_bytes_total = _NOP
+            self.peer_pending_send_bytes = _NOP
+            self.num_txs = _NOP
+            self.ping_rtt_seconds = _NOP
+            self.gossip_hop_seconds = _NOP
+            self.peer_clock_offset_seconds = _NOP
+            self.send_queue_size = self.send_queue_bytes = _NOP
+            self.send_timeouts = self.try_send_failures = _NOP
+            self.send_rate_bytes = self.recv_rate_bytes = _NOP
+            self.handshake_duration_seconds = _NOP
+            self.secret_frames_total = _NOP
+            return
+        s = "p2p"
+        self.peers = reg.gauge(s, "peers", "Number of connected peers.")
+        self.message_receive_bytes_total = reg.counter(
+            s, "message_receive_bytes_total",
+            "Bytes received per message type (channel owner), channel "
+            "and peer.",
+            labels=("chID", "message_type", "peer_id"),
+        )
+        self.message_send_bytes_total = reg.counter(
+            s, "message_send_bytes_total",
+            "Bytes enqueued for send per message type (channel owner), "
+            "channel and peer.",
+            labels=("chID", "message_type", "peer_id"),
+        )
+        self.peer_pending_send_bytes = reg.gauge(
+            s, "peer_pending_send_bytes",
+            "Bytes queued (all channels + in-flight message remainder) "
+            "awaiting the peer's send routine.",
+            labels=("peer_id",),
+        )
+        self.num_txs = reg.gauge(
+            s, "num_txs",
+            "Transactions submitted by each peer.",
+            labels=("peer_id",),
+        )
+        self.ping_rtt_seconds = reg.histogram(
+            s, "ping_rtt_seconds",
+            "Round-trip of the keepalive ping (sent in _ping_routine, "
+            "observed on the matching pong).",
+            buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                     1.0, 2.5),
+            labels=("peer_id",),
+        )
+        self.gossip_hop_seconds = reg.histogram(
+            s, "gossip_hop_seconds",
+            "Per-hop gossip latency of trace-context-stamped consensus "
+            "messages (origin send wall to local receive, peer "
+            "clock-offset corrected, clamped at zero).",
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, 0.25, 0.5, 1.0, 2.5),
+            labels=("message_type",),
+        )
+        self.peer_clock_offset_seconds = reg.gauge(
+            s, "peer_clock_offset_seconds",
+            "Estimated remote-minus-local wall-clock offset per peer "
+            "(pong piggyback, RTT halved; the correction applied to "
+            "gossip hop latency).",
+            labels=("peer_id",),
+        )
+        self.send_queue_size = reg.gauge(
+            s, "send_queue_size",
+            "Messages waiting in a channel's send queue.",
+            labels=("peer_id", "chID"),
+        )
+        self.send_queue_bytes = reg.gauge(
+            s, "send_queue_bytes",
+            "Bytes waiting in a channel's send queue (incl. the "
+            "unsent remainder of the in-flight message).",
+            labels=("peer_id", "chID"),
+        )
+        self.send_timeouts = reg.counter(
+            s, "send_timeouts",
+            "Blocking sends that timed out on a full channel queue.",
+            labels=("peer_id", "chID"),
+        )
+        self.try_send_failures = reg.counter(
+            s, "try_send_failures",
+            "Non-blocking sends dropped on a full channel queue "
+            "(async-broadcast backpressure).",
+            labels=("peer_id", "chID"),
+        )
+        self.send_rate_bytes = reg.gauge(
+            s, "send_rate_bytes",
+            "Flowrate EMA send throughput (Monitor.status rate_avg), "
+            "sampled each ping interval.",
+            labels=("peer_id",),
+        )
+        self.recv_rate_bytes = reg.gauge(
+            s, "recv_rate_bytes",
+            "Flowrate EMA receive throughput (Monitor.status "
+            "rate_avg), sampled each ping interval.",
+            labels=("peer_id",),
+        )
+        self.handshake_duration_seconds = reg.histogram(
+            s, "handshake_duration_seconds",
+            "SecretConnection handshake wall time (DH + HKDF + "
+            "challenge signatures).",
+            buckets=DEFAULT_TIME_BUCKETS,
+        )
+        self.secret_frames_total = reg.counter(
+            s, "secret_frames_total",
+            "AEAD frames sealed/opened by SecretConnection "
+            "(direction: seal | open).",
+            labels=("direction",),
+        )
+
+
 _CRYPTO = CryptoMetrics(None)
 _HEALTH = HealthMetrics(None)
 
@@ -440,3 +565,21 @@ def install_health_metrics(metrics: HealthMetrics | None) -> None:
     to the no-op)."""
     global _HEALTH
     _HEALTH = metrics if metrics is not None else HealthMetrics(None)
+
+
+#: Process-wide sink for wire-plane code with no node handle: the
+#: secret connection seals and opens frames deep under the transport.
+#: No-op by default; the last struct installed wins.
+_P2P = P2PMetrics(None)
+
+
+def p2p_metrics() -> P2PMetrics:
+    """The currently installed wire-plane sink (never None)."""
+    return _P2P
+
+
+def install_p2p_metrics(metrics: P2PMetrics | None) -> None:
+    """Install ``metrics`` as the process-wide p2p sink (None resets
+    to the no-op)."""
+    global _P2P
+    _P2P = metrics if metrics is not None else P2PMetrics(None)

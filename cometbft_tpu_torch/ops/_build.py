@@ -1,14 +1,14 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) and its host
-library (csrc/host/ed25519_batch.cpp).
+libraries (csrc/host/ed25519_batch.cpp, csrc/host/frame_crypto.cpp).
 
 Each CUDA source is compiled by nvcc for sm_90a into a shared library
 with a plain C interface and loaded with ctypes -- no PyTorch headers,
-so a build takes seconds.  The host source (HOST_SOURCES: the native
-RLC batch verifier, which runs on the CPU) is compiled by g++ with the
-reference's flags (GXX_FLAGS) and loaded the same way.  A library's
-file name carries a hash of its source, the flags and, for a CUDA
-source, the shared headers (csrc/*.cuh), so a stale build is never
-loaded.  The build runs at first use (or all at once through
+so a build takes seconds.  The host sources (HOST_SOURCES: the native
+RLC batch verifier and the secret connection's frame pump, which run
+on the CPU) are compiled by g++ with the reference's flags (GXX_FLAGS)
+and loaded the same way.  A library's file name carries a hash of its
+source, the flags and, for a CUDA source, the shared headers
+(csrc/*.cuh), so a stale build is never loaded.  The build runs at first use (or all at once through
 :func:`build_all`, one compiler process per source, started together)
 into ``build/torch_kernels/`` beside the package, a directory that
 ``.gitignore`` lists.
@@ -56,6 +56,7 @@ GXX_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-shared", "-fPIC", "-std
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _PI32 = ctypes.POINTER(ctypes.c_int)
 _CP, _LONG = ctypes.c_char_p, ctypes.c_long
+_U64, _PU8 = ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint8)
 
 #: source name -> (file, {C function: argtypes})
 SOURCES = {
@@ -110,6 +111,17 @@ HOST_SOURCES = {
         {
             "cmt_ed25519_rlc_verify": (_LONG, (_CP, ctypes.POINTER(ctypes.c_int32), _CP, _CP,
                                                _CP, _CP, _CP, _LONG, _LONG)),
+        },
+    ),
+    "frame_crypto": (
+        "host/frame_crypto.cpp",
+        {
+            "cmt_aead_seal": (_LONG, (_CP, _CP, _CP, _U64, _CP, _U64, _PU8, _U64)),
+            "cmt_aead_open": (_LONG, (_CP, _CP, _CP, _U64, _CP, _U64, _PU8, _U64)),
+            "cmt_frames_seal": (_LONG, (_CP, _U64, _CP, _U64, _PU8, _U64)),
+            "cmt_frames_open": (_LONG, (_CP, _U64, _CP, _U64, _PU8, _U64,
+                                        ctypes.POINTER(ctypes.c_uint32))),
+            "cmt_frame_backend": (ctypes.c_int, ()),
         },
     ),
 }

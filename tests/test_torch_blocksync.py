@@ -6,14 +6,16 @@ The messages go both ways between the packages' codecs, a malformed one
 refused alike.  The pool runs the reference's own
 ``tests/test_blocksync.py::TestBlockPool`` cases and more, both pools with
 one seeded ``random.Random`` and one patched clock.  A whole sync runs in
-each package over the loopback of ``chip_smoke.py`` (the wire bytes, one
-delivery thread per direction): a fresh node syncs tests/
-test_torch_execution.py's chain from a byzantine peer, whose block
-``BAD`` carries a flipped LastCommit signature, then from an honest one,
-connected when the byzantine one is stopped.  Tolerance: exact -- the
-synced block and state DBs key for key, the app's record, the state
-handed to consensus in ``encode_state`` bytes, the stops and the
-``BlockSyncMetrics`` exposition, each the reference's and the source's.
+each package between three nodes, each a switch of its package's
+``p2p/test_util.make_switch`` over 127.0.0.1 TCP (secret connections,
+MConnection): a fresh node syncs tests/test_torch_execution.py's chain
+from a byzantine peer, whose block ``BAD`` carries a flipped LastCommit
+signature, then from an honest one, dialled when the byzantine one is
+removed; one more sync runs the port's node against the reference's
+servers.  Tolerance: exact -- the synced block and state DBs key for
+key, the app's record, the state handed to consensus in
+``encode_state`` bytes, the stops and the ``BlockSyncMetrics``
+exposition, each the reference's and the source's.
 The reference verifies with CMT_TPU_DISABLE_DEVICE_VERIFY=1, the port on
 ``device="cpu"``; one case sends the prefetch batches (8 x 9 = 72
 signatures, over the threshold of 64) through the keyed tier's plain
@@ -22,18 +24,21 @@ verification error never reads as a peer's bad block -- the test says
 so.  Every wait is bounded."""
 
 import random
+import threading
 from dataclasses import replace
 
 import pytest
 import torch
 
-from chip_smoke import ConsensusRecorder, LoopbackSwitch, close_switches, connect
 from cometbft_tpu import metrics as rmetrics
 from cometbft_tpu import state as rstate
 from cometbft_tpu import store as rstore
 from cometbft_tpu.blocksync import pool as rpool
 from cometbft_tpu.blocksync import reactor as rreactor
 from cometbft_tpu.crypto import verify_queue as jvq
+from cometbft_tpu.p2p import test_util as rtest_util
+from cometbft_tpu.p2p.conn import connection as rconn
+from cometbft_tpu.p2p.conn import secret_connection as rsc
 from cometbft_tpu.types import codec as rcodec
 from cometbft_tpu.types.block_meta import BlockMeta as RBlockMeta
 from cometbft_tpu.types.part_set import BLOCK_PART_SIZE_BYTES
@@ -48,6 +53,9 @@ from cometbft_tpu_torch.blocksync import reactor as preactor
 from cometbft_tpu_torch.crypto import batch as B
 from cometbft_tpu_torch.crypto import verify_queue as vq
 from cometbft_tpu_torch.ops.ed25519_verify import TorchBatchVerifier
+from cometbft_tpu_torch.p2p import test_util as ptest_util
+from cometbft_tpu_torch.p2p.conn import connection as pconn
+from cometbft_tpu_torch.p2p.conn import secret_connection as psc
 from cometbft_tpu_torch.types import codec as pcodec
 from cometbft_tpu_torch.utils import db as pdb
 from cometbft_tpu_torch.utils import log as plog
@@ -62,10 +70,12 @@ WAIT = 60.0
 
 REF = dict(reactor=rreactor, pool=rpool, db=rdb, blocks=rstore.BlockStore, states=rstate.Store,
            state=rstate, node=ref_node, metrics=rmetrics, registry=rumetrics.Registry,
-           vq=jvq, log=rlog, kw={})
+           vq=jvq, log=rlog, util=rtest_util, kw={},
+           wire_errors=(rsc.SecretConnectionError, rconn.MConnError, OSError))
 PORT = dict(reactor=preactor, pool=ppool, db=pdb, blocks=pstore.BlockStore,
             states=pstate.Store, state=pstate, node=port_node, metrics=pmetrics,
-            registry=pumetrics.Registry, vq=vq, log=plog, kw=dict(device="cpu"))
+            registry=pumetrics.Registry, vq=vq, log=plog, util=ptest_util, kw=dict(device="cpu"),
+            wire_errors=(psc.SecretConnectionError, pconn.MConnError, OSError))
 
 
 # -- the wire messages ---------------------------------------------------------
@@ -205,7 +215,20 @@ def test_pool_takes_its_rng():
     assert pool._rng is rng_
 
 
-# -- a whole sync over the loopback --------------------------------------------
+# -- a whole sync between nodes over TCP ----------------------------------------
+
+class ConsensusRecorder:
+    """Stands in for the consensus reactor: keeps the state blocksync
+    hands over."""
+
+    def __init__(self) -> None:
+        self.states: list = []
+        self.done = threading.Event()
+
+    def switch_to_consensus(self, state) -> None:
+        self.states.append(state)
+        self.done.set()
+
 
 def _bad_block_entries():
     """The byzantine peer's block BAD: LastCommit signature #0 flipped,
@@ -238,12 +261,28 @@ def _server(side, byzantine: bool):
                                            logger=side["log"].NopLogger(), **side["kw"])
 
 
-def run_sync(side, monkeypatch, byzantine: bool = True, factory=None, hold: int = 0) -> dict:
-    """A fresh node of ``side`` syncs the chain over the loopback (the
-    byzantine peer first when ``byzantine``, the honest one when it is
-    stopped) -> what it stored, handed over and stopped.  ``hold``: the
-    first sync step waits until blocks 1..hold have arrived, so its
-    prefetch takes a full window."""
+def _record_stops(sw, names: dict, stops: list) -> None:
+    """Records every stop of a peer still in ``sw``'s set as (its name,
+    the reason)."""
+    real = sw.stop_peer_for_error
+
+    def stop_peer_for_error(peer, reason) -> None:
+        if sw.peers.has(peer.id):
+            stops.append((names.get(peer.id, peer.id), reason))
+        real(peer, reason)
+
+    sw.stop_peer_for_error = stop_peer_for_error
+
+
+def run_sync(side, monkeypatch, byzantine: bool = True, factory=None, hold: int = 0,
+             servers=None) -> dict:
+    """A fresh node of ``side`` syncs the chain from nodes of ``servers``
+    (default ``side``) over TCP (the byzantine peer first when
+    ``byzantine``, the honest one dialled when it is removed) -> what it
+    stored, handed over and stopped.  ``hold``: the first sync step
+    waits until blocks 1..hold have arrived, so its prefetch takes a full
+    window."""
+    servers = servers or side
     gen, _, _ = exec_chain()
     R = side["reactor"]
     monkeypatch.setattr(R, "SWITCH_TO_CONSENSUS_INTERVAL", 0.05)
@@ -254,16 +293,22 @@ def run_sync(side, monkeypatch, byzantine: bool = True, factory=None, hold: int 
                                  consensus_reactor=recorder, logger=side["log"].NopLogger(),
                                  metrics=side["metrics"].BlockSyncMetrics(registry),
                                  **side["kw"])
-    syncer = LoopbackSwitch("syncer", reactor)
-    byz = LoopbackSwitch("byzantine", _server(side, True))
-    honest = LoopbackSwitch("honest", _server(side, False))
+    syncer = side["util"].make_switch(moniker="syncer", reactors={"BLOCKSYNC": reactor})
+    byz = servers["util"].make_switch(moniker="byzantine",
+                                      reactors={"BLOCKSYNC": _server(servers, True)})
+    honest = servers["util"].make_switch(moniker="honest",
+                                         reactors={"BLOCKSYNC": _server(servers, False)})
     switches = [syncer, byz, honest]
-    redone = []
+    names = {sw.node_info().node_id: sw.node_info().moniker for sw in switches}
+    stops, server_stops, redone = [], [], []
+    _record_stops(syncer, names, stops)
+    for sw in (byz, honest):
+        _record_stops(sw, names, server_stops)
     redo = reactor.pool.redo_request
 
     def redo_request(height):
         pid = redo(height)
-        redone.append((height, pid))
+        redone.append((height, names.get(pid, pid)))
         return pid
 
     reactor.pool.redo_request = redo_request
@@ -275,35 +320,40 @@ def run_sync(side, monkeypatch, byzantine: bool = True, factory=None, hold: int 
         return step()
 
     reactor._try_sync_step = held_step
+    remove = reactor.remove_peer
 
-    def on_stop(peer_id):
-        if peer_id == "byzantine" and "honest" not in syncer.peers:
-            connect(syncer, honest)
+    def remove_peer(peer, reason=None):
+        remove(peer, reason)
+        if names.get(peer.id) == "byzantine" and not syncer.peers.has(
+                honest.node_info().node_id):
+            syncer.dial_peers_async([honest.transport.listen_addr])
 
-    syncer.on_stop = on_stop
+    reactor.remove_peer = remove_peer
     q = side["vq"].VerifyQueue(verifier_factory=factory)
     q.start()
     side["vq"].install_queue(q)
     try:
         for sw in switches:
-            sw.reactor.start()
-        connect(syncer, byz if byzantine else honest)
+            sw.start()
+        syncer.dial_peer_with_address((byz if byzantine else honest).transport.listen_addr)
         assert recorder.done.wait(WAIT), "no switch to consensus"
+        stops, server_stops = list(stops), list(server_stops)
     finally:
         for sw in switches:
-            if sw.reactor.is_running():
-                sw.reactor.stop()
+            if sw.is_running():
+                sw.stop()
         thread = getattr(reactor, "_pool_thread", None)
         if thread is not None:
             thread.join(WAIT)
-        close_switches(switches)
         q.stop()
         side["vq"].install_queue(None)
     return dict(block_image=image(node["bdb"]), state_image=image(node["sdb"]),
                 app=node["adb"].get(b"kvstore:state"), app_hash=node["app"].app_hash,
-                state=side["state"].encode_state(recorder.states[-1]), stops=syncer.stops,
-                server_stops=byz.stops + honest.stops, redone=redone,
-                exposition=registry.expose(), errors=getattr(reactor, "pool_routine_errors", 0))
+                state=side["state"].encode_state(recorder.states[-1]),
+                stops=[(n, str(r)) for n, r in stops],
+                server_stops=[(n, isinstance(r, servers["wire_errors"])) for n, r in server_stops],
+                redone=redone, exposition=registry.expose(),
+                errors=getattr(reactor, "pool_routine_errors", 0))
 
 
 def _source() -> dict:
@@ -319,7 +369,9 @@ def _check_against_source(got: dict) -> None:
     for k, v in want.items():
         assert got[k] == v, k
     assert got["stops"] == [("byzantine", "sent invalid block")]
-    assert got["server_stops"] == [] and got["errors"] == 0
+    # a server stops the syncer only when the syncer closed the connection
+    assert all(stop == ("syncer", True) for stop in got["server_stops"]), got["server_stops"]
+    assert got["errors"] == 0
     assert got["redone"] == [(BAD - 1, "byzantine"), (BAD, "")]
 
 
@@ -331,6 +383,16 @@ def test_sync_equals_the_reference(monkeypatch):
     _check_against_source(got)
     assert got["exposition"] == want["exposition"]
     assert "cometbft_blocksync_peer_evictions 1" in got["exposition"]
+
+
+def test_port_node_syncs_from_reference_servers(monkeypatch):
+    """The port's syncer (device="cpu") dials the reference's byzantine
+    and honest servers over TCP: the handshakes and packets of both
+    packages interoperate, and it stores the source's blocks and states
+    key for key."""
+    got = run_sync(PORT, monkeypatch, servers=REF,
+                   factory=lambda pk: B.create_batch_verifier(pk, device="cpu"))
+    _check_against_source(got)
 
 
 def test_sync_prefetches_through_the_keyed_plain_path(monkeypatch):

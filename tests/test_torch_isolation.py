@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither jax nor any cometbft_tpu
-module, builds no kernel at import, and never falls back to the CPU
-unless asked to."""
+"""The port stands alone: it imports neither jax, nor `cryptography`,
+nor any cometbft_tpu module, builds no kernel at import (the one host
+library loaded at import is the secret connection's frame pump, as the
+reference loads it), and never falls back to the CPU unless asked to."""
 
 import os
 import subprocess
@@ -16,13 +17,14 @@ _CHILD = textwrap.dedent(
     """
     import sys
     sys.modules["jax"] = None          # any `import jax` now fails
+    sys.modules["cryptography"] = None
     import importlib, pkgutil
     import cometbft_tpu_torch
     for m in pkgutil.walk_packages(cometbft_tpu_torch.__path__, "cometbft_tpu_torch."):
         importlib.import_module(m.name)
     import chip_smoke
     from cometbft_tpu_torch.ops import _build
-    assert not _build._built, "a kernel was built at import"
+    assert set(_build._built) == {"frame_crypto"}, "a kernel was built at import"
 
     from cometbft_tpu_torch.crypto import ed25519 as ed
     from cometbft_tpu_torch.ops.ed25519_verify import TorchBatchVerifier
@@ -48,12 +50,15 @@ _CHILD = textwrap.dedent(
                  "p2p", "p2p.base_reactor", "p2p.conn.connection", "abci", "abci.types",
                  "abci.codec", "abci.kvstore", "proxy", "mempool", "mempool.ingest",
                  "blocksync", "blocksync.pool", "blocksync.reactor", "state.execution",
-                 "types.event_bus", "utils.pubsub", "utils.fail"):
+                 "types.event_bus", "utils.pubsub", "utils.fail", "utils.flowrate",
+                 "p2p.key", "p2p.netaddr", "p2p.node_info", "p2p.conn.frame_native",
+                 "p2p.conn.handshake_crypto", "p2p.conn.secret_connection", "p2p.peer",
+                 "p2p.transport", "p2p.switch", "p2p.test_util"):
         assert "cometbft_tpu_torch." + name in sys.modules, name
     leaked = sorted(m for m in sys.modules
                     if m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
     assert not leaked, leaked
-    assert sys.modules["jax"] is None
+    assert sys.modules["jax"] is None and sys.modules["cryptography"] is None
     print("ISOLATED-OK")
     """
 )

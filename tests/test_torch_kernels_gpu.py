@@ -480,8 +480,8 @@ def test_cost_sample_is_the_kernels_time_on_the_card(dev, monkeypatch):
 def test_blocksync_on_the_card(dev, monkeypatch):
     """chip_smoke's blocksync phase at a small size: a 24-height chain of
     128 validators (a light verify sends 86 signatures, over the device
-    threshold of 64) served over the loopback by a byzantine and an
-    honest peer, synced three times (cold, warm, no prefetch) on the
+    threshold of 64) served over 127.0.0.1 TCP by a byzantine and an
+    honest node, synced twice (cold with prefetch, warm without) on the
     card.  The
     phase checks the synced stores, app and handed-over state against
     the source's, the one stop, no pool-routine error, the launches of
