@@ -178,7 +178,7 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    the chain height by height, a val: tx pair rotating one validator
    every 64 heights, each commit signed by the height's own set in
    worker processes (``SignerPool``); a byzantine copy of its stores
-   serves block 300 with a flipped LastCommit signature, an honest copy
+   serves block BS_BAD_HEIGHT with a flipped LastCommit signature, an honest copy
    the rest; ``verify_keyed`` and ``sha512_keyed`` held to their plain
    versions on a cold verify-ahead step's 8192 lanes (4-bit combs); then
    two syncs of a fresh node between three nodes over 127.0.0.1 TCP
@@ -196,8 +196,34 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    source's state to consensus, stop the byzantine peer (by node ID)
    once for "sent invalid block" and no honest one, and count no
    pool-routine error and no send timeout;
-17. a ``kernels`` JSON line, then the last line
+17. consensus (``consensus_phase``): (a) localnet4, four port validators
+   at power 10 over 127.0.0.1 TCP, fully meshed, each with a
+   ConsensusReactor and a MempoolReactor on its switch, a KVStoreApp
+   through the local proxy, sqlite stores, the Handshaker at start, the
+   default ConsensusConfig and MempoolConfig and the verify queue
+   installed; CS_TXS signed txs (``make_signed_tx``, 64-100-byte kvstore
+   payloads, a key and a sender each) sent to node 0 by CS_CLIENTS
+   threads, run until every tx is committed and CS_MIN_HEIGHTS heights;
+   it fails unless every node stored the same block hash at every
+   height, each tx was committed once, the app hashes agree and no node
+   logged a consensus error, and prints heights/s, the rounds above 0,
+   each step's p50/max, the queue's coalesced sizes per lane, each
+   node's CheckTx outcomes, the tiers and launches; (b)
+   commit150-consensus, one port validator and 149 stubs (BASELINE
+   config 2's width) driven by the validator-stub pattern, to height
+   CS_STUB_HEIGHTS + 1, (b1) with the queue installed, (b2) with none:
+   per height the wall, add_vote's p50, apply_block and its
+   verify_commit; the launches, keys built, spec-cache hits and misses,
+   tiers and busy share; (b2) must launch sha512_keyed and verify_keyed
+   at every height from 2 on and build_tables, all on the keyed tier,
+   (b1) must hit the cache and launch no verify;
+18. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --consensus
+
+builds the kernels and runs phase 17 alone (after the threshold and the
+comb of B), with no kernels line.
 
     python3 chip_smoke.py --warm150 [TREE]
 
@@ -448,23 +474,26 @@ def _split_events(prof):
     return on_card, [e for e in events if e.device_type != DeviceType.CUDA]
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, profiles: int = 3) -> float:
     """Device time per call of ``fn``: the CUDA kernel and copy time of
-    ``iters`` calls under torch.profiler, over ``iters``."""
+    ``iters`` calls under torch.profiler, over ``iters``.  A profile
+    that records no device event at all (CUPTI once returned none on
+    the card's machine) is taken again, up to ``profiles`` in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in _split_events(prof)[0])
-    if total_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return total_us / 1e3 / iters
+    for _ in range(profiles):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in _split_events(prof)[0])
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    raise AssertionError(f"torch.profiler recorded no device time in {profiles} profiles")
 
 
 def pct(xs: list[float], q: float) -> float:
@@ -3988,11 +4017,11 @@ def light_sync_phase(dev, smi: str, heights: int = SYNC_HEIGHTS, nval: int = SYN
 #: original to power 0.  Depth cut from 1000 to 512: timed on an NVIDIA
 #: H100 host (PERF.md section 4), 64 heights' build and three syncs put
 #: 1000 heights beyond 1000 s
-BS_HEIGHTS = 512
+BS_HEIGHTS = 256
 BS_VALIDATORS = 1024
 BS_ROTATE_EVERY = 64
 BS_TXS = 4
-BS_BAD_HEIGHT = 300
+BS_BAD_HEIGHT = 200
 BS_SIGNERS = 8
 
 
@@ -4835,6 +4864,623 @@ def bs_print(name: str, depth: int, cold: bool, r: dict, heights: int, nval: int
         for b, rows in r["cost"].items() if rows) + f"; adopted orders {r['orders']}")
 
 
+# -- phase 17: consensus ------------------------------------------------------------
+
+CS_CHAIN_ID = "chip-smoke-consensus"
+CS_T0 = 1_760_000_000_000_000_000
+CS_NODES = 4                # localnet4: validators at power 10, fully meshed
+CS_TXS = 1024               # localnet4: signed txs sent to node 0
+CS_CLIENTS = 32             # localnet4: client threads sending them
+CS_MIN_HEIGHTS = 12         # localnet4: at least this many heights
+CS_STUBS = 149              # commit150-consensus: stub validators beside the node
+CS_STUB_HEIGHTS = 8         # commit150-consensus: heights per run
+CS_STEP_NAMES = ("NewHeight", "NewRound", "Propose", "Prevote", "PrevoteWait", "Precommit",
+                 "PrecommitWait", "Commit")
+
+
+class ErrorLines:
+    """A logger sink that keeps the lines written to it (an error-level
+    ``utils.log.Logger`` writes only error lines)."""
+
+    def __init__(self) -> None:
+        self.lines: list[str] = []
+
+    def write(self, s: str) -> None:
+        self.lines.append(s.rstrip("\n"))
+
+
+def scalar_keys(a0: int, n: int) -> list:
+    """(scalar, public key) for the scalars a0, a0 + 1, ...: one point
+    addition each.  Valid Ed25519 keys, not derived from RFC 8032 seeds."""
+    from cometbft_tpu_torch.crypto import edwards as E
+
+    out, pt = [], E.pt_mul(a0 % E.L, E.B_POINT)
+    for i in range(n):
+        out.append(((a0 + i) % E.L, E.encode_point(pt)))
+        pt = E.pt_add(pt, E.B_POINT)
+    return out
+
+
+class FastKey:
+    """A private key for ``mempool.ingest.make_signed_tx`` that signs with
+    a FastSigner."""
+
+    def __init__(self, signer: FastSigner, a: int, pub: bytes) -> None:
+        self.signer, self.a, self.pub = signer, a, pub
+
+    def pub_key(self):
+        from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey
+
+        return Ed25519PubKey(self.pub)
+
+    def sign(self, msg: bytes) -> bytes:
+        return self.signer.sign(self.a, self.pub, msg)
+
+
+def cs_txs(n: int, rs) -> list[bytes]:
+    """``n`` signed txs (``make_signed_tx``), each a 64-100-byte kvstore
+    payload with a key of its own, each from a sender key of its own."""
+    from cometbft_tpu_torch.mempool.ingest import make_signed_tx
+
+    signer = FastSigner(int.from_bytes(rs.bytes(32), "little"))
+    keys = scalar_keys(int.from_bytes(rs.bytes(32), "little"), n)
+    payloads = bs_txs(0, n, rs)
+    return [make_signed_tx(FastKey(signer, a, pub), b"cs" + p[1:]) for (a, pub), p
+            in zip(keys, payloads)]
+
+
+def cs_node(dev, gen, pv, config, dirname: str | None, logger, switch: bool = True,
+            moniker: str = "node") -> dict:
+    """A consensus node as the reference's Node assembles one: block and
+    state stores (sqlite in ``dirname``, else MemDBs), a KVStoreApp over a
+    MemDB through the local proxy, an EventBus, a CListMempool with the
+    node's pre/post checks, the BlockExecutor, the Handshaker (InitChain
+    at genesis), ConsensusState (``logger``: consensus's and its
+    reactor's); with ``switch``, a ConsensusReactor (waiting for
+    ``switch_to_consensus``) and a MempoolReactor on a switch of
+    ``p2p.test_util.make_switch``.  Its metrics go to its own registry."""
+    from cometbft_tpu_torch import metrics as M
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApp
+    from cometbft_tpu_torch.consensus import ConsensusState, Handshaker
+    from cometbft_tpu_torch.consensus.reactor import ConsensusReactor
+    from cometbft_tpu_torch.mempool import CListMempool, post_check_max_gas, pre_check_max_bytes
+    from cometbft_tpu_torch.mempool.reactor import MempoolReactor
+    from cometbft_tpu_torch.p2p.test_util import make_switch
+    from cometbft_tpu_torch.proxy import local_client_creator, new_app_conns
+    from cometbft_tpu_torch.state import Store, load_state_from_db_or_genesis
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.store import BlockStore
+    from cometbft_tpu_torch.types.event_bus import EventBus
+    from cometbft_tpu_torch.utils.db import MemDB
+    from cometbft_tpu_torch.utils.log import NopLogger
+    from cometbft_tpu_torch.utils.metrics import Registry
+
+    if dirname is not None:
+        block_store, state_store, dbs = open_stores(dirname)
+    else:
+        dbs = (MemDB(), MemDB())
+        block_store, state_store = BlockStore(dbs[0]), Store(dbs[1])
+    n = dict(block_store=block_store, state_store=state_store, dbs=dbs, registry=Registry(),
+             app=KVStoreApp(MemDB()), bus=EventBus(), services=[])
+    n["conns"] = new_app_conns(local_client_creator(n["app"]))
+    try:
+        for svc in (n["conns"], n["bus"]):
+            svc.start()
+            n["services"].append(svc)
+        state = load_state_from_db_or_genesis(state_store, gen)
+        mc = config.mempool
+        n["mempool"] = CListMempool(
+            n["conns"].mempool, height=state.last_block_height, size=mc.size,
+            max_tx_bytes=mc.max_tx_bytes, max_txs_bytes=mc.max_txs_bytes,
+            cache_size=mc.cache_size, keep_invalid_txs_in_cache=mc.keep_invalid_txs_in_cache,
+            recheck=mc.recheck, metrics=M.MempoolMetrics(n["registry"]), device=dev)
+        n["exec"] = BlockExecutor(state_store, n["conns"].consensus, n["mempool"],
+                                  block_store=block_store, event_bus=n["bus"],
+                                  metrics=M.StateMetrics(n["registry"]), logger=NopLogger(),
+                                  device=dev)
+        n["state"] = Handshaker(state_store, state, block_store, gen, logger=NopLogger(),
+                                device=dev).handshake(n["conns"])
+        max_bytes = n["state"].consensus_params.block.max_bytes
+        n["mempool"].pre_check = pre_check_max_bytes(max_bytes if max_bytes > 0 else 104857600)
+        n["mempool"].post_check = post_check_max_gas(n["state"].consensus_params.block.max_gas)
+        n["cs"] = ConsensusState(config.consensus, n["state"], n["exec"], block_store,
+                                 priv_validator=pv, event_bus=n["bus"],
+                                 metrics=M.ConsensusMetrics(n["registry"]), logger=logger,
+                                 device=dev)
+        n["services"].append(n["cs"])
+        if switch:
+            n["cr"] = ConsensusReactor(n["cs"], wait_sync=True, logger=logger)
+            n["mr"] = MempoolReactor(n["mempool"], broadcast=mc.broadcast, logger=NopLogger())
+            n["sw"] = make_switch(network=gen.chain_id, moniker=moniker,
+                                  reactors={"CONSENSUS": n["cr"], "MEMPOOL": n["mr"]})
+            n["services"].append(n["sw"])
+    except BaseException:
+        cs_close(n)
+        raise
+    return n
+
+
+def cs_close(n: dict) -> None:
+    """Stops a node's services, last started first, and closes its DBs."""
+    from cometbft_tpu_torch.utils.service import NotStartedError
+
+    for svc in reversed(n["services"]):
+        try:
+            svc.stop()
+        except NotStartedError:
+            pass
+    n["services"] = []
+    for db in n["dbs"]:
+        db.close()
+
+
+def cs_steps(events: list) -> dict:
+    """p50/max seconds of each consensus step (the ``consensus/<Step>``
+    spans ConsensusState records as it leaves a step)."""
+    out = {}
+    for step in CS_STEP_NAMES:
+        d = [e["dur"] / 1e6 for e in events if e["name"] == f"consensus/{step}"]
+        if d:
+            out[step] = (pct(d, 50), max(d), len(d))
+    return out
+
+
+def cs_abci(events: list) -> dict:
+    """The app's calls from the ``abci/<method>`` spans: method -> (count,
+    seconds); CheckTx split into the mempool's recheck (inside
+    ``exec/apply_block``) and admission (the rest)."""
+    out: dict = {}
+    for e in events:
+        if not e["name"].startswith("abci/"):
+            continue
+        key = e["name"][5:]
+        if key == "check_tx":
+            key += (" (recheck)" if e["args"].get("parent") == "exec/apply_block"
+                    else " (admission)")
+        n, t = out.get(key, (0, 0.0))
+        out[key] = (n + 1, t + e["dur"] / 1e6)
+    return out
+
+
+def cs_ingest(events: list) -> dict:
+    """The queue's launches from its spans: lane -> batch sizes."""
+    out: dict = {}
+    for e in events:
+        if e["name"] == "verify_queue/launch":
+            out.setdefault(e["args"].get("priority"), []).append(e["args"].get("batch"))
+    return out
+
+
+def plain_value(registry, name: str) -> float:
+    """An unlabelled sample's value from the exposition (0 when absent)."""
+    for line in registry.expose().splitlines():
+        if line.startswith(name + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def tier_counts(registry) -> dict:
+    """crypto_dispatch_tier's samples: tier -> count."""
+    out = {}
+    for line in registry.expose().splitlines():
+        if line.startswith("cometbft_crypto_dispatch_tier{"):
+            tier = line.split('tier="', 1)[1].split('"', 1)[0]
+            out[tier] = out.get(tier, 0) + float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+
+def cs_localnet(dev, smi: str, registry, nodes: int = CS_NODES, ntx: int = CS_TXS,
+                clients: int = CS_CLIENTS, min_heights: int = CS_MIN_HEIGHTS, config=None,
+                timeout_s: float = 300.0, work: str | None = None,
+                verifier_factory=None) -> dict:
+    """Run (a), localnet4: ``nodes`` port validators at power 10 over
+    127.0.0.1 TCP, fully meshed, each a ``cs_node`` with sqlite stores, the
+    verify queue installed (the node's default), ``ntx`` signed txs sent to
+    node 0 by ``clients`` threads; until every tx is committed and at
+    least ``min_heights`` heights.  Fails unless every node stored the
+    same block hash at every height, each tx was committed exactly once,
+    the app hashes agree and no node logged a consensus error.
+    ``verifier_factory``: the queue's (default the card's)."""
+    import shutil
+
+    from cometbft_tpu_torch import config as C
+    from cometbft_tpu_torch.crypto import verify_queue as VQ
+    from cometbft_tpu_torch.crypto.ed25519 import priv_key_from_secret
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.p2p.test_util import connect_switches
+    from cometbft_tpu_torch.privval import FilePV
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.utils.log import Logger
+    from cometbft_tpu_torch.utils.trace import TRACER
+
+    config = config or C.default_config()
+    rs = np.random.RandomState(SEED + 1717)
+    pvs = [FilePV(priv_key_from_secret(b"smoke-validator-%d" % i)) for i in range(nodes)]
+    gen = GenesisDoc(chain_id=CS_CHAIN_ID, genesis_time_ns=CS_T0,
+                     validators=tuple(GenesisValidator(pv.pub_key, 10) for pv in pvs))
+    t0 = time.perf_counter()
+    txs = cs_txs(ntx, rs)
+    data_s = time.perf_counter() - t0
+    work = work or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                "consensus_localnet")
+    shutil.rmtree(work, ignore_errors=True)
+    threads = live_threads()
+    errors = ErrorLines()
+    tiers0 = tier_counts(registry)
+    q = VQ.VerifyQueue(verifier_factory=verifier_factory)
+    q.start()
+    VQ.install_queue(q)
+    ns: list = []
+    ring = TRACER.capacity
+    TRACER.set_capacity(1 << 20)
+    TRACER.clear()
+    _build.reset_launches()
+    res: dict = {"data_s": data_s}
+    try:
+        for i, pv in enumerate(pvs):
+            d = os.path.join(work, f"node{i}")
+            os.makedirs(d)
+            ns.append(cs_node(dev, gen, pv, config, d,
+                              Logger(sink=errors, level="error", fields={"node": i}),
+                              moniker=f"node{i}"))
+        for n in ns:
+            n["sw"].start()
+        for i in range(nodes):
+            for j in range(i + 1, nodes):
+                connect_switches(ns[i]["sw"], ns[j]["sw"], timeout=30.0)
+        t_start = time.perf_counter()
+        for n in ns:
+            n["cr"].switch_to_consensus(n["state"])
+        sent_errors: list = []
+        admitted: list = []
+
+        def client(k: int) -> None:
+            for tx in txs[k::clients]:
+                try:
+                    ns[0]["mempool"].check_tx(tx)
+                    admitted.append(tx)
+                except Exception as exc:  # noqa: BLE001 -- every rejection fails the run
+                    sent_errors.append(repr(exc))
+
+        senders = [threading.Thread(target=client, args=(k,), name=f"cs-client-{k}")
+                   for k in range(clients)]
+        for t in senders:
+            t.start()
+        for t in senders:
+            t.join(timeout_s)
+        res["admit_s"] = time.perf_counter() - t_start
+        if sent_errors or len(admitted) != ntx:
+            raise AssertionError(f"localnet: node 0 refused {len(sent_errors)} of {ntx} txs: "
+                                 f"{sent_errors[:3]}")
+        deadline = time.perf_counter() + timeout_s
+        want = set(txs)
+        while time.perf_counter() < deadline:
+            top = min(n["block_store"].height() for n in ns)
+            if top >= min_heights:
+                seen = set()
+                for h in range(1, top + 1):
+                    seen.update(ns[0]["block_store"].load_block(h).data.txs)
+                if want <= seen:
+                    break
+            time.sleep(0.1)
+        else:
+            raise AssertionError(f"localnet: heights {[n['block_store'].height() for n in ns]} "
+                                 f"after {timeout_s} s, txs not all committed")
+        res["wall"] = time.perf_counter() - t_start
+        events = TRACER.events()
+        res["mempool"] = [{k: registry_value(n["registry"], "cometbft_mempool_checktx_total",
+                                             f'result="{k}"')
+                           for k in ("accepted", "duplicate", "sig", "app", "full")}
+                          | {"batched": plain_value(n["registry"],
+                                                    "cometbft_mempool_checktx_batched"),
+                             "inline": plain_value(n["registry"],
+                                                   "cometbft_mempool_checktx_inline")}
+                          for n in ns]
+    finally:
+        for n in ns:
+            cs_close(n)
+        q.stop()
+        TRACER.set_capacity(ring)
+    res["launches"] = end_phase("consensus localnet4", threads)
+    res["tiers"] = delta(tier_counts(registry), tiers0)
+    if errors.lines:
+        raise AssertionError(f"localnet: consensus errors logged: {errors.lines[:5]}")
+    # the checks, on the stores as the nodes left them
+    stores = [open_stores(os.path.join(work, f"node{i}")) for i in range(nodes)]
+    try:
+        top = min(b.height() for b, _, _ in stores)
+        committed: list = []
+        rounds = []
+        for h in range(1, top + 1):
+            hashes = {b.load_block_meta(h).block_id.hash for b, _, _ in stores}
+            if len(hashes) != 1:
+                raise AssertionError(f"localnet: the nodes stored different blocks at {h}")
+            committed += list(stores[0][0].load_block(h).data.txs)
+            rounds.append(stores[0][0].load_seen_commit(h).round)
+        if len(committed) != len(set(committed)) or set(committed) != set(txs):
+            raise AssertionError(f"localnet: {len(committed)} txs committed, "
+                                 f"{len(set(committed))} distinct, of {ntx}")
+        app_hashes = {s.load_finalize_block_response(top).app_hash for _, s, _ in stores}
+        if len(app_hashes) != 1:
+            raise AssertionError(f"localnet: the app hashes differ at height {top}")
+        res.update(heights=top, rounds=rounds, block_txs=[len(stores[0][0].load_block(h).data.txs)
+                                                          for h in range(1, top + 1)])
+    finally:
+        for _, _, dbs in stores:
+            for db in dbs:
+                db.close()
+        shutil.rmtree(work, ignore_errors=True)
+    res["steps"] = cs_steps(events)
+    res["ingest"] = cs_ingest(events)
+    res["abci"] = cs_abci(events)
+    return res
+
+
+def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
+                config=None, verifier_factory=None, timeout_s: float = 120.0) -> dict:
+    """Run (b), commit-N through consensus: one port validator (a
+    ``cs_node`` without a switch) and ``nstub`` stub validators at power
+    10, driven by the reference's validator-stub pattern
+    (tests/test_consensus.py:166-248): when a stub proposes, the loop
+    builds the block with the node's executor and signs the proposal with
+    the stub's key; on every complete proposal all stubs prevote and
+    precommit it (FastSigner).  ``queue``: with the verify queue installed
+    (``verifier_factory``, default the card's), else none.  Fails unless
+    every commit carries at least 2/3 + 1 of the signatures and
+    ``heights`` heights commit within ``timeout_s``."""
+    from dataclasses import replace as dc_replace
+
+    from cometbft_tpu_torch import config as C
+    from cometbft_tpu_torch.consensus import BlockPartMessage, ProposalMessage, VoteMessage
+    from cometbft_tpu_torch.crypto import verify_queue as VQ
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey, priv_key_from_secret
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.privval import FilePV
+    from cometbft_tpu_torch.types import PRECOMMIT_TYPE, PREVOTE_TYPE, BlockID, Vote
+    from cometbft_tpu_torch.types.event_bus import (EVENT_COMPLETE_PROPOSAL, EVENT_NEW_ROUND,
+                                                    query_for_event)
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.types.part_set import BLOCK_PART_SIZE_BYTES
+    from cometbft_tpu_torch.types.vote import Proposal
+    from cometbft_tpu_torch.utils.log import Logger
+    from cometbft_tpu_torch.utils.time import now_ns
+    from cometbft_tpu_torch.utils.trace import TRACER
+
+    config = config or C.default_config()
+    rs = np.random.RandomState(SEED + 2 * nstub + 1)
+    signer = FastSigner(int.from_bytes(rs.bytes(32), "little"))
+    stubs = scalar_keys(int.from_bytes(rs.bytes(32), "little"), nstub)
+    pv = FilePV(priv_key_from_secret(b"smoke-consensus-node"))
+    chain = f"{CS_CHAIN_ID}-{nstub + 1}"
+    gen = GenesisDoc(chain_id=chain, genesis_time_ns=CS_T0, validators=tuple(
+        [GenesisValidator(Ed25519PubKey(pub), 10) for _, pub in stubs]
+        + [GenesisValidator(pv.pub_key, 10)]))
+    threads = live_threads()
+    errors = ErrorLines()
+    q = None
+    if queue:
+        q = VQ.VerifyQueue(verifier_factory=verifier_factory)
+        q.start()
+        VQ.install_queue(q)
+    ring = TRACER.capacity
+    TRACER.set_capacity(1 << 20)
+    node = None
+    res: dict = {"name": name}
+    add_vote_s: list = []
+    try:
+        node = cs_node(dev, gen, pv, config, None, Logger(sink=errors, level="error"),
+                       switch=False)
+        cs, ex, bus, blocks = node["cs"], node["exec"], node["bus"], node["block_store"]
+        vals = cs.state.validators
+        stub_idx = {}
+        for a, pub in stubs:
+            addr = Ed25519PubKey(pub).address()
+            stub_idx[addr] = (vals.get_by_address(addr)[0], a, pub)
+        inner = cs._add_vote
+
+        def timed_add_vote(vote, peer_id):
+            t = time.perf_counter()
+            try:
+                return inner(vote, peer_id)
+            finally:
+                add_vote_s.append((vote.height, time.perf_counter() - t))
+
+        cs._add_vote = timed_add_vote
+        sub_nr = bus.subscribe("stub-driver-nr", query_for_event(EVENT_NEW_ROUND),
+                               capacity=1000)
+        sub_cp = bus.subscribe("stub-driver-cp", query_for_event(EVENT_COMPLETE_PROPOSAL),
+                               capacity=1000)
+        TRACER.clear()
+        _build.reset_launches()
+        spec = "cometbft_crypto_verify_queue_spec_cache"
+        hits0 = registry_value(registry, spec, 'result="hit"')
+        miss0 = registry_value(registry, spec, 'result="miss"')
+        tiers0 = tier_counts(registry)
+        busy0 = busy_seconds(registry)
+        t_start = time.perf_counter()
+        cs.start()
+        voted: set = set()
+        proposed: set = set()
+        deadline = time.perf_counter() + timeout_s
+        while cs.state.last_block_height < heights:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{name}: height {blocks.height()} after {timeout_s} s")
+            try:
+                ev = sub_nr.next(timeout=0.005)
+            except TimeoutError:
+                ev = None
+            if ev is not None:
+                rstate = cs.round_state()
+                h, r = rstate["height"], rstate["round"]
+                proposer = rstate["validators"].get_proposer()
+                if proposer.address in stub_idx and rstate["proposal"] is None \
+                        and (h, r) not in proposed:
+                    proposed.add((h, r))
+                    _, a, pub = stub_idx[proposer.address]
+                    last_commit = blocks.load_seen_commit(h - 1) if h > 1 else None
+                    block = ex.create_proposal_block(h, cs.state, last_commit, proposer.address)
+                    parts = block.make_part_set(BLOCK_PART_SIZE_BYTES)
+                    prop = Proposal(height=h, round=r, pol_round=-1,
+                                    block_id=BlockID(block.hash(), parts.header),
+                                    timestamp_ns=block.header.time_ns)
+                    prop = dc_replace(prop, signature=signer.sign(a, pub, prop.sign_bytes(chain)))
+                    cs.send_peer_msg(ProposalMessage(prop), "stub-peer")
+                    for i in range(parts.header.total):
+                        cs.send_peer_msg(BlockPartMessage(h, r, parts.get_part(i)), "stub-peer")
+            try:
+                ev = sub_cp.next(timeout=0.005)
+            except TimeoutError:
+                continue
+            rstate = cs.round_state()
+            if rstate["proposal"] is None:
+                continue
+            h, r = rstate["height"], rstate["round"]
+            if (h, r) in voted:
+                continue
+            voted.add((h, r))
+            bid = rstate["proposal"].block_id
+            ts = max(now_ns(), cs.state.last_block_time_ns + 1)
+            votes = [Vote(type=vt, height=h, round=r, block_id=bid, timestamp_ns=ts,
+                          validator_address=addr, validator_index=idx)
+                     for vt in (PREVOTE_TYPE, PRECOMMIT_TYPE)
+                     for addr, (idx, _, _) in stub_idx.items()]
+            keyed = [stub_idx[v.validator_address] for v in votes]
+            sigs = signer.sign_all([(a, pub, v.sign_bytes(chain)) for v, (_, a, pub)
+                                    in zip(votes, keyed)])
+            for v, sig in zip(votes, sigs):
+                cs.send_peer_msg(VoteMessage(dc_replace(v, signature=sig)), "stub-peer")
+        res["wall"] = time.perf_counter() - t_start
+        bus.unsubscribe_all("stub-driver-nr")
+        bus.unsubscribe_all("stub-driver-cp")
+        events = TRACER.events()
+        res["launches"] = launched()
+        res["hits"] = registry_value(registry, spec, 'result="hit"') - hits0
+        res["misses"] = registry_value(registry, spec, 'result="miss"') - miss0
+        res["tiers"] = delta(tier_counts(registry), tiers0)
+        res["busy"] = busy_seconds(registry) - busy0
+        res["stats"] = q.stats() if q is not None else None
+        cs.stop()
+        need = (2 * (nstub + 1)) // 3 + 1
+        pipe = {e["args"]["height"]: e["dur"] / 1e6 for e in events
+                if e["name"] == "height/pipeline"}
+        apply = {e["args"]["height"]: e["dur"] / 1e6 for e in events
+                 if e["name"] == "exec/apply_block"}
+        vc = {e["args"]["height"] + 1: e["dur"] / 1e6 for e in events
+              if e["name"] == "verify_commit" and e["args"].get("parent") == "exec/apply_block"}
+        per: list = []
+        for h in range(1, heights + 1):
+            commit = blocks.load_seen_commit(h)
+            present = sum(1 for s in commit.signatures if not s.is_absent())
+            if present < need:
+                raise AssertionError(f"{name}: the commit of height {h} carries {present} "
+                                     f"signatures, fewer than {need}")
+            adds = [d for hh, d in add_vote_s if hh == h]
+            per.append(dict(height=h, sigs=present, round=commit.round, wall=pipe.get(h),
+                            add_vote_p50=pct(adds, 50) if adds else None, adds=len(adds),
+                            apply=apply.get(h), verify_commit=vc.get(h)))
+    finally:
+        if node is not None:
+            cs_close(node)
+        if q is not None:
+            q.stop()
+        TRACER.set_capacity(ring)
+    end_phase(name, threads)
+    if errors.lines:
+        raise AssertionError(f"{name}: consensus errors logged: {errors.lines[:5]}")
+    res["per_height"] = per
+    res["steps"] = cs_steps(events)
+    return res
+
+
+def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS,
+                    nstub: int = CS_STUBS) -> dict:
+    """Phase 17: consensus.  Run (a) localnet4 (``cs_localnet``), then
+    commit150-consensus (``cs_stub_run``) twice: (b1) with the verify queue
+    installed -- every vote's verdict lands in the speculative cache, so
+    the LastCommit checks of validate_block and apply_block hit it and
+    launch nothing -- and (b2) with none, where each vote is verified
+    inline on the host and every LastCommit check is a cold keyed verify
+    (``build_tables`` once for the new set, then ``sha512_keyed`` and
+    ``verify_keyed``).  Each run goes to height ``stub_heights`` + 1, so
+    ``stub_heights`` commits of ``nstub`` + 1 validators are verified
+    through consensus.  Fails on a run's own checks, on (b2) without a
+    keyed launch at every height from 2 on, on a generic or host
+    verify_commit in (b2), on a spec-cache miss in (b1)'s LastCommit
+    checks, or on a thread left behind."""
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    t0 = time.perf_counter()
+    a = cs_localnet(dev, smi, registry)
+    res = {"a": a}
+    print(f"consensus localnet4 [{smi}]: {CS_NODES} port validators over 127.0.0.1 TCP, "
+          f"{len(a['block_txs'])} heights in {a['wall']:.3f} s "
+          f"({a['heights'] / a['wall']:.3f} heights/s), {sum(a['block_txs'])} signed txs "
+          f"committed once each (txs a block {a['block_txs']}), stores and app hashes equal; "
+          f"the txs made in {a['data_s']:.3f} s, admitted by node 0 in {a['admit_s']:.3f} s "
+          f"from {CS_CLIENTS} threads")
+    print(f"  rounds above 0: {sum(1 for r in a['rounds'] if r > 0)} of {len(a['rounds'])} "
+          f"heights (commit rounds {a['rounds']})")
+    print("  step s p50 / max (count), tracer spans of the four nodes: " + "; ".join(
+        f"{k} {p:.3f} / {m:.3f} ({n})" for k, (p, m, n) in a["steps"].items()))
+    for lane, sizes in sorted(a["ingest"].items()):
+        print(f"  queue lane {lane}: {len(sizes)} launches, coalesced sizes p50 "
+              f"{pct(sizes, 50):.0f}, max {max(sizes)}, sum {sum(sizes)}")
+    print("  the app's calls on the four nodes (count, s): " + "; ".join(
+        f"{k} {n}, {t:.3f}" for k, (n, t) in sorted(a["abci"].items())))
+    for i, m in enumerate(a["mempool"]):
+        print(f"  node {i} CheckTx: " + ", ".join(f"{k} {v:.0f}" for k, v in m.items()))
+    print(f"  tiers (crypto_dispatch_tier) {a['tiers']}; launches {a['launches']}")
+
+    runs = {}
+    for key, queue in (("b1", True), ("b2", False)):
+        name = f"commit{nstub + 1}-consensus ({key}: {'queue' if queue else 'no queue'})"
+        keys0 = PR.table_cache(dev).stats["keys_built"]
+        r = cs_stub_run(dev, name, registry, nstub, stub_heights + 1, queue)
+        r["keys_built"] = PR.table_cache(dev).stats["keys_built"] - keys0
+        runs[key] = r
+        print(f"{name} [{smi}]: {stub_heights + 1} heights in {r['wall']:.3f} s, launches "
+              f"{r['launches']}, keys built {r['keys_built']}, spec cache {r['hits']:.0f} hits "
+              f"/ {r['misses']:.0f} misses, tiers {r['tiers']}, busy share "
+              f"{r['busy'] / r['wall']:.4f} ({r['busy']:.4f} s)")
+        for row in r["per_height"]:
+            print(f"  height {row['height']}: {row['sigs']} signatures (round {row['round']}), "
+                  f"wall {fmt_s(row['wall'])} s, add_vote p50 "
+                  f"{fmt_s(row['add_vote_p50'], 1e3)} ms ({row['adds']} votes), apply_block "
+                  f"{fmt_s(row['apply'], 1e3)} ms, its verify_commit "
+                  f"{fmt_s(row['verify_commit'], 1e3)} ms")
+        if r["stats"] is not None:
+            print(f"  queue stats {r['stats']}")
+    b1, b2 = runs["b1"], runs["b2"]
+    keyed = min(b2["launches"].get("sha512_keyed", 0), b2["launches"].get("verify_keyed", 0))
+    if keyed < stub_heights or b2["launches"].get("build_tables", 0) < 1:
+        raise AssertionError(f"commit-consensus (b2): launches {b2['launches']}, wanted "
+                             f"sha512_keyed and verify_keyed at least once a height "
+                             f"({stub_heights}) and build_tables")
+    if b2["tiers"].get("generic") or b2["tiers"].get("host") or b2["launches"].get(
+            "verify_generic"):
+        raise AssertionError(f"commit-consensus (b2): a commit off the keyed tier: "
+                             f"{b2['tiers']}, {b2['launches']}")
+    if b1["launches"].get("verify_keyed") or b1["hits"] < stub_heights * (nstub + 1) * 2 // 3:
+        raise AssertionError(f"commit-consensus (b1): launches {b1['launches']}, cache hits "
+                             f"{b1['hits']}: the LastCommit checks did not hit the cache")
+    res.update(b1=b1, b2=b2, seconds=time.perf_counter() - t0)
+    print(f"consensus phase: {res['seconds']:.1f} s")
+    return res
+
+
+def consensus_launches(cons: dict, kname: str) -> int:
+    """A kernel's launches over consensus_phase's runs (a), (b1), (b2)."""
+    return sum(cons[k]["launches"].get(kname, 0) for k in ("a", "b1", "b2"))
+
+
+def fmt_s(x, scale: float = 1.0) -> str:
+    return "n/a" if x is None else f"{x * scale:.3f}"
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--warm150"]:
         if len(sys.argv) > 2:
@@ -4848,9 +5494,35 @@ def main() -> int:
     from cometbft_tpu_torch.crypto import health as H
 
     try:
+        if sys.argv[1:2] == ["--consensus"]:
+            return run_consensus(torch)
         return run_all(torch)
     finally:
         H.WATCHDOG.stop()
+
+
+def run_consensus(torch) -> int:
+    """``--consensus``: the build, the threshold and the comb of B, then
+    phase 17 alone (its sizing run); prints no kernels line."""
+    from cometbft_tpu_torch import metrics as M
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.utils.metrics import Registry
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    smi = smi_line()
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    _build.build_all()
+    registry = Registry()
+    M.install_crypto_metrics(M.CryptoMetrics(registry))
+    M.install_health_metrics(M.HealthMetrics(registry))
+    threshold_phase(dev)
+    PR.b_comb8()
+    consensus_phase(dev, smi, registry)
+    check_ladder("consensus phase")
+    print(f"chip_smoke --consensus: {time.perf_counter() - t_start:.1f} s")
+    return 0
 
 
 def run_all(torch) -> int:
@@ -5019,6 +5691,9 @@ def run_all(torch) -> int:
     # phase 16: blocksync catch-up
     bsync = blocksync_phase(dev, smi, registry)
     check_ladder("blocksync phase")
+    # phase 17: consensus
+    cons = consensus_phase(dev, smi, registry)
+    check_ladder("consensus phase")
     for line in registry.expose().splitlines():
         if line.startswith(("cometbft_crypto_dispatch_tier", "cometbft_crypto_dispatch_decisions",
                             "cometbft_crypto_device_hangs_total", "cometbft_crypto_key_pool")):
@@ -5035,6 +5710,7 @@ def run_all(torch) -> int:
                          else "cometbft_tpu/ops/field.py:338"),
             "launches": main150["launches"][kname],
             "blocksync_launches": bsync["a"]["launches"].get(kname, 0),
+            "consensus_launches": consensus_launches(cons, kname),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None,
@@ -5045,6 +5721,7 @@ def run_all(torch) -> int:
         "replaces": "cometbft_tpu/ops/field.py:338",
         "launches": main150["launches"]["verify_keyed"],
         "blocksync_launches": bsync["a"]["launches"].get("verify_keyed", 0),
+        "consensus_launches": consensus_launches(cons, "verify_keyed"),
         "max_abs_err": vk150["err"], "ms": vk150["ms"], "plain_ms": vk150["plain_ms"],
         "bound_ms": vk150["bound"][0], "bound_by": vk150["bound"][1],
         "library_ms": None, "G": vk150["group"],
@@ -5056,6 +5733,7 @@ def run_all(torch) -> int:
         "replaces": "cometbft_tpu/ops/sha512.py:116",
         "launches": main150["launches"]["sha512_keyed"],
         "blocksync_launches": bsync["a"]["launches"].get("sha512_keyed", 0),
+        "consensus_launches": consensus_launches(cons, "sha512_keyed"),
         "max_abs_err": sha["err"], "ms": sha["ms"], "plain_ms": sha["plain_ms"],
         "bound_ms": sha["bound"][0], "bound_by": sha["bound"][1],
         "library_ms": None,
@@ -5066,6 +5744,7 @@ def run_all(torch) -> int:
         "replaces": "cometbft_tpu/ops/field.py:338",
         "launches": gen150["launches"]["verify_generic"],
         "blocksync_launches": bsync["a"]["launches"].get("verify_generic", 0),
+        "consensus_launches": consensus_launches(cons, "verify_generic"),
         "max_abs_err": vg150["err"], "ms": vg150["ms"], "plain_ms": vg150["plain_ms"],
         "bound_ms": vg150["bound"][0], "bound_by": vg150["bound"][1],
         "library_ms": None, "shape": list(vg150["shape"]),
@@ -5077,6 +5756,7 @@ def run_all(torch) -> int:
         "replaces": "cometbft_tpu/ops/precompute.py:115",
         "launches": main150["launches"]["build_tables"],
         "blocksync_launches": bsync["a"]["launches"].get("build_tables", 0),
+        "consensus_launches": consensus_launches(cons, "build_tables"),
         "max_abs_err": b["err"], "ms": b["ms"], "plain_ms": b["plain_ms"],
         "bound_ms": b["bound"][0], "bound_by": b["bound"][1],
         "library_ms": None, "shapes": [list(x) for x in b["choice"]],

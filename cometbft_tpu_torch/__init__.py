@@ -81,6 +81,14 @@ Layout mirrors the reference:
                         SecretConnection (handshake_crypto.py, and
                         frame_native.py over csrc/host/frame_crypto.cpp,
                         built with g++), MConnection
+  consensus/            ConsensusState (the round steps, votes through
+                        HeightVoteSet and the verify queue), the
+                        ConsensusReactor's gossip, the TimeoutTicker, the
+                        messages and their codec, the Handshaker
+  privval/, wal/, config/  FilePV; the WAL's record kinds and NopWAL;
+                        ConsensusConfig, MempoolConfig, test_config
+  mempool/              CListMempool (signed txs on the ingest lane) and
+                        its reactor; NopMempool
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without that argument they raise.

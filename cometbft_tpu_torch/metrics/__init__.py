@@ -1,9 +1,11 @@
-"""The metrics structs the port writes: the event bus's, state
-execution's, blocksync's, statesync's ``backfilled_blocks``, the ABCI
-proxy's, the block store's (``StoreMetrics``), and the crypto plane's
-``CryptoMetrics`` and ``HealthMetrics``, and the wire plane's
-``P2PMetrics``, with their process-wide sinks (a copy of
-cometbft_tpu/metrics/__init__.py: 176-298, 352-535, 565-591, 630-925
+"""The metrics structs the port writes: consensus's
+(``ConsensusMetrics``) and the mempool's (``MempoolMetrics``), the
+event bus's, state execution's, blocksync's, statesync's
+``backfilled_blocks``, the ABCI proxy's, the block store's
+(``StoreMetrics``), and the crypto plane's ``CryptoMetrics`` and
+``HealthMetrics``, and the wire plane's ``P2PMetrics``, with their
+process-wide sinks (a copy of
+cometbft_tpu/metrics/__init__.py: 40-298, 352-535, 565-591, 630-925
 and 1051-1060).
 
 Each struct takes a ``utils.metrics.Registry``, or None for no-op
@@ -45,6 +47,142 @@ class _Nop:
 
 
 _NOP = _Nop()
+
+
+class ConsensusMetrics:
+    """(internal/consensus/metrics.go:23 Metrics)"""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.height = self.rounds = self.validators = _NOP
+            self.validators_power = self.byzantine_validators = _NOP
+            self.num_txs = self.total_txs = self.block_size_bytes = _NOP
+            self.block_interval_seconds = self.committed_height = _NOP
+            self.block_parts = self.quorum_prevote_delay = _NOP
+            self.step_duration_seconds = _NOP
+            self.replay_divergence_total = _NOP
+            self.trust_guard_trips_total = _NOP
+            return
+        s = "consensus"
+        self.height = reg.gauge(s, "height", "Height of the chain.")
+        self.rounds = reg.gauge(
+            s, "rounds", "Number of rounds at the latest height."
+        )
+        self.validators = reg.gauge(
+            s, "validators", "Number of validators."
+        )
+        self.validators_power = reg.gauge(
+            s, "validators_power", "Total voting power of validators."
+        )
+        self.byzantine_validators = reg.gauge(
+            s, "byzantine_validators",
+            "Number of validators who tried to double sign.",
+        )
+        self.num_txs = reg.gauge(
+            s, "num_txs", "Number of transactions in the latest block."
+        )
+        self.total_txs = reg.counter(
+            s, "total_txs", "Total number of transactions committed."
+        )
+        self.block_size_bytes = reg.gauge(
+            s, "block_size_bytes", "Size of the latest block in bytes."
+        )
+        self.block_interval_seconds = reg.histogram(
+            s, "block_interval_seconds",
+            "Time between this and the last block.",
+            buckets=(0.5, 1, 2, 3, 5, 10, 30, 60),
+        )
+        self.committed_height = reg.gauge(
+            s, "latest_block_height", "Latest committed block height."
+        )
+        self.block_parts = reg.counter(
+            s, "block_parts",
+            "Block parts transmitted per peer.",
+            labels=("peer_id",),
+        )
+        self.quorum_prevote_delay = reg.gauge(
+            s, "quorum_prevote_delay",
+            "Seconds from proposal timestamp to +2/3 prevote quorum.",
+            labels=("proposer_address",),
+        )
+        self.step_duration_seconds = reg.histogram(
+            s, "step_duration_seconds",
+            "Seconds spent in each consensus step "
+            "(metrics.go StepDurationSeconds).",
+            buckets=DEFAULT_TIME_BUCKETS,
+            labels=("step",),
+        )
+        self.replay_divergence_total = reg.counter(
+            s, "replay_divergence_total",
+            "Transition-digest mismatches caught by the "
+            "CMT_TPU_DETERMINISM replay guard, by surface "
+            "(wal_replay|handshake|startup).",
+            labels=("surface",),
+        )
+        self.trust_guard_trips_total = reg.counter(
+            s, "trust_guard_trips_total",
+            "Wire-derived values that reached a registered consensus "
+            "sink with no validator run in the active wire context, "
+            "caught by the CMT_TPU_TRUSTGUARD runtime guard, by sink "
+            "(utils/trustguard.py; static half tools/trustcheck.py).",
+            labels=("sink",),
+        )
+
+
+class MempoolMetrics:
+    """(mempool/metrics.go Metrics)"""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.size = self.size_bytes = self.tx_size_bytes = _NOP
+            self.failed_txs = self.evicted_txs = self.recheck_times = _NOP
+            self.checktx_total = self.checktx_sig_seconds = _NOP
+            self.checktx_batched = self.checktx_inline = _NOP
+            return
+        s = "mempool"
+        self.size = reg.gauge(s, "size", "Number of uncommitted txs.")
+        self.size_bytes = reg.gauge(
+            s, "size_bytes", "Total size of the mempool in bytes."
+        )
+        self.tx_size_bytes = reg.histogram(
+            s, "tx_size_bytes", "Tx sizes in bytes.",
+            buckets=(16, 64, 256, 1024, 4096, 16384, 65536, 262144),
+        )
+        self.failed_txs = reg.counter(
+            s, "failed_txs", "Number of failed CheckTx."
+        )
+        self.evicted_txs = reg.counter(
+            s, "evicted_txs", "Number of evicted txs."
+        )
+        self.recheck_times = reg.counter(
+            s, "recheck_times", "Number of recheck passes."
+        )
+        # -- ingest plane: every admission outcome lands in
+        # exactly one checktx_total bucket, so rate(accepted) vs
+        # rate(full+duplicate) IS the shed-not-stall liveness signal
+        # the sustained-load harness asserts
+        self.checktx_total = reg.counter(
+            s, "checktx_total",
+            "CheckTx admissions by outcome (accepted | duplicate | "
+            "full | sig | app | precheck | too_large).",
+            labels=("result",),
+        )
+        self.checktx_sig_seconds = reg.histogram(
+            s, "checktx_sig_seconds",
+            "Admission signature-verification wall per tx, queue wait "
+            "included (signed-envelope txs only).",
+            buckets=(.0005, .001, .0025, .005, .01, .025, .05, .1, .5),
+        )
+        self.checktx_batched = reg.counter(
+            s, "checktx_batched",
+            "Signed-tx admissions verified through the VerifyQueue "
+            "ingest lane (device-batched).",
+        )
+        self.checktx_inline = reg.counter(
+            s, "checktx_inline",
+            "Signed-tx admissions verified inline on the host (queue "
+            "off/draining — the strict sync fallback).",
+        )
 
 
 class EventBusMetrics:

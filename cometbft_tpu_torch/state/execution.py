@@ -1,5 +1,6 @@
-"""BlockExecutor — validation and block application (a part of
-cometbft_tpu/state/execution.py; reference: state/execution.go:26).
+"""BlockExecutor — proposal creation, validation, and block application
+(a copy of cometbft_tpu/state/execution.py; reference:
+state/execution.go:26).
 
 The one engine shared by consensus and blocksync: it owns the ABCI
 consensus connection, the mempool lock across Commit, and the state
@@ -11,10 +12,9 @@ Where the port departs from its reference:
 - ``validate_block`` and ``BlockExecutor`` take a keyword ``device``
   (``cuda`` unless the caller names another; without a card only
   ``device="cpu"`` runs) and pass it to every ``verify_commit``;
-- the proposal path (``create_proposal_block``, ``process_proposal``,
-  ``extended_commit_info``, the evidence pool's ``pending_evidence``)
-  comes with consensus, and the pruner's hook (``pruner``) with the
-  node;
+- the pruner's hook (``pruner``) comes with the node, and
+  ``create_proposal_block`` has no adversary hook (the reference's
+  ``consensus/byz.py`` ``maybe_forge_stx``, which comes with evidence);
 - the replay-determinism guard (``state/determinism.py``, which reads
   ``CMT_TPU_DETERMINISM`` and writes to the WAL) comes with the WAL:
   ``last_transition_digest`` stays None;
@@ -31,6 +31,8 @@ from cometbft_tpu_torch.abci.types import (
     FinalizeBlockRequest,
     FinalizeBlockResponse,
     Misbehavior,
+    PrepareProposalRequest,
+    ProcessProposalRequest,
     MISBEHAVIOR_DUPLICATE_VOTE,
     MISBEHAVIOR_LIGHT_CLIENT_ATTACK,
     ValidatorUpdate,
@@ -56,6 +58,7 @@ from cometbft_tpu_torch.types.validator import ValidatorSet
 from cometbft_tpu_torch.utils.env import resolve_device
 from cometbft_tpu_torch.utils.fail import fail_point
 from cometbft_tpu_torch.utils.log import Logger, default_logger
+from cometbft_tpu_torch.utils.time import now_ns
 from cometbft_tpu_torch.utils.trace import TRACER
 from cometbft_tpu_torch.version import BLOCK_PROTOCOL
 
@@ -112,13 +115,19 @@ def median_time(commit: Commit, vals: ValidatorSet) -> int:
 
 
 class _NopEvidencePool:
-    """(state/services.go EmptyEvidencePool): the apply path's half."""
+    """(state/services.go EmptyEvidencePool)"""
+
+    def pending_evidence(self, max_bytes: int) -> tuple[list, int]:
+        return [], 0
 
     def check_evidence(self, ev_list) -> None:
         if ev_list:
             raise InvalidBlockError("unexpected evidence in block")
 
     def update(self, state: State, ev_list) -> None:
+        pass
+
+    def report_conflicting_votes(self, vote_a, vote_b) -> None:
         pass
 
 
@@ -135,6 +144,60 @@ def abci_validator_updates_to_changes(
             raise BlockExecutionError("negative validator power")
         changes.append((Ed25519PubKey(u.pub_key_bytes), u.power))
     return changes
+
+
+def extended_commit_info(last_commit: Commit, votes, last_vals: ValidatorSet):
+    """ExtendedCommitInfo for PrepareProposal (execution.go
+    buildExtendedCommitInfoFromStore): per last-validator entry with
+    its vote extension + extension signature; absent validators get
+    empty entries so indices align.  Flags mirror MakeCommit's rules:
+    a precommit for a block OTHER than the decided one counts ABSENT
+    (its extension never passed the decided-block quorum), and nil
+    precommits never carry extensions to the app (their extensions are
+    not signature-verified — ABCI contract: extension only with
+    flag=COMMIT)."""
+    from cometbft_tpu_torch.abci.types import ExtendedCommitInfo, ExtendedVoteInfo
+    from cometbft_tpu_torch.types.block import (
+        BLOCK_ID_FLAG_ABSENT,
+        BLOCK_ID_FLAG_COMMIT,
+        BLOCK_ID_FLAG_NIL,
+    )
+
+    decided = last_commit.block_id
+    infos = []
+    for i in range(len(last_vals)):
+        val = last_vals.get_by_index(i)
+        vote = votes[i] if votes is not None and i < len(votes) else None
+        if vote is None or (
+            not vote.block_id.is_nil() and vote.block_id != decided
+        ):
+            infos.append(
+                ExtendedVoteInfo(
+                    validator_address=val.address,
+                    validator_power=val.voting_power,
+                    block_id_flag=BLOCK_ID_FLAG_ABSENT,
+                )
+            )
+            continue
+        if vote.block_id.is_nil():
+            infos.append(
+                ExtendedVoteInfo(
+                    validator_address=val.address,
+                    validator_power=val.voting_power,
+                    block_id_flag=BLOCK_ID_FLAG_NIL,
+                )
+            )
+            continue
+        infos.append(
+            ExtendedVoteInfo(
+                validator_address=val.address,
+                validator_power=val.voting_power,
+                vote_extension=vote.extension,
+                extension_signature=vote.extension_signature,
+                block_id_flag=BLOCK_ID_FLAG_COMMIT,
+            )
+        )
+    return ExtendedCommitInfo(round=last_commit.round, votes=tuple(infos))
 
 
 def build_last_commit_info(block: Block, store) -> CommitInfo:
@@ -349,6 +412,93 @@ class BlockExecutor:
         # CMT_TPU_DETERMINISM=1; None until the WAL is ported
         self.last_transition_digest = None
 
+    # -- proposal path ---------------------------------------------------
+
+    def create_proposal_block(
+        self,
+        height: int,
+        state: State,
+        last_commit: Commit | None,
+        proposer_address: bytes,
+        extended_votes=None,
+    ) -> Block:
+        """Reap mempool + PrepareProposal (state/execution.go:113).
+
+        ``extended_votes``: last height's precommit Votes including
+        their vote extensions (index-aligned with last_validators);
+        when given, PrepareProposal receives them as local_last_commit
+        so the app can act on the extensions it collected
+        (execution.go buildExtendedCommitInfoFromStore)."""
+        max_bytes = state.consensus_params.block.max_bytes
+        if max_bytes == -1:
+            max_bytes = 104857600
+        max_gas = state.consensus_params.block.max_gas
+
+        evidence, ev_size = self.ev_pool.pending_evidence(
+            state.consensus_params.evidence.max_bytes
+        )
+        data_limit = max_data_bytes(max_bytes, ev_size, len(state.validators))
+        txs = self.mempool.reap_max_bytes_max_gas(data_limit, max_gas)
+
+        if height == state.initial_height:
+            time_ns = state.last_block_time_ns
+        elif state.consensus_params.pbts_enabled(height):
+            time_ns = max(now_ns(), state.last_block_time_ns + 1)  # deterministic: proposer's PBTS block-time stamp — validators re-check it via _proposal_is_timely
+        else:
+            time_ns = median_time(last_commit, state.last_validators)
+
+        local_last_commit = None
+        if extended_votes is not None and last_commit is not None:
+            local_last_commit = extended_commit_info(
+                last_commit, extended_votes, state.last_validators
+            )
+        req = PrepareProposalRequest(
+            max_tx_bytes=data_limit,
+            txs=tuple(txs),
+            local_last_commit=local_last_commit,
+            misbehavior=evidence_to_misbehavior(evidence, state, None),
+            height=height,
+            time_ns=time_ns,
+            next_validators_hash=state.next_validators.hash(),
+            proposer_address=proposer_address,
+        )
+        resp = self.proxy_app.prepare_proposal(req)
+        total = sum(len(tx) for tx in resp.txs)
+        if total > data_limit:
+            raise BlockExecutionError(
+                f"PrepareProposal returned {total} tx bytes > limit {data_limit}"
+            )
+        return state.make_block(
+            height,
+            tuple(resp.txs),
+            last_commit if last_commit is not None else Commit(),
+            tuple(evidence),
+            proposer_address,
+            time_ns,
+        )
+
+    def process_proposal(self, block: Block, state: State) -> bool:
+        """(state/execution.go:173)"""
+        req = ProcessProposalRequest(
+            txs=block.data.txs,
+            proposed_last_commit=build_last_commit_info(
+                block, self.state_store
+            )
+            if block.header.height > state.initial_height
+            else None,
+            misbehavior=evidence_to_misbehavior(block.evidence, state, None),
+            hash=block.hash() or b"",
+            height=block.header.height,
+            time_ns=block.header.time_ns,
+            next_validators_hash=block.header.next_validators_hash,
+            proposer_address=block.header.proposer_address,
+        )
+        accepted = self.proxy_app.process_proposal(req).is_accepted
+        self.metrics.process_proposal_total.labels(
+            result="accept" if accepted else "reject"
+        ).inc()
+        return accepted
+
     # -- apply path ------------------------------------------------------
 
     def validate_block(self, state: State, block: Block) -> None:
@@ -494,6 +644,7 @@ __all__ = [
     "BlockExecutor",
     "InvalidBlockError",
     "build_last_commit_info",
+    "extended_commit_info",
     "max_data_bytes",
     "median_time",
     "update_state",

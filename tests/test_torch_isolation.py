@@ -53,7 +53,10 @@ _CHILD = textwrap.dedent(
                  "types.event_bus", "utils.pubsub", "utils.fail", "utils.flowrate",
                  "p2p.key", "p2p.netaddr", "p2p.node_info", "p2p.conn.frame_native",
                  "p2p.conn.handshake_crypto", "p2p.conn.secret_connection", "p2p.peer",
-                 "p2p.transport", "p2p.switch", "p2p.test_util"):
+                 "p2p.transport", "p2p.switch", "p2p.test_util", "config", "privval", "wal",
+                 "consensus", "consensus.ticker", "consensus.messages",
+                 "consensus.height_vote_set", "consensus.replay", "consensus.state",
+                 "consensus.reactor", "mempool.reactor"):
         assert "cometbft_tpu_torch." + name in sys.modules, name
     leaked = sorted(m for m in sys.modules
                     if m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
@@ -88,6 +91,39 @@ def test_no_silent_cpu_fallback(monkeypatch):
     with pytest.raises(ValueError):
         resolve_device("meta")
     assert create_batch_verifier(pk, device="cpu").device.type == "cpu"
+
+
+def test_consensus_entry_points_need_a_card_or_device_cpu(monkeypatch):
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApp
+    from cometbft_tpu_torch.config import test_config
+    from cometbft_tpu_torch.consensus import ConsensusState, Handshaker
+    from cometbft_tpu_torch.crypto import ed25519 as ed
+    from cometbft_tpu_torch.mempool import CListMempool
+    from cometbft_tpu_torch.proxy import local_client_creator, new_app_conns
+    from cometbft_tpu_torch.state import State, Store
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.store import BlockStore
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.utils.db import MemDB
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = GenesisDoc(chain_id="iso", validators=(
+        GenesisValidator(ed.priv_key_from_secret(b"iso").pub_key(), 10),))
+    conns = new_app_conns(local_client_creator(KVStoreApp()))
+    states, blocks, state = Store(MemDB()), BlockStore(MemDB()), State.from_genesis(gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CListMempool(conns.mempool)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Handshaker(states, state, blocks, gen)
+    mp = CListMempool(conns.mempool, device="cpu")
+    ex = BlockExecutor(states, conns.consensus, mp, block_store=blocks, device="cpu")
+    cfg = test_config().consensus
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ConsensusState(cfg, state, ex, blocks)
+    assert ConsensusState(cfg, state, ex, blocks, device="cpu").device.type == "cpu"
+    ex.device = torch.device("cuda", 0)       # an executor on another device
+    with pytest.raises(ValueError, match="executor"):
+        ConsensusState(cfg, state, ex, blocks, device="cpu")
 
 
 def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):

@@ -598,3 +598,19 @@ def test_transfer_window_trips_on_a_planted_sync(dev, monkeypatch):
         jitguard.reset()
         jitguard.enable(False)
         M.install_crypto_metrics(None)
+
+
+def test_consensus_stub_run_on_the_card(dev):
+    """chip_smoke's commit-N-consensus run at 1 + 3 validators on the
+    card, without a queue and then with one: 2 heights each, every
+    commit with at least 3 signatures (3 signatures a commit are below
+    the device threshold: the host tier verifies them)."""
+    import chip_smoke
+    from cometbft_tpu_torch import config as C
+    from cometbft_tpu_torch.utils.metrics import Registry
+
+    for queue in (False, True):
+        r = chip_smoke.cs_stub_run(dev, f"stubs on the card (queue {queue})", Registry(), 3, 2,
+                                   queue, config=C.test_config(), timeout_s=120)
+        assert [row["height"] for row in r["per_height"]] == [1, 2]
+        assert all(row["sigs"] >= 3 for row in r["per_height"])
