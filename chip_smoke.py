@@ -220,10 +220,11 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
 18. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --consensus
+    python3 chip_smoke.py --only light,blocksync,consensus
 
-builds the kernels and runs phase 17 alone (after the threshold and the
-comb of B), with no kernels line.
+builds the kernels, runs the threshold (phase 1) and the comb of B, then
+only the named phases of 15, 16 and 17, each followed by its ladder
+check, and prints no kernels line and no result line.
 
     python3 chip_smoke.py --warm150 [TREE]
 
@@ -243,6 +244,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -3706,12 +3708,20 @@ def light_sync_phase(dev, smi: str, heights: int = SYNC_HEIGHTS, nval: int = SYN
     the top to 24 heights below it (no launch), three refusals (a flipped signature in a third
     store, an expired root, a missing height) and an attack (a witness
     whose store holds a conflicting top block: ErrLightClientAttack, one
-    LightClientAttackEvidence to each provider).  The launch counters at
-    0 before each run; every check on the keyed or host tier."""
+    LightClientAttackEvidence to each provider).  (e2): the primary holds
+    an evidence ``Pool`` over the main stores, so the evidence it is sent
+    goes through ``Pool.add_evidence`` -- the lunatic check, every
+    signature of the conflicting commit verified twice on the keyed tier
+    (its +1/3 of the common set, its own set's +2/3), launches counted
+    around the call -- and stays pending; a copy of it naming one
+    byzantine validator fewer is refused with the reference's message.
+    The launch counters at 0 before each run; every check on the keyed or
+    host tier."""
     import shutil
     import tempfile
     from dataclasses import replace
 
+    from cometbft_tpu_torch.evidence import EvidenceInvalidError, Pool
     from cometbft_tpu_torch.light import client as LC
     from cometbft_tpu_torch.light import verifier as LV
     from cometbft_tpu_torch.light.provider import LightBlockNotFoundError, NodeProvider
@@ -3741,6 +3751,7 @@ def light_sync_phase(dev, smi: str, heights: int = SYNC_HEIGHTS, nval: int = SYN
 
         def report_evidence(self, ev) -> None:
             self.reported.append(ev)
+            super().report_evidence(ev)
 
     warm_runs, seq_to, back_to = SYNC_WARM_RUNS, min(64, heights), max(1, heights - 24)
     t_phase = time.perf_counter()
@@ -3818,7 +3829,23 @@ def light_sync_phase(dev, smi: str, heights: int = SYNC_HEIGHTS, nval: int = SYN
         if (block_store.base(), block_store.height()) != (1, heights):
             raise AssertionError(f"light-sync: reopened store holds {block_store.base()}.."
                                  f"{block_store.height()}")
-        primary = RecordingProvider(CHAIN_ID, block_store, state_store)
+        pool = Pool(MemDB(), state_store, block_store, device=dev)
+        pool_calls: list = []
+        add_evidence = pool.add_evidence
+
+        def counted_add_evidence(ev) -> None:
+            before = launched()
+            t1 = time.perf_counter()
+            try:
+                add_evidence(ev)
+            finally:
+                after = launched()
+                pool_calls.append((time.perf_counter() - t1, {
+                    k: after.get(k, 0) - before.get(k, 0) for k in after
+                    if after.get(k, 0) != before.get(k, 0)}))
+
+        pool.add_evidence = counted_add_evidence
+        primary = RecordingProvider(CHAIN_ID, block_store, state_store, pool)
         witness = RecordingProvider(CHAIN_ID, block_store, state_store)
         sample = list(range(1, heights + 1, max(1, heights // 64)))
         loads, lbs = [], []
@@ -3994,6 +4021,33 @@ def light_sync_phase(dev, smi: str, heights: int = SYNC_HEIGHTS, nval: int = SYN
               f"to each provider; common height {common}; byzantine validators: the "
               f"{len(byz)} signers bonded at the common height; evidence to the primary "
               f"{ev.hash().hex()}, {size} bytes")
+
+        # -- (e2) the evidence through the primary's pool -------------------
+        if len(pool_calls) != 1 or [e.hash() for e in pool.pending_evidence(-1)[0]] != \
+                [ev.hash()]:
+            raise AssertionError(f"light-sync (e2): {len(pool_calls)} add_evidence calls, "
+                                 f"pending {pool.pending_evidence(-1)[0]!r}")
+        add_s, add_launches = pool_calls[0]
+        need_launches("light-sync (e2), Pool.add_evidence", add_launches,
+                      {"sha512_keyed": 1, "verify_keyed": 1}, may=("build_tables",))
+        fewer = replace(ev, byzantine_validators=ev.byzantine_validators[1:])
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        expect_error("light-sync (e2), one byzantine validator fewer",
+                     lambda: pool.verify(fewer), EvidenceInvalidError,
+                     "byzantine validator list does not match the conflicting commit's signers")
+        refuse_s = time.perf_counter() - t0
+        refuse_launches = launched()
+        need_launches("light-sync (e2), the refused copy", refuse_launches,
+                      {"sha512_keyed": 1, "verify_keyed": 1})
+        res.update(evidence_add_ms=1e3 * add_s, evidence_add_launches=add_launches,
+                   evidence_refuse_ms=1e3 * refuse_s, evidence_refuse_launches=refuse_launches)
+        print(f"  (e2) Pool.add_evidence on the primary's stores: the lunatic check "
+              f"(+1/3 of the {len(sets[common])}-validator set at {common}, +2/3 of the "
+              f"conflicting set, every signature) in {1e3 * add_s:.3f} ms, launches "
+              f"{add_launches}; pending; the copy naming {len(byz) - 1} validators refused "
+              f"(EvidenceInvalidError, the reference's message) in {1e3 * refuse_s:.3f} ms, "
+              f"launches {refuse_launches}")
     finally:
         for db in opened:
             db.close()
@@ -4136,13 +4190,14 @@ def db_image(db) -> dict:
     return {bytes(k): hashlib.sha256(bytes(v)).digest() for k, v in db.iterator()}
 
 
-def bs_node(dirname: str, gen, dev, validate: bool = True):
+def bs_node(dirname: str, gen, dev, validate: bool = True, snapshot_interval: int = 0):
     """A node's stores, app and executor: sqlite block and state stores in
     ``dirname`` (the genesis state saved), a KVStoreApp over a MemDB after
-    InitChain with the genesis set, its local proxy connections and an
-    EventBus.  ``validate=False``: the executor trusts the blocks (the
-    source node builds its own chain; the syncing node validates every
-    block).  -> dict."""
+    InitChain with the genesis set (a snapshot every ``snapshot_interval``
+    heights, 0: none), its local proxy connections and an EventBus.
+    ``validate=False``: the executor trusts the blocks (the source node
+    builds its own chain; the syncing node validates every block).
+    -> dict."""
     from cometbft_tpu_torch.abci import InitChainRequest, ValidatorUpdate
     from cometbft_tpu_torch.abci.kvstore import KVStoreApp
     from cometbft_tpu_torch.mempool import NopMempool
@@ -4157,7 +4212,7 @@ def bs_node(dirname: str, gen, dev, validate: bool = True):
     state = State.from_genesis(gen)
     state_store.save(state)
     app_db = MemDB()
-    app = KVStoreApp(app_db)
+    app = KVStoreApp(app_db, snapshot_interval=snapshot_interval)
     app.init_chain(InitChainRequest(chain_id=gen.chain_id, validators=tuple(
         ValidatorUpdate("ed25519", v.pub_key.bytes(), v.power) for v in gen.validators)))
     conns = new_app_conns(local_client_creator(app))
@@ -4181,7 +4236,7 @@ def close_node(node: dict) -> None:
 
 
 def bs_chain(work: str, dev, heights: int, nval: int, every: int, ntx: int, rs,
-             nsigners: int = BS_SIGNERS) -> dict:
+             nsigners: int = BS_SIGNERS, snapshot_interval: int = 0) -> dict:
     """Builds the served chain as a node does, one height after another:
     State.make_block (time: the median of the last commit's timestamps),
     BlockExecutor.apply_block over a KVStoreApp, save_block with the
@@ -4191,7 +4246,8 @@ def bs_chain(work: str, dev, heights: int, nval: int, every: int, ntx: int, rs,
     newcomer in at power 10 and take an original to power 0 (the set two
     heights later).  After height ``heights`` the stores' images, the
     app's persisted record and the state are kept; then block heights + 1
-    (not applied) carries the last commit.  -> dict."""
+    (not applied) carries the last commit.  The app (``app``; a snapshot
+    every ``snapshot_interval`` heights) outlives the node.  -> dict."""
     import base64
 
     from cometbft_tpu_torch.crypto import ed25519 as ed
@@ -4208,7 +4264,7 @@ def bs_chain(work: str, dev, heights: int, nval: int, every: int, ntx: int, rs,
     gen = GenesisDoc(chain_id=CHAIN_ID, genesis_time_ns=HEADER_T0, validators=tuple(
         GenesisValidator(ed.Ed25519PubKey(pub), 10) for _, pub in keys))
     src_dir = os.path.join(work, "source")
-    node = bs_node(src_dir, gen, dev, validate=False)
+    node = bs_node(src_dir, gen, dev, validate=False, snapshot_interval=snapshot_interval)
     by_addr = {ed.Ed25519PubKey(pub).address(): (a, pub) for a, pub in keys}
     originals = sorted(pub for _, pub in keys)
     signers = SignerPool(nsigners, int.from_bytes(rs.bytes(32), "little"))
@@ -4264,7 +4320,8 @@ def bs_chain(work: str, dev, heights: int, nval: int, every: int, ntx: int, rs,
     finally:
         signers.close()
         close_node(node)
-    out.update(gen=gen, src_dir=src_dir, rotations=rotations, txs=ntxs, keys_s=t_keys,
+    out.update(gen=gen, src_dir=src_dir, app=node["app"], rotations=rotations, txs=ntxs,
+               keys_s=t_keys,
                data_s=time.perf_counter() - t0, sign_s=sign_s, apply_s=apply_s, save_s=save_s,
                originals_left=len(originals), mib=db_mib(src_dir))
     return out
@@ -4664,6 +4721,181 @@ def image_diff(got: dict, want: dict) -> str:
     return f"missing {missing}, extra {extra}, different {differ}"
 
 
+#: the node paths' launch counts are printed in this order
+KERNEL_ORDER = ("build_tables", "sha512_keyed", "verify_keyed", "verify_generic")
+#: statesync1024: the source app's one snapshot, this many heights below the
+#: top applied height (its headers H + 1 and H + 2 are stored)
+SS_BELOW = 6
+SS_PERIOD_NS = 100 * 365 * 24 * 3600 * 10**9
+
+
+def ss_run(name: str, dev, chain: dict, src_dir: str, work: str, timeout_s: float) -> dict:
+    """(s) statesync1024: a fresh node -- empty sqlite stores, a fresh
+    KVStoreApp (no InitChain), a StatesyncReactor and a BlocksyncReactor
+    waiting -- restores blocksync1024's chain from a source node over
+    127.0.0.1 TCP: the chain's own app (its one snapshot) behind a
+    StatesyncReactor and a BlocksyncReactor over a copy of the source's
+    stores in ``src_dir``.  Its light client (a primary and a witness,
+    NodeProviders over those stores, trust root block 1) verifies the
+    1024-validator headers at H, H + 1 and H + 2 on the keyed tier of a
+    fresh KeyTableCache; the chunks are fetched and applied, the app's
+    hash checked, the stores bootstrapped (the reference node's
+    ``_on_statesync_complete``), and blocksync (``start_sync``) applies
+    the rest to the top.  The launch counters at 0 before the light
+    client starts (it verifies its root's commit: the cold build) and
+    read when the restore hands over and at the end.  Fails unless the
+    node ends with the source's state (but the height it last saw the
+    params change, which a restore cannot know), app record and hash,
+    the source's blocks, FinalizeBlock responses and validator sets at
+    every height it holds, every backfilled block counted, and keyed
+    launches in the restore.  -> dict."""
+    from dataclasses import replace
+
+    from cometbft_tpu_torch import metrics as M
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApp
+    from cometbft_tpu_torch.blocksync import reactor as BR
+    from cometbft_tpu_torch.light.client import Client, TrustOptions
+    from cometbft_tpu_torch.light.provider import NodeProvider
+    from cometbft_tpu_torch.light.store import LightStore
+    from cometbft_tpu_torch.mempool import NopMempool
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.p2p.test_util import make_switch
+    from cometbft_tpu_torch.proxy import local_client_creator, new_app_conns
+    from cometbft_tpu_torch.state import State, decode_state, encode_state
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.statesync import LightClientStateProvider, StatesyncReactor
+    from cometbft_tpu_torch.utils.db import MemDB
+    from cometbft_tpu_torch.utils.log import NopLogger
+    from cometbft_tpu_torch.utils.metrics import Registry
+
+    gen = chain["gen"]
+    registry = Registry()
+    ss_metrics = M.StateSyncMetrics(registry)
+    src_blocks, src_states, src_dbs = open_stores(src_dir)
+    dbs = list(src_dbs)
+    conns: list = []
+    switches: list = []
+    res: dict = {"name": name}
+    key = str(dev)
+    PR._caches[key] = PR.KeyTableCache(dev)
+    try:
+        src_conns = new_app_conns(local_client_creator(chain["app"]))
+        src_conns.start()
+        conns.append(src_conns)
+        snaps = chain["app"].list_snapshots().snapshots
+        src = make_switch(network=CHAIN_ID, moniker="ss-source", reactors={
+            "STATESYNC": StatesyncReactor(src_conns.snapshot, logger=NopLogger()),
+            "BLOCKSYNC": BR.BlocksyncReactor(src_states.load(), None, src_blocks, False,
+                                             logger=NopLogger(), device=dev)})
+        switches.append(src)
+        blocks, states, sdbs = open_stores(os.path.join(work, "statesync"))
+        dbs.extend(sdbs)
+        app_db = MemDB()
+        app = KVStoreApp(app_db)
+        node_conns = new_app_conns(local_client_creator(app))
+        node_conns.start()
+        conns.append(node_conns)
+        ex = BlockExecutor(states, node_conns.consensus, NopMempool(), block_store=blocks,
+                           logger=NopLogger(), device=dev)
+        recorder = ConsensusRecorder()
+        bs = BR.BlocksyncReactor(State.from_genesis(gen), ex, blocks, False,
+                                 consensus_reactor=recorder, logger=NopLogger(),
+                                 statesync_metrics=ss_metrics, device=dev)
+        providers = [NodeProvider(gen.chain_id, src_blocks, src_states) for _ in range(2)]
+        trust = TrustOptions(period_ns=SS_PERIOD_NS, height=1,
+                             hash=src_blocks.load_block_meta(1).block_id.hash)
+        # the counters cover the light client's start too: it verifies
+        # its root's own commit, the first keyed verify of the cold set
+        _build.reset_launches()
+        t_init = time.perf_counter()
+        lc = Client(gen.chain_id, trust, providers[0], providers[1:], LightStore(MemDB()),
+                    logger=NopLogger(), device=dev)
+        init_s = time.perf_counter() - t_init
+        checks: list = []
+        verify = lc.verify_light_block_at_height
+
+        def timed_verify(height, now=None):
+            t0 = time.perf_counter()
+            try:
+                return verify(height, now)
+            finally:
+                checks.append((height, time.perf_counter() - t0))
+
+        lc.verify_light_block_at_height = timed_verify
+        provider = LightClientStateProvider(lc, consensus_params_fn=providers[0].consensus_params,
+                                            logger=NopLogger())
+        done: dict = {}
+
+        def on_complete(state, commit) -> None:
+            done["restore_at"] = time.perf_counter()
+            done["restore_launches"] = launched()
+            states.bootstrap(state)
+            blocks.save_seen_commit(state.last_block_height, commit)
+            done["state"] = state
+            bs.start_sync(state)
+
+        ss = StatesyncReactor(node_conns.snapshot, enabled=True, state_provider=provider,
+                              on_complete=on_complete, discovery_time=1.0,
+                              logger=NopLogger(), metrics=ss_metrics)
+        syncer = make_switch(network=CHAIN_ID, moniker="ss-syncer",
+                             reactors={"STATESYNC": ss, "BLOCKSYNC": bs})
+        switches.append(syncer)
+        src.start()
+        t0 = time.perf_counter()
+        syncer.start()
+        syncer.dial_peer_with_address(src.transport.listen_addr)
+        if not ss.sync_done.wait(timeout_s) or ss.sync_error is not None:
+            raise AssertionError(f"{name}: the restore did not end ({ss.sync_error!r})")
+        if not recorder.done.wait(timeout_s):
+            raise AssertionError(f"{name}: blocksync stopped at {blocks.height()}")
+        res.update(init_s=init_s, restore_s=done["restore_at"] - t0, wall_s=recorder.at - t0,
+                   launches=launched(), restore_launches=done["restore_launches"],
+                   checks=checks, snapshot=done["state"].last_block_height,
+                   chunks=snaps[-1].chunks, snapshots=[sn.height for sn in snaps],
+                   backfilled=plain_value(registry, "cometbft_statesync_backfilled_blocks"))
+    finally:
+        for sw in switches:
+            if sw.is_running():
+                sw.stop()
+        for c in conns:
+            if c.is_running():
+                c.stop()
+        PR._caches.pop(key, None)
+    try:
+        top, h0 = chain["height"], res["snapshot"]
+        got, want = recorder.states[0], decode_state(chain["state"])
+        if encode_state(replace(got, last_height_params_changed=0)) != encode_state(
+                replace(want, last_height_params_changed=0)) or blocks.height() != top:
+            raise AssertionError(f"{name}: handed over the state at {got.last_block_height} "
+                                 f"(stores to {blocks.height()}), not the source's at {top}")
+        if app_db.get(b"kvstore:state") != chain["app_record"] or \
+                app.app_hash != chain["app_hash"]:
+            raise AssertionError(f"{name}: the app's state or hash differs from the source's")
+        if blocks.base() != h0 + 1 or res["backfilled"] != top - h0:
+            raise AssertionError(f"{name}: blocks {blocks.base()}..{blocks.height()}, "
+                                 f"{res['backfilled']} backfilled, after a restore at {h0}")
+        for h in range(h0 + 1, top + 1):
+            if blocks.load_block(h).encode() != src_blocks.load_block(h).encode() or \
+                    states.load_finalize_block_response(h).encode() != \
+                    src_states.load_finalize_block_response(h).encode():
+                raise AssertionError(f"{name}: height {h} differs from the source's")
+        for h in range(h0 + 1, top + 3):
+            if states.load_validators(h).hash() != src_states.load_validators(h).hash():
+                raise AssertionError(f"{name}: the validator set at {h} differs")
+        if top - h0 > 16 or [c for c in res["checks"] if c[0] not in (h0, h0 + 1, h0 + 2)]:
+            raise AssertionError(f"{name}: restored at {h0} of {top}, light checks "
+                                 f"{res['checks']}")
+    finally:
+        for db in dbs:
+            db.close()
+    need_launches(f"{name}, the restore", res["restore_launches"],
+                  {"build_tables": 1, "sha512_keyed": 1, "verify_keyed": 1})
+    need_launches(name, res["launches"], {"build_tables": 1, "sha512_keyed": 1,
+                                          "verify_keyed": 1})
+    return res
+
+
 def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
                     nval: int = BS_VALIDATORS, every: int = BS_ROTATE_EVERY,
                     bad: int = BS_BAD_HEIGHT, nsigners: int = BS_SIGNERS,
@@ -4681,7 +4913,10 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
     error and no send timeout, verify every batch at or above the device
     threshold on the keyed tier (the host tier only below it) and launch
     verify_keyed; (a) builds the tables of the set's keys and of one
-    newcomer per rotation inside the synced heights, (c) none."""
+    newcomer per rotation inside the synced heights, (c) none.  Then (s),
+    statesync1024 (``ss_run``): a fresh node restores the chain from the
+    source app's one snapshot, ``SS_BELOW`` heights below the top, and
+    blocksyncs the rest."""
     import shutil
     import tempfile
 
@@ -4713,7 +4948,8 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
         M.install_p2p_metrics(p2p)
         TRACER.set_capacity(128 * heights + 8192)
         rs = np.random.RandomState(SEED + 16)
-        chain = bs_chain(work, dev, heights, nval, every, BS_TXS, rs, nsigners)
+        chain = bs_chain(work, dev, heights, nval, every, BS_TXS, rs, nsigners,
+                         snapshot_interval=heights - SS_BELOW)
         # a val: tx at height h changes the set that signs height h + 2
         newcomers = sum(1 for h in chain["rotations"] if h + 2 <= heights)
         print(f"blocksync{nval} [{smi}]: BASELINE config 4 (internal/blocksync fast-sync "
@@ -4792,6 +5028,25 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
             res[name]["steps"] = {k: (1e3 * pct(v, 50), 1e3 * max(v))
                                   for k, v in r["steps"].items() if v}
             res[name]["block_bytes"] = (pct(r["block_bytes"], 50), max(r["block_bytes"]))
+        ss_dir = os.path.join(work, "ss-source")
+        copy_stores(chain["src_dir"], ss_dir)
+        ss = ss_run(f"statesync{nval}", dev, chain, ss_dir, work, timeout_s)
+        light_ms = [1e3 * d for _, d in ss["checks"]]
+        print(f"statesync{nval} [{smi}]: BASELINE config 4's chain restored from a snapshot "
+              f"(the source app's snapshots {ss['snapshots']}) at height {ss['snapshot']} of "
+              f"{heights}, {ss['chunks']} chunks, over 127.0.0.1 TCP: the light client's "
+              f"start {ss['init_s']:.3f} s (its root's commit, the cold build), the restore "
+              f"{ss['restore_s']:.3f} s (discovery, light checks, chunks, the app's hash), "
+              f"then {ss['backfilled']:.0f} blocks by blocksync, {ss['wall_s']:.3f} s in all; "
+              f"light checks of heights {[h for h, _ in ss['checks']]} p50 "
+              f"{pct(light_ms, 50):.3f} ms (max {max(light_ms):.3f}); launches "
+              f"(build_tables / sha512_keyed / verify_keyed / verify_generic) in the restore "
+              + " / ".join(str(ss["restore_launches"].get(k, 0)) for k in KERNEL_ORDER)
+              + ", in all " + " / ".join(str(ss["launches"].get(k, 0)) for k in KERNEL_ORDER)
+              + "; state, app and stores equal the source's")
+        res["s"] = {k: ss[k] for k in ("init_s", "restore_s", "wall_s", "launches",
+                                       "restore_launches",
+                                       "checks", "snapshot", "chunks", "backfilled")}
     finally:
         M.install_p2p_metrics(saved_p2p)
         TRACER.set_capacity(ring)
@@ -4874,6 +5129,10 @@ CS_CLIENTS = 32             # localnet4: client threads sending them
 CS_MIN_HEIGHTS = 12         # localnet4: at least this many heights
 CS_STUBS = 149              # commit150-consensus: stub validators beside the node
 CS_STUB_HEIGHTS = 8         # commit150-consensus: heights per run
+CS_EQUIVOCATE_AT = 3        # (e1): the height (b2)'s first stub equivocates at
+CS_WAL_HEIGHTS = 4          # (w): heights per run
+CS_WAL_CRASH_AT = 3         # (w): the height the node is stopped in
+CS_WAL_COMMIT_NS = 100 * 10**6  # (w): its commit timeout
 CS_STEP_NAMES = ("NewHeight", "NewRound", "Propose", "Prevote", "PrevoteWait", "Precommit",
                  "PrecommitWait", "Commit")
 
@@ -4930,7 +5189,8 @@ def cs_txs(n: int, rs) -> list[bytes]:
 
 
 def cs_node(dev, gen, pv, config, dirname: str | None, logger, switch: bool = True,
-            moniker: str = "node") -> dict:
+            moniker: str = "node", wal=None, determinism: bool = False,
+            evidence: bool = False) -> dict:
     """A consensus node as the reference's Node assembles one: block and
     state stores (sqlite in ``dirname``, else MemDBs), a KVStoreApp over a
     MemDB through the local proxy, an EventBus, a CListMempool with the
@@ -4938,7 +5198,11 @@ def cs_node(dev, gen, pv, config, dirname: str | None, logger, switch: bool = Tr
     at genesis), ConsensusState (``logger``: consensus's and its
     reactor's); with ``switch``, a ConsensusReactor (waiting for
     ``switch_to_consensus``) and a MempoolReactor on a switch of
-    ``p2p.test_util.make_switch``.  Its metrics go to its own registry."""
+    ``p2p.test_util.make_switch``.  Its metrics go to its own registry.
+    ``wal``: the consensus WAL (a started ``wal.WAL``; else the NopWAL),
+    ``determinism``: the executor's and Handshaker's digest guard,
+    ``evidence``: an evidence ``Pool`` over a MemDB in the executor, and
+    the app's FinalizeBlock misbehavior types kept in ``misbehavior``."""
     from cometbft_tpu_torch import metrics as M
     from cometbft_tpu_torch.abci.kvstore import KVStoreApp
     from cometbft_tpu_torch.consensus import ConsensusState, Handshaker
@@ -4961,7 +5225,19 @@ def cs_node(dev, gen, pv, config, dirname: str | None, logger, switch: bool = Tr
         dbs = (MemDB(), MemDB())
         block_store, state_store = BlockStore(dbs[0]), Store(dbs[1])
     n = dict(block_store=block_store, state_store=state_store, dbs=dbs, registry=Registry(),
-             app=KVStoreApp(MemDB()), bus=EventBus(), services=[])
+             app=KVStoreApp(MemDB()), bus=EventBus(), services=[], misbehavior=[], pool=None)
+    if evidence:
+        from cometbft_tpu_torch.evidence import Pool
+
+        n["pool"] = Pool(MemDB(), state_store, block_store, logger=NopLogger(),
+                         metrics=M.EvidenceMetrics(n["registry"]), device=dev)
+        finalize = n["app"].finalize_block
+
+        def finalize_block(req):
+            n["misbehavior"].extend((req.height, m.type) for m in req.misbehavior)
+            return finalize(req)
+
+        n["app"].finalize_block = finalize_block
     n["conns"] = new_app_conns(local_client_creator(n["app"]))
     try:
         for svc in (n["conns"], n["bus"]):
@@ -4975,16 +5251,17 @@ def cs_node(dev, gen, pv, config, dirname: str | None, logger, switch: bool = Tr
             cache_size=mc.cache_size, keep_invalid_txs_in_cache=mc.keep_invalid_txs_in_cache,
             recheck=mc.recheck, metrics=M.MempoolMetrics(n["registry"]), device=dev)
         n["exec"] = BlockExecutor(state_store, n["conns"].consensus, n["mempool"],
+                                  evidence_pool=n["pool"],
                                   block_store=block_store, event_bus=n["bus"],
                                   metrics=M.StateMetrics(n["registry"]), logger=NopLogger(),
-                                  device=dev)
+                                  device=dev, determinism=determinism)
         n["state"] = Handshaker(state_store, state, block_store, gen, logger=NopLogger(),
-                                device=dev).handshake(n["conns"])
+                                device=dev, determinism=determinism).handshake(n["conns"])
         max_bytes = n["state"].consensus_params.block.max_bytes
         n["mempool"].pre_check = pre_check_max_bytes(max_bytes if max_bytes > 0 else 104857600)
         n["mempool"].post_check = post_check_max_gas(n["state"].consensus_params.block.max_gas)
         n["cs"] = ConsensusState(config.consensus, n["state"], n["exec"], block_store,
-                                 priv_validator=pv, event_bus=n["bus"],
+                                 priv_validator=pv, event_bus=n["bus"], wal=wal,
                                  metrics=M.ConsensusMetrics(n["registry"]), logger=logger,
                                  device=dev)
         n["services"].append(n["cs"])
@@ -4998,6 +5275,41 @@ def cs_node(dev, gen, pv, config, dirname: str | None, logger, switch: bool = Tr
         cs_close(n)
         raise
     return n
+
+
+def cs_mesh(ns: list, timeout: float) -> list:
+    """Meshes the nodes' switches as ``p2p.persistent_peers`` does in a
+    localnet (the reference's localnet tests dial so too): node i dials
+    each later node, persistent, so a link dropped under load (a pong
+    timeout while a node's receive threads wait on a lock its consensus
+    thread holds through the app's calls) is dialed again with the
+    switch's backoff.  -> the peers each switch holds once every pair is
+    joined."""
+    for i, a in enumerate(ns):
+        for b in ns[i + 1:]:
+            if not a["sw"].dial_peer_with_address(b["sw"].transport.listen_addr,
+                                                  persistent=True):
+                raise AssertionError(f"localnet: node {i} failed to dial "
+                                     f"{b['sw'].transport.listen_addr}")
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        links = [n["sw"].peers.copy() for n in ns]
+        if all(len(p) == len(ns) - 1 for p in links):
+            return links
+        time.sleep(0.01)
+    raise AssertionError(f"localnet: peers {[len(p) for p in links]} after {timeout} s")
+
+
+def cs_net_report(ns: list, errors: ErrorLines) -> str:
+    """What a stalled localnet looks like: each node's height, round,
+    step, peers, consensus queue depth and mempool size, and the
+    consensus errors logged (the switches log each peer they stop)."""
+    nodes = "; ".join(
+        f"node {i} at {n['cs'].height}/{n['cs'].round}/{n['cs'].step}, "
+        f"{len(n['sw'].peers.copy())} peers, queue {n['cs']._queue.qsize()}, "
+        f"mempool {n['mempool'].size()}"
+        for i, n in enumerate(ns))
+    return f"{nodes}; errors {errors.lines[:5]}"
 
 
 def cs_close(n: dict) -> None:
@@ -5091,7 +5403,6 @@ def cs_localnet(dev, smi: str, registry, nodes: int = CS_NODES, ntx: int = CS_TX
     from cometbft_tpu_torch.crypto import verify_queue as VQ
     from cometbft_tpu_torch.crypto.ed25519 import priv_key_from_secret
     from cometbft_tpu_torch.ops import _build
-    from cometbft_tpu_torch.p2p.test_util import connect_switches
     from cometbft_tpu_torch.privval import FilePV
     from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
     from cometbft_tpu_torch.utils.log import Logger
@@ -5129,9 +5440,7 @@ def cs_localnet(dev, smi: str, registry, nodes: int = CS_NODES, ntx: int = CS_TX
                               moniker=f"node{i}"))
         for n in ns:
             n["sw"].start()
-        for i in range(nodes):
-            for j in range(i + 1, nodes):
-                connect_switches(ns[i]["sw"], ns[j]["sw"], timeout=30.0)
+        links0 = cs_mesh(ns, timeout=30.0)
         t_start = time.perf_counter()
         for n in ns:
             n["cr"].switch_to_consensus(n["state"])
@@ -5169,8 +5478,11 @@ def cs_localnet(dev, smi: str, registry, nodes: int = CS_NODES, ntx: int = CS_TX
             time.sleep(0.1)
         else:
             raise AssertionError(f"localnet: heights {[n['block_store'].height() for n in ns]} "
-                                 f"after {timeout_s} s, txs not all committed")
+                                 f"after {timeout_s} s, txs not all committed; "
+                                 + cs_net_report(ns, errors))
         res["wall"] = time.perf_counter() - t_start
+        res["redialed"] = sum(1 for n, first in zip(ns, links0)
+                              for p in n["sw"].peers.copy() if p not in first)
         events = TRACER.events()
         res["mempool"] = [{k: registry_value(n["registry"], "cometbft_mempool_checktx_total",
                                              f'result="{k}"')
@@ -5221,7 +5533,8 @@ def cs_localnet(dev, smi: str, registry, nodes: int = CS_NODES, ntx: int = CS_TX
 
 
 def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
-                config=None, verifier_factory=None, timeout_s: float = 120.0) -> dict:
+                config=None, verifier_factory=None, timeout_s: float = 120.0,
+                equivocate_at: int | None = None) -> dict:
     """Run (b), commit-N through consensus: one port validator (a
     ``cs_node`` without a switch) and ``nstub`` stub validators at power
     10, driven by the reference's validator-stub pattern
@@ -5231,7 +5544,16 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
     precommit it (FastSigner).  ``queue``: with the verify queue installed
     (``verifier_factory``, default the card's), else none.  Fails unless
     every commit carries at least 2/3 + 1 of the signatures and
-    ``heights`` heights commit within ``timeout_s``."""
+    ``heights`` heights commit within ``timeout_s``.
+
+    ``equivocate_at`` (e1): the node runs with an evidence pool, and at
+    that height the first stub also signs a precommit for another block
+    id, delivered right after its real one.  The node reports the
+    conflict, its pool makes the DuplicateVoteEvidence, a later proposal
+    (the stubs' come from the node's executor) carries it and the app is
+    told of it; fails unless exactly one block carries it, the app gets
+    exactly one MISBEHAVIOR_DUPLICATE_VOTE, and the pool's
+    ``committed_total`` reads 1."""
     from dataclasses import replace as dc_replace
 
     from cometbft_tpu_torch import config as C
@@ -5273,7 +5595,7 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
     add_vote_s: list = []
     try:
         node = cs_node(dev, gen, pv, config, None, Logger(sink=errors, level="error"),
-                       switch=False)
+                       switch=False, evidence=equivocate_at is not None)
         cs, ex, bus, blocks = node["cs"], node["exec"], node["bus"], node["block_store"]
         vals = cs.state.validators
         stub_idx = {}
@@ -5348,6 +5670,13 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
                           validator_address=addr, validator_index=idx)
                      for vt in (PREVOTE_TYPE, PRECOMMIT_TYPE)
                      for addr, (idx, _, _) in stub_idx.items()]
+            if h == equivocate_at and r == 0:
+                # the first stub's second precommit, for another block id,
+                # right after its real one
+                fake = bytes(b ^ 0xFF for b in bid.hash)
+                first = len(stub_idx)
+                votes.insert(first + 1, dc_replace(votes[first], block_id=BlockID(
+                    fake, dc_replace(bid.part_set_header, hash=fake[::-1]))))
             keyed = [stub_idx[v.validator_address] for v in votes]
             sigs = signer.sign_all([(a, pub, v.sign_bytes(chain)) for v, (_, a, pub)
                                     in zip(votes, keyed)])
@@ -5364,6 +5693,8 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
         res["busy"] = busy_seconds(registry) - busy0
         res["stats"] = q.stats() if q is not None else None
         cs.stop()
+        if equivocate_at is not None:
+            res["evidence"] = cs_check_evidence(name, node, equivocate_at)
         need = (2 * (nstub + 1)) // 3 + 1
         pipe = {e["args"]["height"]: e["dur"] / 1e6 for e in events
                 if e["name"] == "height/pipeline"}
@@ -5396,6 +5727,312 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
     return res
 
 
+def wal_side(dev) -> dict:
+    """What ``cs_wal_chain`` drives: the port's modules, and ``node``, a
+    ``cs_node`` without a switch over a file WAL with the determinism
+    guard on (a caller may hand ``cs_wal_chain`` another package's, as
+    tests/test_torch_wal.py does with the reference's)."""
+    from types import SimpleNamespace
+
+    from cometbft_tpu_torch import consensus, privval, wal
+    from cometbft_tpu_torch.consensus import state as csm
+    from cometbft_tpu_torch.crypto import ed25519
+    from cometbft_tpu_torch.state import determinism
+    from cometbft_tpu_torch.types import PRECOMMIT_TYPE, PREVOTE_TYPE, BlockID, Vote
+    from cometbft_tpu_torch.types import event_bus, genesis, part_set
+    from cometbft_tpu_torch.types.vote import Proposal
+    from cometbft_tpu_torch.utils import log
+
+    m = SimpleNamespace(
+        Vote=Vote, Proposal=Proposal, BlockID=BlockID, PREVOTE_TYPE=PREVOTE_TYPE,
+        PRECOMMIT_TYPE=PRECOMMIT_TYPE, VoteMessage=consensus.VoteMessage,
+        ProposalMessage=consensus.ProposalMessage, BlockPartMessage=consensus.BlockPartMessage,
+        EVENT_NEW_ROUND=event_bus.EVENT_NEW_ROUND,
+        EVENT_COMPLETE_PROPOSAL=event_bus.EVENT_COMPLETE_PROPOSAL,
+        query_for_event=event_bus.query_for_event,
+        BLOCK_PART_SIZE_BYTES=part_set.BLOCK_PART_SIZE_BYTES, Ed25519PubKey=ed25519.Ed25519PubKey,
+        priv_key_from_secret=ed25519.priv_key_from_secret, FilePV=privval.FilePV, WAL=wal.WAL,
+        KIND_MSG_INFO=wal.KIND_MSG_INFO, csm=csm, verify_wal_digests=determinism.verify_wal_digests,
+        GenesisDoc=genesis.GenesisDoc, GenesisValidator=genesis.GenesisValidator,
+        Handshaker=consensus.Handshaker, ConsensusState=consensus.ConsensusState,
+        Logger=log.Logger, NopLogger=log.NopLogger)
+
+    def node(gen, pv, config, logger, w):
+        return cs_node(dev, gen, pv, config, None, logger, switch=False, wal=w,
+                       determinism=True)
+
+    return dict(m=m, node=node, close=cs_close,
+                kw=dict(device=dev), hs_kw=dict(device=dev, determinism=True))
+
+
+def cs_wal_chain(dev, name: str, nstub: int, heights: int, workdir: str,
+                 crash_at: int | None, config=None, timeout_s: float = 120.0,
+                 side: dict | None = None) -> dict:
+    """One run of (w): one validator with a file WAL and the determinism
+    guard on (``side``'s ``node``, default the port's: ``wal_side``; its
+    FilePV in files) and ``nstub`` stubs at power 10.  The stubs' votes
+    make the chain a function of the seed alone: the consensus state
+    reads a frozen clock (every vote's time is then the last block time +
+    1 ns), and only the first ``need - 1`` stubs vote (``need`` = 2/3 of
+    the power + 1), so each commit holds exactly those and the node's own
+    precommit.  With ``crash_at``, the node's receive thread is ended
+    right after the WAL has its own precommit of that height (its
+    prevote, and the stubs' votes it processed, before it), and a new
+    ConsensusState over the same WAL (reopened), stores, FilePV (reloaded
+    from its files) and app replays the WAL and commits on; the stubs
+    send that height's votes again.  -> the block ids and app hashes of
+    heights 1..``heights``, the replay's counts, and the WAL's digest
+    records checked against the stores."""
+    from dataclasses import replace as dc_replace
+
+    from cometbft_tpu_torch import config as C
+
+    from cometbft_tpu_torch.ops import _build
+
+    side = side or wal_side(dev)
+    m = side["m"]
+    config = config or C.default_config()
+    rs = np.random.RandomState(SEED + 7 * nstub + 3)
+    signer = FastSigner(int.from_bytes(rs.bytes(32), "little"))
+    stubs = scalar_keys(int.from_bytes(rs.bytes(32), "little"), nstub)
+    os.makedirs(workdir, exist_ok=True)
+    key_path, state_path = os.path.join(workdir, "pv_key.json"), os.path.join(workdir,
+                                                                               "pv_state.json")
+    pv = m.FilePV(m.priv_key_from_secret(b"smoke-wal-node"), key_path, state_path)
+    pv.save()
+    chain = f"{CS_CHAIN_ID}-wal-{nstub + 1}"
+    gen = m.GenesisDoc(chain_id=chain, genesis_time_ns=CS_T0, validators=tuple(
+        [m.GenesisValidator(m.Ed25519PubKey(pub), 10) for _, pub in stubs]
+        + [m.GenesisValidator(pv.pub_key, 10)]))
+    need = (2 * (nstub + 1)) // 3 + 1
+    wal_path = os.path.join(workdir, "wal", "wal")
+    errors = ErrorLines()
+    logger = m.Logger(sink=errors, level="error")
+    real_now = m.csm.now_ns
+    m.csm.now_ns = lambda: CS_T0
+    node, wal = None, None
+    res: dict = {"name": name}
+    crashed = threading.Event()
+    try:
+        wal = m.WAL(wal_path)
+        wal.start()
+        node = side["node"](gen, pv, config, logger, wal)
+        cs, ex, bus, blocks = node["cs"], node["exec"], node["bus"], node["block_store"]
+        vals = cs.state.validators
+        stub_idx = {}
+        for a, pub in stubs:
+            addr = m.Ed25519PubKey(pub).address()
+            stub_idx[addr] = (vals.get_by_address(addr)[0], a, pub)
+        voters = dict(sorted(stub_idx.items(), key=lambda kv: kv[1][0])[:need - 1])
+
+        def arm(w):
+            real = w.write_sync
+
+            def write_sync(kind, data):
+                real(kind, data)
+                if crash_at is None or crashed.is_set() or kind != m.KIND_MSG_INFO:
+                    return
+                mi = m.csm.decode_msg_info(data)
+                v = getattr(mi.msg, "vote", None)
+                if (mi.peer_id == "" and v is not None and v.type == m.PRECOMMIT_TYPE
+                        and v.height == crash_at):
+                    res["own_precommit"] = v.signature
+                    crashed.set()
+                    # ends the receive thread as a kill would: its
+                    # catch-all lets SystemExit out, and threading drops it
+                    raise SystemExit("crash after the WAL write")
+
+            w.write_sync = write_sync
+
+        arm(wal)
+        sub_nr = bus.subscribe("wal-driver-nr", m.query_for_event(m.EVENT_NEW_ROUND),
+                               capacity=1000)
+        sub_cp = bus.subscribe("wal-driver-cp", m.query_for_event(m.EVENT_COMPLETE_PROPOSAL),
+                               capacity=1000)
+        signed: dict = {}
+        proposed: set = set()
+        _build.reset_launches()
+        t_start = time.perf_counter()
+        cs.start()
+        deadline = time.perf_counter() + timeout_s
+        while cs.state.last_block_height < heights:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{name}: height {blocks.height()} after {timeout_s} s")
+            if crashed.is_set() and "restart_s" not in res:
+                # the receive thread is gone; what it left is on disk
+                t0 = time.perf_counter()
+                cs.stop()              # the ticker; the WAL is closed with it
+                pv = m.FilePV.load(key_path, state_path)
+                wal = m.WAL(wal_path)
+                wal.start()
+                arm(wal)
+                state = m.Handshaker(node["state_store"], node["state_store"].load(), blocks,
+                                     gen, logger=m.NopLogger(), **side["hs_kw"]).handshake(
+                                         node["conns"])
+                old = cs
+                cs = m.ConsensusState(config.consensus, state, ex, blocks, priv_validator=pv,
+                                      event_bus=bus, wal=wal, logger=logger, **side["kw"])
+                node["cs"] = cs
+                node["services"] = [cs if svc is old else svc for svc in node["services"]]
+                cs.start()
+                res["restart_s"] = time.perf_counter() - t0
+                res["replayed_records"] = cs.replayed_records
+                res["replayed_digests"] = cs.replayed_digests
+                # the replay may commit the height itself (the precommits
+                # it needs all in the WAL): no digest record is written
+                # in replay, as in the reference
+                res["committed_in_replay"] = cs.state.last_block_height >= crash_at
+                for hr, msgs in signed.items():
+                    if hr[0] == crash_at:
+                        for msg in msgs:
+                            cs.send_peer_msg(msg, "stub-peer")
+            try:
+                ev = sub_nr.next(timeout=0.005)
+            except TimeoutError:
+                ev = None
+            if ev is not None:
+                rstate = cs.round_state()
+                h, r = rstate["height"], rstate["round"]
+                proposer = rstate["validators"].get_proposer()
+                if proposer.address in stub_idx and rstate["proposal"] is None \
+                        and (h, r) not in proposed:
+                    proposed.add((h, r))
+                    _, a, pub = stub_idx[proposer.address]
+                    last_commit = blocks.load_seen_commit(h - 1) if h > 1 else None
+                    block = ex.create_proposal_block(h, cs.state, last_commit, proposer.address)
+                    parts = block.make_part_set(m.BLOCK_PART_SIZE_BYTES)
+                    prop = m.Proposal(height=h, round=r, pol_round=-1,
+                                      block_id=m.BlockID(block.hash(), parts.header),
+                                      timestamp_ns=block.header.time_ns)
+                    prop = dc_replace(prop, signature=signer.sign(a, pub, prop.sign_bytes(chain)))
+                    cs.send_peer_msg(m.ProposalMessage(prop), "stub-peer")
+                    for i in range(parts.header.total):
+                        cs.send_peer_msg(m.BlockPartMessage(h, r, parts.get_part(i)),
+                                         "stub-peer")
+            try:
+                ev = sub_cp.next(timeout=0.005)
+            except TimeoutError:
+                continue
+            rstate = cs.round_state()
+            if rstate["proposal"] is None:
+                continue
+            h, r = rstate["height"], rstate["round"]
+            if (h, r) in signed:
+                continue
+            bid = rstate["proposal"].block_id
+            ts = cs.state.last_block_time_ns + 1
+            votes = [m.Vote(type=vt, height=h, round=r, block_id=bid, timestamp_ns=ts,
+                            validator_address=addr, validator_index=idx)
+                     for vt in (m.PREVOTE_TYPE, m.PRECOMMIT_TYPE)
+                     for addr, (idx, _, _) in voters.items()]
+            sigs = signer.sign_all([(voters[v.validator_address][1],
+                                     voters[v.validator_address][2], v.sign_bytes(chain))
+                                    for v in votes])
+            signed[(h, r)] = [m.VoteMessage(dc_replace(v, signature=sig))
+                              for v, sig in zip(votes, sigs)]
+            for msg in signed[(h, r)]:
+                cs.send_peer_msg(msg, "stub-peer")
+        res["wall"] = time.perf_counter() - t_start
+        res["launches"] = launched()
+        bus.unsubscribe_all("wal-driver-nr")
+        bus.unsubscribe_all("wal-driver-cp")
+        cs.stop()
+        states = node["state_store"]
+        res["chain"] = [(blocks.load_block_meta(h).block_id.hash,
+                         states.load_finalize_block_response(h).app_hash)
+                        for h in range(1, heights + 1)]
+        res["rounds"] = [blocks.load_seen_commit(h).round for h in range(1, heights + 1)]
+        check = m.WAL(wal_path)
+        try:
+            res["digests_verified"] = m.verify_wal_digests(check, blocks, states)
+        finally:
+            check._group.close()
+        if crash_at is not None:
+            if "restart_s" not in res:
+                raise AssertionError(f"{name}: the node never reached its precommit of "
+                                     f"height {crash_at}")
+            commit = blocks.load_seen_commit(crash_at)
+            own = [cs_ for cs_ in commit.signatures
+                   if cs_.validator_address == pv.address and not cs_.is_absent()]
+            if not own or own[0].signature != res["own_precommit"]:
+                raise AssertionError(f"{name}: the commit of height {crash_at} does not hold "
+                                     "the precommit the node signed before the crash")
+    finally:
+        m.csm.now_ns = real_now
+        if node is not None:
+            side["close"](node)
+        if wal is not None and wal.is_running():
+            wal.stop()
+    # replay re-enters the height's steps, and the FilePV refuses to sign
+    # below the step it signed before the crash: the guard at work
+    refused = [ln for ln in errors.lines if "failed signing vote" in ln
+               and "step regression" in ln]
+    res["refusals"] = len(refused)
+    others = [ln for ln in errors.lines if ln not in refused]
+    if others or (refused and crash_at is None):
+        raise AssertionError(f"{name}: consensus errors logged: {errors.lines[:5]}")
+    return res
+
+
+def cs_wal_run(dev, name: str, nstub: int, heights: int, crash_at: int, workdir: str,
+               config=None, timeout_s: float = 120.0) -> dict:
+    """(w) crash and WAL replay: the chain of an uninterrupted run, then
+    the same run with the node stopped in the middle of height
+    ``crash_at`` and restarted through its WAL (``cs_wal_chain``).  Fails
+    unless the block ids and app hashes of every height are equal, the
+    restart replayed records and at least one transition digest, each
+    height's digest record (but that of a height the replay itself
+    committed, which writes none) checks against the stores, and no
+    error was logged but the FilePV's refusals to sign below the step it
+    reached before the crash."""
+    threads = live_threads()
+    try:
+        plain = cs_wal_chain(dev, name + " (uninterrupted)", nstub, heights,
+                             os.path.join(workdir, "plain"), None, config, timeout_s)
+        crash = cs_wal_chain(dev, name, nstub, heights, os.path.join(workdir, "crash"),
+                             crash_at, config, timeout_s)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    end_phase(name, threads)
+    if crash["chain"] != plain["chain"]:
+        diff = [h + 1 for h, (a, b) in enumerate(zip(crash["chain"], plain["chain"])) if a != b]
+        raise AssertionError(f"{name}: the restarted chain differs from the uninterrupted one "
+                             f"at heights {diff} (rounds {crash['rounds']} / {plain['rounds']})")
+    if crash["replayed_records"] < 2 or crash["replayed_digests"] < 1 \
+            or crash["digests_verified"] != heights - crash["committed_in_replay"] \
+            or plain["digests_verified"] != heights:
+        raise AssertionError(f"{name}: replayed {crash['replayed_records']} records, "
+                             f"{crash['replayed_digests']} digests; WAL digests verified "
+                             f"{crash['digests_verified']} / {plain['digests_verified']} of "
+                             f"{heights}")
+    return dict(plain=plain, crash=crash, heights=heights, crash_at=crash_at)
+
+
+def cs_check_evidence(name: str, node: dict, height: int) -> dict:
+    """(e1)'s checks on a node after its run: the equivocation at
+    ``height`` committed once, told to the app once, counted once."""
+    from cometbft_tpu_torch.abci.types import MISBEHAVIOR_DUPLICATE_VOTE
+    from cometbft_tpu_torch.types.evidence import DuplicateVoteEvidence
+
+    blocks = node["block_store"]
+    carried = [(h, ev) for h in range(1, blocks.height() + 1)
+               for ev in blocks.load_block(h).evidence]
+    committed = plain_value(node["registry"], "cometbft_evidence_committed_total")
+    types = [t for _, t in node["misbehavior"]]
+    if (len(carried) != 1 or not isinstance(carried[0][1], DuplicateVoteEvidence)
+            or carried[0][1].height != height or types != [MISBEHAVIOR_DUPLICATE_VOTE]
+            or committed != 1):
+        raise AssertionError(f"{name}: evidence of the equivocation at height {height}: "
+                             f"blocks carry {[(h, type(e).__name__) for h, e in carried]}, "
+                             f"the app was told {node['misbehavior']}, committed_total "
+                             f"{committed}")
+    ev = carried[0][1]
+    if not node["pool"]._is_committed(ev) or node["pool"].size() != 0:
+        raise AssertionError(f"{name}: the pool did not mark the evidence committed")
+    return dict(height=height, block=carried[0][0], misbehavior=list(node["misbehavior"]),
+                committed_total=committed, validator=ev.vote_a.validator_address.hex()[:12])
+
+
 def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS,
                     nstub: int = CS_STUBS) -> dict:
     """Phase 17: consensus.  Run (a) localnet4 (``cs_localnet``), then
@@ -5410,7 +6047,15 @@ def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS
     through consensus.  Fails on a run's own checks, on (b2) without a
     keyed launch at every height from 2 on, on a generic or host
     verify_commit in (b2), on a spec-cache miss in (b1)'s LastCommit
-    checks, or on a thread left behind."""
+    checks, or on a thread left behind.  (b2) carries (e1): its first stub
+    equivocates at ``CS_EQUIVOCATE_AT`` and the evidence must be
+    committed (``cs_stub_run``).  Then (w), crash and WAL replay
+    (``cs_wal_run``): the same validators with a file WAL and the
+    determinism guard, a 100 ms commit timeout, ``CS_WAL_HEIGHTS`` heights,
+    the node stopped in height ``CS_WAL_CRASH_AT``."""
+    from dataclasses import replace
+
+    from cometbft_tpu_torch import config as C
     from cometbft_tpu_torch.ops import precompute as PR
 
     t0 = time.perf_counter()
@@ -5421,7 +6066,7 @@ def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS
           f"({a['heights'] / a['wall']:.3f} heights/s), {sum(a['block_txs'])} signed txs "
           f"committed once each (txs a block {a['block_txs']}), stores and app hashes equal; "
           f"the txs made in {a['data_s']:.3f} s, admitted by node 0 in {a['admit_s']:.3f} s "
-          f"from {CS_CLIENTS} threads")
+          f"from {CS_CLIENTS} threads; links dialed again {a['redialed']}")
     print(f"  rounds above 0: {sum(1 for r in a['rounds'] if r > 0)} of {len(a['rounds'])} "
           f"heights (commit rounds {a['rounds']})")
     print("  step s p50 / max (count), tracer spans of the four nodes: " + "; ".join(
@@ -5439,7 +6084,8 @@ def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS
     for key, queue in (("b1", True), ("b2", False)):
         name = f"commit{nstub + 1}-consensus ({key}: {'queue' if queue else 'no queue'})"
         keys0 = PR.table_cache(dev).stats["keys_built"]
-        r = cs_stub_run(dev, name, registry, nstub, stub_heights + 1, queue)
+        r = cs_stub_run(dev, name, registry, nstub, stub_heights + 1, queue,
+                        equivocate_at=None if queue else CS_EQUIVOCATE_AT)
         r["keys_built"] = PR.table_cache(dev).stats["keys_built"] - keys0
         runs[key] = r
         print(f"{name} [{smi}]: {stub_heights + 1} heights in {r['wall']:.3f} s, launches "
@@ -5454,6 +6100,12 @@ def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS
                   f"{fmt_s(row['verify_commit'], 1e3)} ms")
         if r["stats"] is not None:
             print(f"  queue stats {r['stats']}")
+        if "evidence" in r:
+            e = r["evidence"]
+            print(f"  (e1) equivocation at height {e['height']} (validator {e['validator']}): "
+                  f"DuplicateVoteEvidence committed in block {e['block']}, the app told "
+                  f"{e['misbehavior']} ((height, type); type 1 = duplicate vote), "
+                  f"evidence_committed_total {e['committed_total']:.0f}")
     b1, b2 = runs["b1"], runs["b2"]
     keyed = min(b2["launches"].get("sha512_keyed", 0), b2["launches"].get("verify_keyed", 0))
     if keyed < stub_heights or b2["launches"].get("build_tables", 0) < 1:
@@ -5467,14 +6119,31 @@ def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS
     if b1["launches"].get("verify_keyed") or b1["hits"] < stub_heights * (nstub + 1) * 2 // 3:
         raise AssertionError(f"commit-consensus (b1): launches {b1['launches']}, cache hits "
                              f"{b1['hits']}: the LastCommit checks did not hit the cache")
-    res.update(b1=b1, b2=b2, seconds=time.perf_counter() - t0)
+    wal_cfg = C.default_config()
+    wal_cfg.consensus = replace(wal_cfg.consensus, timeout_commit_ns=CS_WAL_COMMIT_NS)
+    wname = f"commit{nstub + 1}-consensus (w)"
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    w = cs_wal_run(dev, wname, nstub, CS_WAL_HEIGHTS, CS_WAL_CRASH_AT,
+                   os.path.join(root, "consensus_wal"), config=wal_cfg)
+    plain, crash = w["plain"], w["crash"]
+    print(f"{wname} [{smi}]: file WAL, determinism guard on, {CS_WAL_HEIGHTS} heights twice: "
+          f"uninterrupted {plain['wall']:.3f} s; stopped in height {CS_WAL_CRASH_AT} after its "
+          f"own precommit was written, restarted in {crash['restart_s']:.3f} s (replayed "
+          f"{crash['replayed_records']} records, {crash['replayed_digests']} digest(s) "
+          f"matched, the height committed in the replay: {crash['committed_in_replay']}; "
+          f"FilePV refusals {crash['refusals']}), {crash['wall']:.3f} s; block ids and app "
+          f"hashes equal at every height; WAL digests checked {plain['digests_verified']} / "
+          f"{crash['digests_verified']}; launches {plain['launches']} / {crash['launches']}")
+    res.update(b1=b1, b2=b2, w=w, seconds=time.perf_counter() - t0)
     print(f"consensus phase: {res['seconds']:.1f} s")
     return res
 
 
 def consensus_launches(cons: dict, kname: str) -> int:
-    """A kernel's launches over consensus_phase's runs (a), (b1), (b2)."""
-    return sum(cons[k]["launches"].get(kname, 0) for k in ("a", "b1", "b2"))
+    """A kernel's launches over consensus_phase's runs (a), (b1), (b2) and
+    (w)'s two."""
+    return sum(cons[k]["launches"].get(kname, 0) for k in ("a", "b1", "b2")) + sum(
+        cons["w"][k]["launches"].get(kname, 0) for k in ("plain", "crash"))
 
 
 def fmt_s(x, scale: float = 1.0) -> str:
@@ -5486,6 +6155,14 @@ def main() -> int:
         if len(sys.argv) > 2:
             sys.path.insert(0, os.path.abspath(sys.argv[2]))
         return warm150()
+    only = None
+    if sys.argv[1:2] == ["--only"]:
+        only = sys.argv[2].split(",") if len(sys.argv) > 2 else []
+        unknown = [p for p in only if p not in ONLY_PHASES]
+        if not only or unknown:
+            print(f"chip_smoke: --only takes a comma-separated list of {', '.join(ONLY_PHASES)}"
+                  f" (got {sys.argv[2:3]})", file=sys.stderr)
+            return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -5494,43 +6171,24 @@ def main() -> int:
     from cometbft_tpu_torch.crypto import health as H
 
     try:
-        if sys.argv[1:2] == ["--consensus"]:
-            return run_consensus(torch)
-        return run_all(torch)
+        return run_all(torch) if only is None else run_only(torch, only)
     finally:
         H.WATCHDOG.stop()
 
 
-def run_consensus(torch) -> int:
-    """``--consensus``: the build, the threshold and the comb of B, then
-    phase 17 alone (its sizing run); prints no kernels line."""
-    from cometbft_tpu_torch import metrics as M
-    from cometbft_tpu_torch.ops import _build
-    from cometbft_tpu_torch.ops import precompute as PR
-    from cometbft_tpu_torch.utils.metrics import Registry
-
-    t_start = time.perf_counter()
-    dev = torch.device("cuda", 0)
-    smi = smi_line()
-    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    _build.build_all()
-    registry = Registry()
-    M.install_crypto_metrics(M.CryptoMetrics(registry))
-    M.install_health_metrics(M.HealthMetrics(registry))
-    threshold_phase(dev)
-    PR.b_comb8()
-    consensus_phase(dev, smi, registry)
-    check_ladder("consensus phase")
-    print(f"chip_smoke --consensus: {time.perf_counter() - t_start:.1f} s")
-    return 0
+#: the phases ``--only`` runs, in the order ``run_all`` runs them
+ONLY_PHASES = ("light", "blocksync", "consensus")
 
 
-def run_all(torch) -> int:
+def setup(torch) -> tuple:
+    """The set-up every run shares: the device's line, the build of every
+    kernel, the crypto and health metrics on a fresh registry, and the
+    dispatch threshold (phase 1).  -> (dev, name, count, smi, built,
+    registry, threshold)."""
     from cometbft_tpu_torch import metrics as M
     from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.utils.metrics import Registry
 
-    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -5538,11 +6196,45 @@ def run_all(torch) -> int:
     print(f"device: {name}, count {count}; nvidia-smi: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
           f"{sys.version.split()[0]}")
-
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(built)} sources "
           "(nvcc in parallel)")
+    registry = Registry()
+    M.install_crypto_metrics(M.CryptoMetrics(registry))
+    M.install_health_metrics(M.HealthMetrics(registry))
+    threshold = threshold_phase(dev)
+    return dev, name, count, smi, built, registry, threshold
+
+
+def run_only(torch, phases: list) -> int:
+    """``--only light,blocksync,consensus``: the shared set-up and the
+    comb of B, then the named phases alone, as ``run_all`` runs them,
+    each followed by its ladder check; prints no kernels line and no
+    result line."""
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    t_start = time.perf_counter()
+    dev, _, _, smi, _, registry, _ = setup(torch)
+    PR.b_comb8()
+    runs = {
+        "light": ("light sync phase", lambda: light_sync_phase(dev, smi)),
+        "blocksync": ("blocksync phase", lambda: blocksync_phase(dev, smi, registry)),
+        "consensus": ("consensus phase", lambda: consensus_phase(dev, smi, registry)),
+    }
+    for p in phases:
+        what, run = runs[p]
+        run()
+        check_ladder(what)
+    print(f"chip_smoke --only {','.join(phases)}: {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
+def run_all(torch) -> int:
+    from cometbft_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
+    dev, name, count, smi, built, registry, threshold = setup(torch)
     from cometbft_tpu_torch.ops import ed25519_verify as EV
     from cometbft_tpu_torch.ops import precompute as PR
 
@@ -5574,10 +6266,6 @@ def run_all(torch) -> int:
             elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                 spills.append(f"{entry}: {line.strip()}")
     print("ptxas spills: " + ("none" if not spills else "; ".join(spills)))
-    registry = Registry()
-    M.install_crypto_metrics(M.CryptoMetrics(registry))
-    M.install_health_metrics(M.HealthMetrics(registry))
-    threshold = threshold_phase(dev)
 
     print("kernels vs plain versions: tolerance exact (max |kernel - plain| must be 0; "
           "the arithmetic is integer)")
@@ -5686,7 +6374,7 @@ def run_all(torch) -> int:
     guard_phase(dev, commit150, exp150, mesh["mesh"], smi)
     check_ladder("guard phase")
     # phase 15: persistence and the light client
-    light_sync_phase(dev, smi)
+    light = light_sync_phase(dev, smi)
     check_ladder("light sync phase")
     # phase 16: blocksync catch-up
     bsync = blocksync_phase(dev, smi, registry)
@@ -5698,6 +6386,13 @@ def run_all(torch) -> int:
         if line.startswith(("cometbft_crypto_dispatch_tier", "cometbft_crypto_dispatch_decisions",
                             "cometbft_crypto_device_hangs_total", "cometbft_crypto_key_pool")):
             print(f"  metric {line}")
+
+    def slice_launches(kname: str) -> dict:
+        """A kernel's launches on this slice's paths: (e2) the evidence
+        pool's check and its refused copy, (s) statesync1024."""
+        return {"evidence_launches": light["evidence_add_launches"].get(kname, 0)
+                + light["evidence_refuse_launches"].get(kname, 0),
+                "statesync_launches": bsync["s"]["launches"].get(kname, 0)}
 
     kernels = []
     for kname, key in (("fe_mul", ("fe_mul", 256)), ("fe_sq", ("fe_sq", 256, 1)),
@@ -5711,6 +6406,7 @@ def run_all(torch) -> int:
             "launches": main150["launches"][kname],
             "blocksync_launches": bsync["a"]["launches"].get(kname, 0),
             "consensus_launches": consensus_launches(cons, kname),
+        **slice_launches(kname),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None,
@@ -5722,6 +6418,7 @@ def run_all(torch) -> int:
         "launches": main150["launches"]["verify_keyed"],
         "blocksync_launches": bsync["a"]["launches"].get("verify_keyed", 0),
         "consensus_launches": consensus_launches(cons, "verify_keyed"),
+        **slice_launches("verify_keyed"),
         "max_abs_err": vk150["err"], "ms": vk150["ms"], "plain_ms": vk150["plain_ms"],
         "bound_ms": vk150["bound"][0], "bound_by": vk150["bound"][1],
         "library_ms": None, "G": vk150["group"],
@@ -5734,6 +6431,7 @@ def run_all(torch) -> int:
         "launches": main150["launches"]["sha512_keyed"],
         "blocksync_launches": bsync["a"]["launches"].get("sha512_keyed", 0),
         "consensus_launches": consensus_launches(cons, "sha512_keyed"),
+        **slice_launches("sha512_keyed"),
         "max_abs_err": sha["err"], "ms": sha["ms"], "plain_ms": sha["plain_ms"],
         "bound_ms": sha["bound"][0], "bound_by": sha["bound"][1],
         "library_ms": None,
@@ -5745,6 +6443,7 @@ def run_all(torch) -> int:
         "launches": gen150["launches"]["verify_generic"],
         "blocksync_launches": bsync["a"]["launches"].get("verify_generic", 0),
         "consensus_launches": consensus_launches(cons, "verify_generic"),
+        **slice_launches("verify_generic"),
         "max_abs_err": vg150["err"], "ms": vg150["ms"], "plain_ms": vg150["plain_ms"],
         "bound_ms": vg150["bound"][0], "bound_by": vg150["bound"][1],
         "library_ms": None, "shape": list(vg150["shape"]),
@@ -5757,6 +6456,7 @@ def run_all(torch) -> int:
         "launches": main150["launches"]["build_tables"],
         "blocksync_launches": bsync["a"]["launches"].get("build_tables", 0),
         "consensus_launches": consensus_launches(cons, "build_tables"),
+        **slice_launches("build_tables"),
         "max_abs_err": b["err"], "ms": b["ms"], "plain_ms": b["plain_ms"],
         "bound_ms": b["bound"][0], "bound_by": b["bound"][1],
         "library_ms": None, "shapes": [list(x) for x in b["choice"]],

@@ -24,8 +24,12 @@ Where the port departs from its reference:
   ``CMT_TPU_TRACE_CTX``;
 - ``on_stop`` joins the gossip and event-pump threads it started
   (bounded), so a stopped node leaves none behind;
-- the locks are ``threading.Lock``s, and the ``trustguard`` seam and the
-  adversary hooks of ``consensus/byz.py`` are left out.
+- the adversary hooks of ``consensus/byz.py`` reach the consensus
+  state's ``Byz``, which is its executor's (unarmed unless a caller arms
+  it), where the reference's reach a process-wide one armed by
+  ``CMT_TPU_BYZ``;
+- the locks are ``threading.Lock``s, and the ``trustguard`` seam is left
+  out.
 """
 
 from __future__ import annotations
@@ -594,6 +598,13 @@ class ConsensusReactor(Reactor):
 
     def on_start(self) -> None:
         self._subscribe_to_broadcast_events()
+        if self.switch is not None:
+            # the node's adversary: the equivocator's raw vote-channel
+            # broadcast (its conflicting vote never enters its own vote
+            # set, so normal gossip cannot carry it)
+            self.consensus.byz.register_broadcast(
+                lambda raw: self.switch.broadcast(VOTE_CHANNEL, raw)
+            )
         if not self.wait_sync():
             if not self.consensus.is_running():
                 self.consensus.start()
@@ -853,7 +864,8 @@ class ConsensusReactor(Reactor):
                 part = rs_parts.get_part(index)
                 if part is not None:
                     msg = BlockPartMessage(
-                        height=rs["height"], round=rs["round"], part=part,
+                        height=rs["height"], round=rs["round"],
+                        part=self.consensus.byz.maybe_corrupt_part(part),
                     )
                     if peer.send(
                         DATA_CHANNEL,

@@ -11,9 +11,11 @@ The WAL covers the *in-flight* height; this covers committed ones.
 Where the port departs from its reference: ``Handshaker`` takes a
 keyword ``device`` (``cuda`` unless given; without a card only
 ``device="cpu"`` runs) for the executor that replays the last stored
-block, and the replay-determinism checks of ``state/determinism.py``
-stay off until the WAL is ported (the reference runs them only under
-``CMT_TPU_DETERMINISM=1``).
+block, and the replay-determinism check of ``state/determinism.py`` is
+the argument ``determinism`` (the reference reads
+``CMT_TPU_DETERMINISM``): with it on, each block re-executed into the
+app must reproduce the FinalizeBlock response the store kept.  The
+handshaker counts the heights it checked (``n_digests_checked``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from cometbft_tpu_torch.abci.types import (
     ValidatorUpdate,
 )
 from cometbft_tpu_torch.mempool import NopMempool
-from cometbft_tpu_torch.state import State, Store
+from cometbft_tpu_torch.state import State, Store, determinism as _determinism
 from cometbft_tpu_torch.state.execution import (
     BlockExecutor,
     abci_validator_updates_to_changes,
@@ -58,8 +60,11 @@ class Handshaker:
         metrics=None,
         *,
         device=None,
+        determinism: bool = False,
     ):
         self.device = resolve_device(device)
+        self.determinism = determinism
+        self.n_digests_checked = 0
         self.state_store = state_store
         self.state = state
         self.block_store = block_store
@@ -242,5 +247,22 @@ class Handshaker:
             )
         )
         proxy_app.consensus.commit()
+        if self.determinism:
+            # the app-nondeterminism direction: the fresh re-execution
+            # must reproduce the FinalizeBlock response the original
+            # run persisted (tx results, valset deltas, app hash)
+            saved = self.state_store.load_finalize_block_response(height)
+            if saved is not None:
+                _determinism.compare(
+                    _determinism.transition_digest(
+                        height, meta.block_id, saved
+                    ),
+                    _determinism.transition_digest(
+                        height, meta.block_id, resp
+                    ),
+                    surface="handshake",
+                    metrics=self.metrics,
+                )
+                self.n_digests_checked += 1
         self.logger.info("replayed block to app", height=height)
         return resp.app_hash

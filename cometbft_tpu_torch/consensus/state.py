@@ -18,16 +18,22 @@ Where the port departs from its reference:
   caller names another; without a card only ``device="cpu"`` runs); it
   must be the executor's, which validates every proposal and applies
   every block (and with it every ``verify_commit``) there;
-- the WAL is the ``NopWAL`` unless a caller passes another: the file
-  WAL comes with the WAL item, and with it the transition-digest
-  records and checks of ``state/determinism.py``;
+- the WAL is the ``NopWAL`` unless a caller passes another (the file
+  ``wal.WAL``); the determinism guard (``state/determinism.py``) is the
+  executor's ``determinism``, where the reference reads
+  ``CMT_TPU_DETERMINISM``: with it on, each committed height's digest
+  follows its end-height record in the WAL, and replay checks each
+  digest it reads against the stores;
+- the adversary of ``consensus/byz.py`` is the executor's ``byz``,
+  unarmed unless a caller arms it, where the reference reads
+  ``CMT_TPU_BYZ`` into a process-wide one;
 - a block part of another round that fails its proof check is dropped
   at debug level, as CometBFT's handleMsg drops it (the reference
   raises, and its receive routine logs the input as an error);
 - the round state's lock is a ``threading.RLock`` (the reference's
   ``utils/sync`` debug modes are not ported), and the ``trustguard``
-  seam, the adversary hooks of ``consensus/byz.py`` and the
-  critical-path budgets of ``utils/critpath.py`` are left out.
+  seam and the critical-path budgets of ``utils/critpath.py`` are left
+  out.
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ from cometbft_tpu_torch.consensus.ticker import (
     TimeoutTicker,
 )
 from cometbft_tpu_torch.abci.types import ExtendVoteRequest, VerifyVoteExtensionRequest
-from cometbft_tpu_torch.state import State
+from cometbft_tpu_torch.state import State, determinism as _determinism
 from cometbft_tpu_torch.state.execution import BlockExecutor
 from cometbft_tpu_torch.types.block import Block, BlockID, Commit
 from cometbft_tpu_torch.types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
@@ -85,6 +91,7 @@ from cometbft_tpu_torch.utils.trace import NOP_SPAN, TRACER as _tracer
 from cometbft_tpu_torch.wal import (
     KIND_MSG_INFO,
     KIND_TIMEOUT,
+    KIND_TRANSITION_DIGEST,
     NopWAL,
     WALRecord,
 )
@@ -183,6 +190,9 @@ class ConsensusState(BaseService):
         self.priv_validator = priv_validator
         self.event_bus = event_bus
         self.wal = wal if wal is not None else NopWAL()
+        # one place for each policy: the executor's
+        self.byz = block_exec.byz
+        self.determinism = block_exec.determinism
         from cometbft_tpu_torch.metrics import ConsensusMetrics
 
         self.metrics = metrics if metrics is not None else ConsensusMetrics()
@@ -223,6 +233,10 @@ class ConsensusState(BaseService):
         self._thread: threading.Thread | None = None
         self._replay_mode = False
         self._replay_msg_time_ns = 0
+        # WAL catch-up counts (the port's; the reference only logs them):
+        # records replayed, and transition digests checked on the way
+        self.replayed_records = 0
+        self.replayed_digests = 0
         self._proposal_recv_time_ns = 0
 
         # listeners for new-step notification (reactor broadcast hook)
@@ -369,6 +383,7 @@ class ConsensusState(BaseService):
         try:
             for rec in records:
                 self._apply_wal_record(rec)
+                self.replayed_records += 1
         finally:
             self._replay_mode = False
         self.logger.info("replayed wal", height=self.height, n=len(records))
@@ -381,8 +396,24 @@ class ConsensusState(BaseService):
         elif rec.kind == KIND_TIMEOUT:
             ti = decode_timeout_info(rec.data)
             self._handle_timeout(ti)
-        # KIND_TRANSITION_DIGEST records are checked only under the
-        # reference's CMT_TPU_DETERMINISM, which comes with the WAL
+        elif rec.kind == KIND_TRANSITION_DIGEST:
+            # the determinism guard: the digest committed before the
+            # crash must still be derivable from the stores we are
+            # replaying on top of — a mismatch means replay would
+            # rebuild a DIFFERENT state than the one that ran
+            if self.determinism:
+                recorded = _determinism.TransitionDigest.decode(rec.data)
+                recomputed = _determinism.recompute_from_stores(
+                    recorded.height,
+                    self.block_store,
+                    self.block_exec.state_store,
+                )
+                if recomputed is not None:
+                    _determinism.compare(
+                        recorded, recomputed,
+                        surface="wal_replay", metrics=self.metrics,
+                    )
+                    self.replayed_digests += 1
 
     # -- the single-writer core (state.go:795 receiveRoutine) ------------
 
@@ -1243,6 +1274,16 @@ class ConsensusState(BaseService):
                 BlockID(hash=block.hash(), part_set_header=parts.header),
                 block,
             )
+            if self.determinism and not self._replay_mode:
+                # the digest record rides AFTER end_height(H), so it is
+                # part of height H+1's replay window (and the startup
+                # sweep sees every record regardless of position);
+                # fsynced so the guard's evidence survives a crash
+                d = self.block_exec.last_transition_digest
+                if d is not None and d.height == height:
+                    self.wal.write_sync(
+                        KIND_TRANSITION_DIGEST, d.encode()
+                    )
         self.logger.info(
             "committed block",
             height=height,
@@ -1514,3 +1555,8 @@ class ConsensusState(BaseService):
         vote = self._sign_vote(vote_type, block)
         if vote is not None:
             self._send_internal(VoteMessage(vote))
+            # the node's adversary (consensus/byz.py): a no-op attribute
+            # test unless a caller armed it with equivocate
+            self.byz.maybe_equivocate(
+                vote, self.priv_validator, self.state.chain_id
+            )

@@ -1,12 +1,12 @@
 """The metrics structs the port writes: consensus's
 (``ConsensusMetrics``) and the mempool's (``MempoolMetrics``), the
-event bus's, state execution's, blocksync's, statesync's
-``backfilled_blocks``, the ABCI proxy's, the block store's
-(``StoreMetrics``), and the crypto plane's ``CryptoMetrics`` and
-``HealthMetrics``, and the wire plane's ``P2PMetrics``, with their
-process-wide sinks (a copy of
-cometbft_tpu/metrics/__init__.py: 40-298, 352-535, 565-591, 630-925
-and 1051-1060).
+event bus's, state execution's, blocksync's, statesync's, the ABCI
+proxy's, the WAL's (``WALMetrics``), the block store's
+(``StoreMetrics``), the evidence pool's (``EvidenceMetrics``), and the
+crypto plane's ``CryptoMetrics`` and ``HealthMetrics``, and the wire
+plane's ``P2PMetrics``, with their process-wide sinks (a copy of
+cometbft_tpu/metrics/__init__.py: 40-298, 352-535, 537-925 and
+1051-1060).
 
 Each struct takes a ``utils.metrics.Registry``, or None for no-op
 metrics (the reference's NopMetrics).  The sinks are no-ops until a
@@ -308,15 +308,41 @@ class BlockSyncMetrics:
 
 
 class StateSyncMetrics:
-    """(statesync/metrics.go Metrics) — the snapshot-restore plane: only
-    ``backfilled_blocks``, which blocksync counts after a handoff; the
-    rest comes with statesync."""
+    """(statesync/metrics.go Metrics) — the snapshot-restore plane."""
 
     def __init__(self, reg: Registry | None = None):
         if reg is None:
-            self.backfilled_blocks = _NOP
+            self.syncing = self.total_snapshots = _NOP
+            self.chunk_process_time = _NOP
+            self.snapshot_height = self.snapshot_chunk = _NOP
+            self.snapshot_chunk_total = self.backfilled_blocks = _NOP
             return
         s = "statesync"
+        self.syncing = reg.gauge(
+            s, "syncing",
+            "1 while the node is restoring a state snapshot, 0 "
+            "otherwise.",
+        )
+        self.total_snapshots = reg.counter(
+            s, "total_snapshots",
+            "Distinct snapshots discovered from peers.",
+        )
+        self.chunk_process_time = reg.histogram(
+            s, "chunk_process_time",
+            "Seconds per ApplySnapshotChunk round-trip to the app.",
+            buckets=DEFAULT_TIME_BUCKETS,
+        )
+        self.snapshot_height = reg.gauge(
+            s, "snapshot_height", "Height of the snapshot being restored."
+        )
+        self.snapshot_chunk = reg.gauge(
+            s, "snapshot_chunk", "Chunks applied so far."
+        )
+        self.snapshot_chunk_total = reg.gauge(
+            s, "snapshot_chunk_total",
+            "Total chunks in the snapshot being restored "
+            "(metrics.go SnapshotChunkTotal).",
+        )
         self.backfilled_blocks = reg.counter(
             s, "backfilled_blocks",
             "Blocks fetched to close the snapshot-to-head gap after a "
@@ -341,6 +367,34 @@ class ProxyMetrics:
             buckets=(0.0001, 0.0004, 0.002, 0.009, 0.02, 0.1, 0.65, 2,
                      6, 25),
             labels=("method", "connection"),
+        )
+
+
+class WALMetrics:
+    """Consensus WAL accounting (no metricsgen analog: wal.go logs
+    unmeasured) — write volume, fsync latency, and group rotations."""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.write_bytes = _NOP
+            self.fsync_duration_seconds = _NOP
+            self.rotations = _NOP
+            return
+        s = "wal"
+        self.write_bytes = reg.counter(
+            s, "write_bytes",
+            "Framed record bytes appended to the consensus WAL.",
+        )
+        self.fsync_duration_seconds = reg.histogram(
+            s, "fsync_duration_seconds",
+            "Seconds per WAL fsync (our own votes/proposals and "
+            "height boundaries sync; a slow disk shows up here "
+            "before it shows up as commit latency).",
+            buckets=DEFAULT_TIME_BUCKETS,
+        )
+        self.rotations = reg.counter(
+            s, "rotations",
+            "Autofile group head rotations (size-limit reached).",
         )
 
 
@@ -370,6 +424,42 @@ class StoreMetrics:
             s, "block_prune_seconds",
             "Seconds per PruneBlocks batch.",
             buckets=DEFAULT_TIME_BUCKETS,
+        )
+
+
+class EvidenceMetrics:
+    """Evidence pool occupancy (no metricsgen analog)."""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.pool_size = _NOP
+            self.oldest_age_seconds = _NOP
+            self.pool_detected_total = _NOP
+            self.committed_total = _NOP
+            return
+        s = "evidence"
+        self.pool_size = reg.gauge(
+            s, "pool_size", "Pending (uncommitted) evidence items."
+        )
+        self.oldest_age_seconds = reg.gauge(
+            s, "oldest_age_seconds",
+            "Age of the oldest pending evidence (0 when the pool is "
+            "empty) — evidence aging toward the expiry window without "
+            "being committed means proposers are not reaping it.",
+        )
+        self.pool_detected_total = reg.counter(
+            s, "pool_detected_total",
+            "Evidence items admitted to the pending pool, by type "
+            "(duplicate_vote, light_client_attack) — DETECTION; "
+            "pool_size alone cannot distinguish detection from "
+            "commitment.",
+            labels=("type",),
+        )
+        self.committed_total = reg.counter(
+            s, "committed_total",
+            "Evidence items marked committed because a block carrying "
+            "them was applied — the byzantine drive's proof that "
+            "detected misbehavior actually landed on chain.",
         )
 
 

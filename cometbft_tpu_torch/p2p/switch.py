@@ -7,6 +7,11 @@ channel id to the owning reactor (switch.go:269 Broadcast fan-out,
 switch.go:322 StopPeerForError, reconnect-with-backoff for persistent
 peers switch.go:389).  The address book stays None until PEX is
 ported.
+
+Where the port departs from its reference: a stop that finds a peer
+between its add and its start (its receive thread made but not yet
+started) does not join that thread; the reference's join raises
+``RuntimeError`` out of ``stop()`` there.
 """
 
 from __future__ import annotations
@@ -340,9 +345,16 @@ class Switch(BaseService):
         # the recv thread may still be mid-dispatch for an already-read
         # message; let it exit first or its .labels() calls re-mint the
         # children removed below (skip when we ARE that thread — the
-        # error path stops the peer from inside its own recv loop)
+        # error path stops the peer from inside its own recv loop).
+        # MConnection.on_start assigns the thread before it starts it,
+        # so a stop in that window finds one not yet started: join only
+        # a started thread (the reference joins it and raises).
         t = peer.mconn._recv_thread
-        if t is not None and t is not threading.current_thread():
+        if (
+            t is not None
+            and t.ident is not None
+            and t is not threading.current_thread()
+        ):
             t.join(timeout=0.5)
         m = self.metrics
         m.peer_pending_send_bytes.remove(peer_id=peer.id)

@@ -12,12 +12,13 @@ Where the port departs from its reference:
 - ``validate_block`` and ``BlockExecutor`` take a keyword ``device``
   (``cuda`` unless the caller names another; without a card only
   ``device="cpu"`` runs) and pass it to every ``verify_commit``;
-- the pruner's hook (``pruner``) comes with the node, and
-  ``create_proposal_block`` has no adversary hook (the reference's
-  ``consensus/byz.py`` ``maybe_forge_stx``, which comes with evidence);
-- the replay-determinism guard (``state/determinism.py``, which reads
-  ``CMT_TPU_DETERMINISM`` and writes to the WAL) comes with the WAL:
-  ``last_transition_digest`` stays None;
+- the pruner's hook (``pruner``) comes with the node;
+- the node's adversary is an argument, ``byz`` (``consensus/byz.py``;
+  unarmed unless the caller arms it), where the reference reads
+  ``CMT_TPU_BYZ`` into a process-wide one;
+- the replay-determinism guard is an argument, ``determinism``, where
+  the reference reads ``CMT_TPU_DETERMINISM``: with it on,
+  ``last_transition_digest`` is the digest of the last applied block;
 - the reference's ``trustguard`` calls are left out, as
   ``types/validation.py`` leaves them out.
 """
@@ -40,7 +41,7 @@ from cometbft_tpu_torch.abci.types import (
     results_hash,
 )
 from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey
-from cometbft_tpu_torch.state import State, Store
+from cometbft_tpu_torch.state import State, Store, determinism as _determinism
 from cometbft_tpu_torch.types.block import Block, BlockID, Commit
 from cometbft_tpu_torch.types.evidence import (
     DuplicateVoteEvidence,
@@ -57,6 +58,7 @@ from cometbft_tpu_torch.types.validation import verify_commit
 from cometbft_tpu_torch.types.validator import ValidatorSet
 from cometbft_tpu_torch.utils.env import resolve_device
 from cometbft_tpu_torch.utils.fail import fail_point
+from cometbft_tpu_torch.utils.flight import FLIGHT
 from cometbft_tpu_torch.utils.log import Logger, default_logger
 from cometbft_tpu_torch.utils.time import now_ns
 from cometbft_tpu_torch.utils.trace import TRACER
@@ -395,8 +397,16 @@ class BlockExecutor:
         logger: Logger | None = None,
         *,
         device=None,
+        byz=None,
+        determinism: bool = False,
     ):
+        # consensus/byz.py imports nothing at module level, but the
+        # consensus package (which imports this module) would run first
+        from cometbft_tpu_torch.consensus.byz import Byz
+
         self.device = resolve_device(device)
+        self.byz = byz if byz is not None else Byz()
+        self.determinism = determinism
         self.state_store = state_store
         self.proxy_app = proxy_app
         self.mempool = mempool
@@ -408,8 +418,8 @@ class BlockExecutor:
         self.metrics = metrics if metrics is not None else StateMetrics()
         self.logger = logger or default_logger().with_fields(module="executor")
         self.retain_height = 0  # last app-requested retain height
-        # the reference's TransitionDigest of the last apply_block under
-        # CMT_TPU_DETERMINISM=1; None until the WAL is ported
+        # TransitionDigest of the last apply_block with the
+        # determinism guard on (state/determinism.py); None otherwise
         self.last_transition_digest = None
 
     # -- proposal path ---------------------------------------------------
@@ -468,9 +478,13 @@ class BlockExecutor:
             raise BlockExecutionError(
                 f"PrepareProposal returned {total} tx bytes > limit {data_limit}"
             )
+        # the node's adversary (consensus/byz.py): identity unless
+        # forge_stx armed it — then the block is built (and hashed)
+        # over a forged envelope honest process_proposal must refuse
+        block_txs = self.byz.maybe_forge_stx(tuple(resp.txs))
         return state.make_block(
             height,
-            tuple(resp.txs),
+            block_txs,
             last_commit if last_commit is not None else Commit(),
             tuple(evidence),
             proposer_address,
@@ -572,6 +586,16 @@ class BlockExecutor:
         fail_point()  # crash point 2 (execution.go:277)
 
         new_state = update_state(state, block_id, block, resp)
+
+        if self.determinism:
+            self.last_transition_digest = _determinism.transition_digest(
+                block.header.height, block_id, resp
+            )
+            FLIGHT.record(
+                "determinism_digest",
+                height=block.header.height,
+                digest=self.last_transition_digest.digest[:16],
+            )
 
         # Commit: lock mempool so no CheckTx lands between app Commit and
         # mempool Update (execution.go:405)

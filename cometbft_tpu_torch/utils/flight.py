@@ -78,3 +78,9 @@ class FlightRecorder:
 #: process-wide recorder: every plane records here
 FLIGHT = FlightRecorder()
 
+
+
+def flight_tail(n: int = 20) -> str:
+    """Convenience for error constructors: a newline-prefixed tail that
+    can be appended to any message (empty-ring safe)."""
+    return "\n" + FLIGHT.format_tail(n)

@@ -649,6 +649,38 @@ def test_one_node_and_three_stubs_commit_with_a_queue_on_the_cpu():
     assert vq._QUEUE is None
 
 
+def test_the_smoke_localnet_dials_a_dropped_node_again():
+    """chip_smoke's localnet mesh (``cs_mesh``) dials every pair
+    persistent, as ``p2p.persistent_peers`` does: when every peer drops
+    node 0, as three pong timeouts did on the card, node 0 dials each of
+    them again and the mesh is whole with new connections."""
+    import chip_smoke
+    from cometbft_tpu_torch.p2p.test_util import make_switch
+
+    ns = [{"sw": make_switch(moniker=f"mesh{i}")} for i in range(3)]
+    try:
+        for n in ns:
+            n["sw"].start()
+        first = chip_smoke.cs_mesh(ns, timeout=WAIT)
+        node0 = ns[0]["sw"].node_info().node_id
+        for n in ns[1:]:
+            for p in n["sw"].peers.copy():
+                if p.id == node0:
+                    n["sw"].stop_peer_for_error(p, "pong timeout")
+        deadline = time.monotonic() + WAIT
+        while time.monotonic() < deadline:
+            now = [n["sw"].peers.copy() for n in ns]
+            if all(len(p) == 2 for p in now) and not set(now[0]) & set(first[0]):
+                break
+            time.sleep(0.02)
+        assert [len(p) for p in now] == [2, 2, 2]
+        assert not set(now[0]) & set(first[0])
+        assert {p.id for p in now[0]} == {p.id for p in first[0]}
+    finally:
+        for n in ns:
+            n["sw"].stop()
+
+
 def torch_cpu():
     import torch
 

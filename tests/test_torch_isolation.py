@@ -56,7 +56,10 @@ _CHILD = textwrap.dedent(
                  "p2p.transport", "p2p.switch", "p2p.test_util", "config", "privval", "wal",
                  "consensus", "consensus.ticker", "consensus.messages",
                  "consensus.height_vote_set", "consensus.replay", "consensus.state",
-                 "consensus.reactor", "mempool.reactor"):
+                 "consensus.reactor", "mempool.reactor", "evidence", "evidence.pool",
+                 "evidence.reactor", "consensus.byz", "wal.autofile", "state.determinism",
+                 "statesync", "statesync.messages", "statesync.reactor",
+                 "statesync.stateprovider", "statesync.syncer"):
         assert "cometbft_tpu_torch." + name in sys.modules, name
     leaked = sorted(m for m in sys.modules
                     if m == "cometbft_tpu" or m.startswith("cometbft_tpu."))

@@ -486,7 +486,9 @@ def test_blocksync_on_the_card(dev, monkeypatch):
     phase checks the synced stores, app and handed-over state against
     the source's, the one stop, no pool-routine error, the launches of
     build_tables, sha512_keyed and verify_keyed, and verify_keyed at a
-    prefetch batch's shape against its plain version."""
+    prefetch batch's shape against its plain version; then statesync: a
+    fresh node restores the chain from the source app's snapshot at 18
+    and blocksyncs the last 6 heights."""
     import chip_smoke
     from cometbft_tpu_torch import metrics as M
     from cometbft_tpu_torch.crypto import dispatch as D
@@ -504,6 +506,8 @@ def test_blocksync_on_the_card(dev, monkeypatch):
         D.reset_for_tests()
     assert res["a"]["launches"]["build_tables"] >= 1
     assert res["prefetch_check"]["err"] == 0
+    assert res["s"]["snapshot"] == 18 and res["s"]["backfilled"] == 6
+    assert res["s"]["restore_launches"]["verify_keyed"] >= 1
 
 
 def test_mesh_on_repeated_shards_equals_keyed(dev, monkeypatch):

@@ -286,11 +286,13 @@ def test_txs_gossip_between_port_and_reference_mempools():
     try:
         a.start()
         b.start()
-        a.dial_peer_with_address(b.transport.listen_addr)
+        # each side admits its own txs before the two connect, so no
+        # gossiped tx can reach a mempool ahead of that mempool's own
         for tx in ptx:
             pmp.check_tx(tx)
         for tx in rtx:
             rmp.check_tx(tx)
+        a.dial_peer_with_address(b.transport.listen_addr)
         deadline = time.monotonic() + 60
         while pmp.size() < 11 or rmp.size() < 11:
             assert time.monotonic() < deadline, (pmp.size(), rmp.size())
@@ -306,7 +308,9 @@ def test_txs_gossip_between_port_and_reference_mempools():
 
 # -- the proposal path -----------------------------------------------------------------
 
-def _exec_side(side_mods, gen_json: str, txs):
+def _exec_side(side_mods, gen_json: str, txs, byz=None):
+    """-> (an executor over a fresh genesis state with ``txs`` in its
+    mempool, that state); ``byz`` is the port executor's adversary."""
     gen_mod, state_mod, kv, proxy, db, exe, mp_mod, T, kw = side_mods
     gen = gen_mod.GenesisDoc.from_json(gen_json)
     states = state_mod.Store(db.MemDB())
@@ -319,7 +323,8 @@ def _exec_side(side_mods, gen_json: str, txs):
     mp = mp_mod.CListMempool(conns.mempool, **kw)
     for tx in txs:
         mp.check_tx(tx)
-    ex = exe.BlockExecutor(states, conns.consensus, mp, **kw)
+    ex = exe.BlockExecutor(states, conns.consensus, mp, **kw,
+                           **({} if byz is None else dict(byz=byz)))
     return ex, state
 
 

@@ -923,3 +923,47 @@ def test_the_port_imports_no_cryptography():
                           text=True, timeout=120, env=dict(os.environ, PYTHONPATH=repo))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "WIRE-OK" in proc.stdout
+
+
+@pytest.mark.parametrize("side_name", ["port", "reference"])
+def test_stop_with_a_peer_between_add_and_start(monkeypatch, side_name):
+    """A switch stopped while one of its peers is published to the peer
+    set but not yet started (its MConnection's receive thread made, not
+    started): the port's ``stop()`` returns; the reference's raises the
+    ``RuntimeError`` of joining a thread that never started (the port's
+    departure in ``p2p/switch.py``)."""
+    side = PORT if side_name == "port" else REF
+    held, go = [], threading.Event()
+    real = side["conn"].MConnection.on_start
+
+    def on_start(self):
+        # the window: the receive thread exists and has not started
+        self._recv_thread = threading.Thread(target=lambda: None)
+        held.append(self)
+        go.wait(WAIT)
+        real(self)
+
+    monkeypatch.setattr(side["conn"].MConnection, "on_start", on_start)
+    a = side["util"].make_switch(moniker="a")
+    b = side["util"].make_switch(moniker="b")
+    dialer = None
+    try:
+        a.start()
+        b.start()
+        dialer = threading.Thread(
+            target=lambda: outcome(lambda: a.dial_peer_with_address(b.transport.listen_addr)),
+            daemon=True)
+        dialer.start()
+        assert wait_for(lambda: any(p.mconn in held for p in a.peers.copy()))
+        got = outcome(a.stop)
+    finally:
+        go.set()
+        if dialer is not None:
+            dialer.join(WAIT)
+        for sw in (a, b):
+            if sw.is_running():
+                outcome(sw.stop)
+    if side is PORT:
+        assert got == ("ok",)
+    else:
+        assert got == ("RuntimeError", "cannot join thread before it is started")
