@@ -4236,7 +4236,7 @@ def close_node(node: dict) -> None:
 
 
 def bs_chain(work: str, dev, heights: int, nval: int, every: int, ntx: int, rs,
-             nsigners: int = BS_SIGNERS, snapshot_interval: int = 0) -> dict:
+             nsigners: int = BS_SIGNERS, snapshot_interval: int = 0, cut: int = 0) -> dict:
     """Builds the served chain as a node does, one height after another:
     State.make_block (time: the median of the last commit's timestamps),
     BlockExecutor.apply_block over a KVStoreApp, save_block with the
@@ -4247,7 +4247,9 @@ def bs_chain(work: str, dev, heights: int, nval: int, every: int, ntx: int, rs,
     heights later).  After height ``heights`` the stores' images, the
     app's persisted record and the state are kept; then block heights + 1
     (not applied) carries the last commit.  The app (``app``; a snapshot
-    every ``snapshot_interval`` heights) outlives the node.  -> dict."""
+    every ``snapshot_interval`` heights) outlives the node.  ``cut`` (0:
+    none): the same images, record, hash and state as they stood after
+    height ``cut`` are kept under "cut".  -> dict."""
     import base64
 
     from cometbft_tpu_torch.crypto import ed25519 as ed
@@ -4273,6 +4275,12 @@ def bs_chain(work: str, dev, heights: int, nval: int, every: int, ntx: int, rs,
     rotations, ntxs = [], 0
     try:
         for h in range(1, heights + 2):
+            if h == cut + 1 and cut:
+                out["cut"] = dict(block_image=db_image(node["dbs"][0]),
+                                  state_image=db_image(node["dbs"][1]),
+                                  app_record=node["app_db"].get(b"kvstore:state"),
+                                  app_hash=node["app"].app_hash, state=encode_state(state),
+                                  height=state.last_block_height)
             txs = bs_txs(h, ntx, rs)
             if h <= heights and h % every == 0:
                 a, pub = newcomers.pop(0)
@@ -4896,6 +4904,300 @@ def ss_run(name: str, dev, chain: dict, src_dir: str, work: str, timeout_s: floa
     return res
 
 
+#: pex-wan1024 (d): the first heights of blocksync1024's chain it syncs (past
+#: the rotations at 64 and 128; at most half the chain), the one cross-region
+#: link every connection of its syncer and sources sends through (50 ms +/-
+#: 10 ms one way, 0.5 % of frames charged a retransmit: assumed figures, not
+#: measured ones; CometBFT-QA-v1.md:307-309 emulates the latency between its
+#: zones with tc, and the reference's tests/test_e2e_wan.py uses 80 ms one way
+#: with no jitter and no loss), and the PEX ensure interval (the deployment's
+#: 30 s, cut: with 30 s the whole smoke took 1192.6 s of its 1200 on an
+#: NVIDIA H100 80GB HBM3 at 700 W; the rate is also read from the first
+#: source's join, which the interval does not move)
+BS_PEX_HEIGHTS = 128
+PEX_NETEM = "delay=50~10;loss=0.005;seed=7"
+PEX_ENSURE_S = 2.0
+
+
+class Raised:
+    """Counts each PotentialDeadlock and LockOrderError made while armed,
+    wherever it is raised (a receive thread's error handler or the pool
+    routine's would swallow it)."""
+
+    def __init__(self, classes) -> None:
+        self.names: list = []
+        self._saved = []
+        for cls in classes:
+            init = cls.__init__
+
+            def counted(obj, *args, _init=init, _name=cls.__name__):
+                self.names.append(_name)
+                _init(obj, *args)
+
+            self._saved.append((cls, init))
+            cls.__init__ = counted
+
+    def close(self) -> None:
+        for cls, init in self._saved:
+            cls.__init__ = init
+
+
+def pex_wan_run(name: str, dev, chain: dict, work: str, registry, timeout_s: float,
+                cut: int) -> dict:
+    """(d) pex-wan1024: a fresh node joins blocksync1024's chain through a
+    seed over an emulated WAN link.  Two source nodes serve the chain's
+    first ``cut`` heights (copies of the source's stores pruned to height
+    ``cut`` + 1), each a switch with a BlocksyncReactor server and a
+    PexReactor; a seed (PexReactor, seed mode) whose book holds the two
+    sources' addresses; the syncing node (fresh sqlite stores and app,
+    BlocksyncReactor with the default prefetch depth through a started
+    VerifyQueue, a fresh KeyTableCache, PexReactor) is given only the
+    seed's address.  Every connection of the syncer and the sources sends
+    through the netem plan ``PEX_NETEM``; every PexReactor ensures its
+    peers every ``PEX_ENSURE_S`` seconds.  Armed for the run, before its nodes are
+    built: ``sync.configure(deadlock=True, lockgraph=True)`` and
+    ``trustguard.enable()`` (trips counted on the run's own registry);
+    both are off again at the end.  The launch counters at 0 and the
+    tracer's ring cleared just before the switches start.  Fails unless
+    the seed's reply puts both sources in the syncer's book, the syncer
+    dials both, reaches height ``cut`` with the source's stores, app and
+    state as they stood at ``cut``, every batch at or above the device
+    threshold verifies on the keyed tier, every sync link injected delay,
+    the guard tripped 0 times (and then exactly once on a planted sink),
+    no PotentialDeadlock or LockOrderError was made, and no dispatch
+    tier was demoted.  -> dict."""
+    import random
+
+    from cometbft_tpu_torch import metrics as M
+    from cometbft_tpu_torch.crypto import dispatch as D
+    from cometbft_tpu_torch.blocksync import reactor as R
+    from cometbft_tpu_torch.crypto import batch as B
+    from cometbft_tpu_torch.crypto import verify_queue as VQ
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import precompute as PR
+    from cometbft_tpu_torch.p2p.conn.netem import NetemPlan
+    from cometbft_tpu_torch.p2p.netaddr import NetAddress
+    from cometbft_tpu_torch.p2p.pex import AddrBook, PexReactor
+    from cometbft_tpu_torch.p2p.test_util import make_switch
+    from cometbft_tpu_torch.state import State, Store
+    from cometbft_tpu_torch.utils import fleetobs, trustguard
+    from cometbft_tpu_torch.utils import sync as cmtsync
+    from cometbft_tpu_torch.utils.db import MemDB
+    from cometbft_tpu_torch.utils.log import NopLogger
+    from cometbft_tpu_torch.utils.metrics import Registry
+    from cometbft_tpu_torch.utils.trace import TRACER
+
+    gen, snap = chain["gen"], chain["cut"]
+    netem = NetemPlan.parse(PEX_NETEM)
+    rng = random.Random(SEED + 17)
+    reg = Registry()          # the run's own planes: trips, netem, fleet
+    cons_m, netem_m, fleet_m = M.ConsensusMetrics(reg), M.NetemMetrics(reg), M.FleetMetrics(reg)
+    saved = (M.netem_metrics(), M.fleet_metrics())
+    src_dirs = [os.path.join(work, f"pex-source{k}") for k in (1, 2)]
+    copy_stores(chain["src_dir"], src_dirs[0])
+    block_store, _, dbs = open_stores(src_dirs[0])
+    try:
+        while block_store.height() > cut + 1:
+            block_store.prune_last_block()
+    finally:
+        for db in dbs:
+            db.close()
+    copy_stores(src_dirs[0], src_dirs[1])
+    sync_dir = os.path.join(work, f"sync-{name}")
+    q = VQ.VerifyQueue(verifier_factory=None if dev.type == "cuda" else
+                       (lambda pk: B.create_batch_verifier(pk, device="cpu")))
+    real_factory = B.create_batch_verifier
+    made: list = []
+    switches: list = []
+    servers: list = []
+    node = None
+    res: dict = {"name": name, "plan": netem.describe(), "ensure_s": PEX_ENSURE_S}
+    cmtsync._reset_lock_graph()
+    cmtsync.configure(deadlock=True, lockgraph=True)
+    trustguard.reset(enable=True)
+    trustguard.install_metrics(cons_m)
+    raised = Raised((cmtsync.PotentialDeadlock, cmtsync.LockOrderError))
+    M.install_netem_metrics(netem_m)
+    M.install_fleet_metrics(fleet_m)
+    PR._caches[str(dev)] = PR.KeyTableCache(dev)
+    try:
+        node = bs_node(sync_dir, gen, dev)
+
+        def pex(tag: str, **kw) -> PexReactor:
+            book = AddrBook(os.path.join(work, f"{tag}-book.json"), strict=False,
+                            rng=random.Random(rng.random()), key=f"{SEED:048x}"[:48])
+            return PexReactor(book, ensure_interval=PEX_ENSURE_S,
+                              rng=random.Random(rng.random()),
+                              logger=NopLogger(), **kw)
+
+        sources = []
+        for k, sdir in enumerate(src_dirs, 1):
+            bstore, sstore, dbs = open_stores(sdir)
+            servers.append(dbs)
+            r = R.BlocksyncReactor(sstore.load(), None, bstore, False, logger=NopLogger(),
+                                   device=dev)
+            sources.append(make_switch(network=CHAIN_ID, moniker=f"source{k}", netem=netem,
+                                       reactors={"BLOCKSYNC": r, "PEX": pex(f"source{k}")}))
+        switches += sources
+        seed_pex = pex("seed", seed_mode=True)
+        seed = make_switch(network=CHAIN_ID, moniker="seed", reactors={"PEX": seed_pex})
+        switches.append(seed)
+        src_addrs = [sw.transport.listen_addr for sw in sources]
+        for a in src_addrs:
+            seed_pex.book.add_address(a, a)
+        sa = seed.transport.listen_addr
+        recorder = ConsensusRecorder()
+        reactor = R.BlocksyncReactor(node["state"], node["exec"], node["block_store"], True,
+                                     consensus_reactor=recorder, logger=NopLogger(),
+                                     prefetch_depth=VQ.DEFAULT_PREFETCH_DEPTH, device=dev)
+        sync_pex = pex("syncer", seeds=[NetAddress(id=sa.id, host=sa.host, port=sa.port)])
+        syncer = make_switch(network=CHAIN_ID, moniker="syncer", netem=netem,
+                             reactors={"BLOCKSYNC": reactor, "PEX": sync_pex})
+        switches.append(syncer)
+        names = {sw.node_info().node_id: sw.node_info().moniker for sw in switches}
+        stages: list = []         # every connection's stage, reconnects included
+        stops: list = []
+        for sw in switches:       # as a node's assembly does
+            sw.reactors["PEX"].book.add_our_address(sw.transport.listen_addr)
+            stage_for = sw._netem_stage
+
+            def track(peer_id, sw=sw, stage_for=stage_for):
+                st = stage_for(peer_id)
+                if st is not None:
+                    stages.append((sw.node_info().moniker, names.get(peer_id, peer_id[:8]),
+                                   st))
+                return st
+
+            sw._netem_stage = track
+        real_stop = syncer.stop_peer_for_error
+
+        def stop_peer_for_error(peer, reason) -> None:
+            if syncer.peers.has(peer.id):
+                stops.append((names.get(peer.id, peer.id[:8]), str(reason)))
+            real_stop(peer, reason)
+
+        syncer.stop_peer_for_error = stop_peer_for_error
+        seed_id = seed.node_info().node_id
+        src_ids = [sw.node_info().node_id for sw in sources]
+        learned: list = []
+        handle = sync_pex._handle_addrs
+
+        def handle_addrs(peer, addrs) -> None:
+            handle(peer, addrs)
+            if peer.id == seed_id:
+                learned.append((time.perf_counter(), [a.id for a in addrs],
+                                [sync_pex.book.has_address(a) for a in src_addrs]))
+
+        sync_pex._handle_addrs = handle_addrs
+        joined: dict = {}
+        add = reactor.add_peer
+
+        def add_peer(peer) -> None:
+            joined.setdefault(peer.id, time.perf_counter())
+            add(peer)
+
+        reactor.add_peer = add_peer
+
+        def make(pub_key, device=None):
+            verifier = real_factory(pub_key, device=device)
+            made.append((verifier, threading.current_thread().name))
+            return verifier
+
+        B.create_batch_verifier = make
+        q.start()
+        VQ.install_queue(q)
+        for sw in sources + [seed]:
+            sw.start()
+        _build.reset_launches()
+        TRACER.clear()
+        t0 = time.perf_counter()
+        syncer.start()
+        if not recorder.done.wait(timeout_s):
+            raise AssertionError(f"{name}: no switch to consensus in {timeout_s} s (applied "
+                                 f"up to {reactor.state.last_block_height}, peers "
+                                 f"{[p.id[:8] for p in syncer.peers.copy()]}, book "
+                                 f"{sync_pex.book.size()}, learned {learned})")
+        res["launches"] = launched()
+        # each link's totals over its connections (frames, dropped,
+        # injected s, connections)
+        links: dict = {}
+        for who, other, st in stages:
+            f, d, inj, n = links.get(f"{who}->{other}", (0, 0, 0.0, 0))
+            links[f"{who}->{other}"] = (f + st.frames, d + st.dropped, inj + st.injected_s, n + 1)
+        # read before the switches stop and retire the stages' series
+        scrape = fleetobs.self_scrape("pex-wan", reg)
+        res["rollup"] = fleetobs.fleet_rollup([scrape])
+        res["netem_series"] = {
+            f"{s}{{{','.join(f'{k}={v[:8]}' for k, v in lbl.items())}}}": v
+            for s in ("netem_injected_delay_seconds_sum", "netem_injected_delay_seconds_count",
+                      "netem_dropped_frames_total")
+            for lbl, v in fleetobs.series(scrape, s)}
+        res.update(t0=t0, wall_switch=recorder.at - t0, links=links, learned=learned,
+                   stops=list(stops),
+                   joined={("seed" if pid == seed_id else f"source{src_ids.index(pid) + 1}"
+                            if pid in src_ids else pid[:8]): at - t0
+                           for pid, at in joined.items()},
+                   state=recorder.states[-1], pool_tid=reactor._pool_thread.ident,
+                   pool_errors=reactor.pool_routine_errors,
+                   verifiers=[(len(v), v.last_tier, where) for v, where in made],
+                   trips=registry_line(reg, "cometbft_consensus_trust_guard_trips_total"),
+                   edges=len(cmtsync.lock_order_edges()),
+                   keys_built=PR._caches[str(dev)].stats["keys_built"],
+                   demoted=[t for t, st in D.LADDER.snapshot()["tiers"].items()
+                            if st["demoted"] or st.get("demotions")])
+        # the planted trip: a sink reached inside a wire context, no validator
+        probe = Store(MemDB())
+        try:
+            with trustguard.wire_context("pex_reactor"):
+                probe.save(State.from_genesis(gen))
+            planted = None
+        except trustguard.TrustGuardError as exc:
+            planted = str(exc)
+        res["planted"] = (planted, registry_line(
+            reg, "cometbft_consensus_trust_guard_trips_total"), probe.load() is None)
+    finally:
+        B.create_batch_verifier = real_factory
+        for sw in switches:
+            if sw.is_running():
+                sw.stop()
+            else:
+                sw.transport.on_stop()
+        if q.is_running():
+            q.stop()
+        VQ.install_queue(None)
+        if node is not None:
+            close_node(node)
+        for dbs in servers:
+            for db in dbs:
+                db.close()
+        cmtsync.configure()
+        raised.close()
+        trustguard.install_metrics(None)
+        trustguard.reset(enable=False)
+        M.install_netem_metrics(saved[0])
+        M.install_fleet_metrics(saved[1])
+    res["raised"] = list(raised.names)
+    events = [e for e in TRACER.export()["traceEvents"] if e["ph"] == "X"]
+    res.update(bs_steps(events, res["pool_tid"], TRACER.epoch - res["t0"]))
+    block_store, state_store, dbs = open_stores(sync_dir)
+    try:
+        res["block_image"], res["state_image"] = db_image(dbs[0]), db_image(dbs[1])
+    finally:
+        for db in dbs:
+            db.close()
+    res["app_record"] = node["app_db"].get(b"kvstore:state")
+    res["app_hash"] = node["app"].app_hash
+    shutil.rmtree(sync_dir)
+    for d in src_dirs:
+        shutil.rmtree(d)
+    return res
+
+
+def registry_line(registry, name: str) -> list:
+    """Every sample line of ``name`` in the exposition."""
+    return [line for line in registry.expose().splitlines() if line.startswith(name + "{")]
+
+
 def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
                     nval: int = BS_VALIDATORS, every: int = BS_ROTATE_EVERY,
                     bad: int = BS_BAD_HEIGHT, nsigners: int = BS_SIGNERS,
@@ -4916,7 +5218,11 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
     newcomer per rotation inside the synced heights, (c) none.  Then (s),
     statesync1024 (``ss_run``): a fresh node restores the chain from the
     source app's one snapshot, ``SS_BELOW`` heights below the top, and
-    blocksyncs the rest."""
+    blocksyncs the rest.  Then (d), pex-wan1024 (``pex_wan_run``): a fresh
+    node given only a seed's address learns two sources by PEX and syncs
+    the chain's first ``BS_PEX_HEIGHTS`` heights (at most half the chain)
+    from them over an emulated
+    cross-region link, with the lock modes and the trust guard armed."""
     import shutil
     import tempfile
 
@@ -4948,8 +5254,9 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
         M.install_p2p_metrics(p2p)
         TRACER.set_capacity(128 * heights + 8192)
         rs = np.random.RandomState(SEED + 16)
+        pex_cut = min(BS_PEX_HEIGHTS, heights // 2)
         chain = bs_chain(work, dev, heights, nval, every, BS_TXS, rs, nsigners,
-                         snapshot_interval=heights - SS_BELOW)
+                         snapshot_interval=heights - SS_BELOW, cut=pex_cut)
         # a val: tx at height h changes the set that signs height h + 2
         newcomers = sum(1 for h in chain["rotations"] if h + 2 <= heights)
         print(f"blocksync{nval} [{smi}]: BASELINE config 4 (internal/blocksync fast-sync "
@@ -5047,6 +5354,8 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
         res["s"] = {k: ss[k] for k in ("init_s", "restore_s", "wall_s", "launches",
                                        "restore_launches",
                                        "checks", "snapshot", "chunks", "backfilled")}
+        res["d"] = pex_wan_phase(dev, smi, chain, work, registry, timeout_s, nval,
+                                 pex_cut, threshold, res["c"], heights)
     finally:
         M.install_p2p_metrics(saved_p2p)
         TRACER.set_capacity(ring)
@@ -5059,6 +5368,101 @@ def blocksync_phase(dev, smi: str, registry, heights: int = BS_HEIGHTS,
     res["wall_s"] = time.perf_counter() - t_phase
     print(f"  blocksync phase: {res['wall_s']:.2f} s")
     return res
+
+
+def pex_wan_phase(dev, smi: str, chain: dict, work: str, registry, timeout_s: float,
+                  nval: int, cut: int, threshold: int, warm: dict, warm_heights: int) -> dict:
+    """Runs (d) (``pex_wan_run``), checks it and prints its lines beside
+    run (c)'s (``warm``, ``warm_heights`` blocks).  -> the numbers kept."""
+    from cometbft_tpu_torch.state import encode_state
+
+    name = f"pex-wan{nval}"
+    threads = live_threads()
+    d = pex_wan_run(name, dev, chain, work, registry, timeout_s, cut=cut)
+    end_phase(name, threads)
+    want_state = chain["cut"]
+    for what, got, want in (("block store", d["block_image"], want_state["block_image"]),
+                            ("state store", d["state_image"], want_state["state_image"])):
+        diff = image_diff(got, want)
+        if diff:
+            raise AssertionError(f"{name}: the synced {what} differs from the source's at "
+                                 f"{cut}: {diff}")
+    if d["app_record"] != want_state["app_record"] or d["app_hash"] != want_state["app_hash"]:
+        raise AssertionError(f"{name}: the app's state or hash differs")
+    if encode_state(d["state"]) != want_state["state"] or d["top"] != cut:
+        raise AssertionError(f"{name}: handed over the state at "
+                             f"{d['state'].last_block_height}, applied to {d['top']}")
+    if not d["learned"] or d["learned"][0][2] != [True, True]:
+        raise AssertionError(f"{name}: the seed's reply did not put both sources in the "
+                             f"syncer's book: {d['learned']}")
+    if not {"source1", "source2"} <= set(d["joined"]):
+        raise AssertionError(f"{name}: the syncer joined {sorted(d['joined'])}")
+    off = [(n, t) for n, t, _ in d["verifiers"]
+           if n and t != "keyed" and not (t == "host" and n < threshold)]
+    if off or d["pool_errors"]:
+        raise AssertionError(f"{name}: verifies off the keyed tier {off} (device threshold "
+                             f"{threshold}), {d['pool_errors']} pool-routine errors")
+    newcomers = sum(1 for h in chain["rotations"] if h + 2 <= cut)
+    if d["keys_built"] != nval + newcomers:
+        raise AssertionError(f"{name}: {d['keys_built']} keys built, not {nval + newcomers}")
+    need_launches(name, d["launches"], {"build_tables": 1 + newcomers, "sha512_keyed": 1,
+                                        "verify_keyed": 1})
+    if d["launches"].get("sha512_keyed") != d["launches"].get("verify_keyed"):
+        raise AssertionError(f"{name}: launches {d['launches']}")
+    sync_links = ("syncer->source1", "syncer->source2", "source1->syncer", "source2->syncer")
+    dry = [k for k in sync_links if d["links"].get(k, (0, 0, 0.0, 0))[2] <= 0]
+    if dry:
+        raise AssertionError(f"{name}: no injected delay on {dry}: {d['links']}")
+    planted, lines, untouched = d["planted"]
+    if d["trips"] or planted is None or not untouched or \
+            lines != ['cometbft_consensus_trust_guard_trips_total{sink="state.save"} 1']:
+        raise AssertionError(f"{name}: trust-guard trips in the run {d['trips']}; the planted "
+                             f"sink: {planted!r}, metric {lines}, store untouched "
+                             f"{untouched}")
+    if d["raised"] or d["demoted"]:
+        raise AssertionError(f"{name}: {d['raised']} raised, tiers demoted {d['demoted']}")
+    wall, wwall = d["wall_applied"], warm["wall_applied"]
+    print(f"{name} [{smi}]: BASELINE config 4's chain (blocksync1024) joined through a seed: "
+          f"a fresh node given only the seed's address, two sources, every connection of "
+          f"the syncer and the sources through netem {d['plan']} (one cross-region link, "
+          f"assumed figures); sync.configure(deadlock=True, "
+          f"lockgraph=True) and trustguard.enable() armed")
+    first = min(d["joined"][k] for k in ("source1", "source2"))
+    print(f"  discovery: the seed's reply at {d['learned'][0][0] - d['t0']:.3f} s (addresses "
+          f"{len(d['learned'][0][1])}), sources joined at "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(d["joined"].items()))
+          + f" (PEX ensure interval {d['ensure_s']} s)")
+    print(f"  (d) {cut} blocks applied in {wall:.3f} s from the syncer's start "
+          f"({cut / wall:.2f} blocks/s, {cut * nval / wall:.0f} commit signatures/s; "
+          f"{wall - first:.3f} s and {cut / (wall - first):.2f} blocks/s from the first "
+          f"source's join), switch to consensus at {d['wall_switch']:.3f} s; beside (c) "
+          f"warm over 127.0.0.1: {warm_heights} blocks in {wwall:.3f} s "
+          f"({warm_heights / wwall:.2f} blocks/s), both read from the dial or start to "
+          f"the end of the last exec/apply_block span")
+    print(f"    p50 / max ms per step (tracer spans): " + "; ".join(
+        f"{k} {1e3 * pct(v, 50):.3f} / {1e3 * max(v):.3f}"
+        for k, v in d["steps"].items() if v))
+    print("    links (frames, dropped, injected s, connections): " + "; ".join(
+        f"{k} {n}, {drop}, {inj:.3f}, {c}" for k, (n, drop, inj, c) in sorted(d["links"].items()))
+        + f"; the syncer's peer stops {len(d['stops'])} "
+        + str(sorted({why: sum(1 for _, w in d["stops"] if w == why)
+                      for _, why in d["stops"]}.items())))
+    print(f"    launches (build_tables / sha512_keyed / verify_keyed / verify_generic) "
+          + " / ".join(str(d["launches"].get(k, 0)) for k in KERNEL_ORDER)
+          + f"; keys built {d['keys_built']}; stores, app and state equal the source's at "
+          f"{cut}; trust-guard trips in the run {len(d['trips'])}, then the planted "
+          f"sink's TrustGuardError ({lines[0]}); PotentialDeadlock / LockOrderError "
+          f"{len(d['raised'])}; lock-order edges recorded {d['edges']}; demoted "
+          f"{d['demoted']}")
+    roll = d["rollup"]
+    print(f"    fleetobs self_scrape of the run's registry: rollup nodes "
+          f"{len(roll['nodes'])}, scrape errors {roll['scrape_errors']}, max height "
+          f"{roll['max_height']}; netem series " + "; ".join(
+              f"{k} {v:.4f}" for k, v in sorted(d["netem_series"].items())))
+    return {k: d[k] for k in ("wall_applied", "wall_switch", "launches", "links", "joined",
+                              "trips", "edges", "keys_built", "raised", "stops")} | {
+        "first_join": first, "planted": lines,
+        "steps": {k: (1e3 * pct(v, 50), 1e3 * max(v)) for k, v in d["steps"].items() if v}}
 
 
 def bs_print(name: str, depth: int, cold: bool, r: dict, heights: int, nval: int) -> None:
@@ -5568,6 +5972,7 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
     from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
     from cometbft_tpu_torch.types.part_set import BLOCK_PART_SIZE_BYTES
     from cometbft_tpu_torch.types.vote import Proposal
+    from cometbft_tpu_torch.utils import critpath as CP
     from cometbft_tpu_torch.utils.log import Logger
     from cometbft_tpu_torch.utils.time import now_ns
     from cometbft_tpu_torch.utils.trace import TRACER
@@ -5591,8 +5996,16 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
     ring = TRACER.capacity
     TRACER.set_capacity(1 << 20)
     node = None
-    res: dict = {"name": name}
+    res: dict = {"name": name, "attribution": []}
     add_vote_s: list = []
+    observe = CP.observe_height
+
+    def observed(height, tracer=None, metrics=None):
+        d = observe(height, tracer=tracer, metrics=metrics)
+        res["attribution"].append((height, d))
+        return d
+
+    CP.observe_height = observed
     try:
         node = cs_node(dev, gen, pv, config, None, Logger(sink=errors, level="error"),
                        switch=False, evidence=equivocate_at is not None)
@@ -5714,6 +6127,7 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
                             add_vote_p50=pct(adds, 50) if adds else None, adds=len(adds),
                             apply=apply.get(h), verify_commit=vc.get(h)))
     finally:
+        CP.observe_height = observe
         if node is not None:
             cs_close(node)
         if q is not None:
@@ -6056,6 +6470,7 @@ def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS
     from dataclasses import replace
 
     from cometbft_tpu_torch import config as C
+    from cometbft_tpu_torch import metrics as M
     from cometbft_tpu_torch.ops import precompute as PR
 
     t0 = time.perf_counter()
@@ -6080,6 +6495,8 @@ def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS
         print(f"  node {i} CheckTx: " + ", ".join(f"{k} {v:.0f}" for k, v in m.items()))
     print(f"  tiers (crypto_dispatch_tier) {a['tiers']}; launches {a['launches']}")
 
+    saved_attr = M.attribution_metrics()
+    M.install_attribution_metrics(M.AttributionMetrics(registry))
     runs = {}
     for key, queue in (("b1", True), ("b2", False)):
         name = f"commit{nstub + 1}-consensus ({key}: {'queue' if queue else 'no queue'})"
@@ -6106,7 +6523,10 @@ def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS
                   f"DuplicateVoteEvidence committed in block {e['block']}, the app told "
                   f"{e['misbehavior']} ((height, type); type 1 = duplicate vote), "
                   f"evidence_committed_total {e['committed_total']:.0f}")
+    M.install_attribution_metrics(saved_attr)
     b1, b2 = runs["b1"], runs["b2"]
+    res["critpath"] = check_critpath(f"commit{nstub + 1}-consensus (b2)", b2["attribution"],
+                                     stub_heights + 1, registry)
     keyed = min(b2["launches"].get("sha512_keyed", 0), b2["launches"].get("verify_keyed", 0))
     if keyed < stub_heights or b2["launches"].get("build_tables", 0) < 1:
         raise AssertionError(f"commit-consensus (b2): launches {b2['launches']}, wanted "
@@ -6137,6 +6557,41 @@ def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS
     res.update(b1=b1, b2=b2, w=w, seconds=time.perf_counter() - t0)
     print(f"consensus phase: {res['seconds']:.1f} s")
     return res
+
+
+def check_critpath(name: str, observed: list, heights: int, registry) -> dict:
+    """The attribution plane over a run's committed heights
+    (``observe_height`` at each ``_finalize_commit``): fails unless every
+    height 1..``heights`` was decomposed and its stages sum to its wall
+    within 1e-5 s.  Prints each stage's p50 (ms), each height's critical
+    stage, and the stage dominant over the heights (the largest summed
+    seconds).  -> {"p50_ms": {stage: ms}, "dominant": stage, "per_height":
+    [(height, wall s, critical stage)]}."""
+    from cometbft_tpu_torch.utils import critpath as CP
+
+    got = {h: d for h, d in observed if d is not None}
+    missing = [h for h in range(1, heights + 1) if h not in got]
+    off = [(h, d["wall_s"], sum(d["stages"].values())) for h, d in got.items()
+           if abs(sum(d["stages"].values()) - d["wall_s"]) > 1e-5]
+    if missing or off:
+        raise AssertionError(f"{name}: critpath: heights not decomposed {missing}; stages "
+                             f"not summing to the wall (height, wall, sum) {off}")
+    ds = [got[h] for h in sorted(got)]
+    p50 = {st: 1e3 * pct([d["stages"][st] for d in ds], 50) for st in CP.STAGES}
+    total = {st: sum(d["stages"][st] for d in ds) for st in CP.STAGES}
+    dominant = CP.dominant_stage(total)
+    gauge = [line for line in registry.expose().splitlines()
+             if line.startswith("cometbft_attribution_height_critical_stage{")
+             and line.endswith(" 1")]
+    print(f"  critpath ({name}): {len(ds)} heights decomposed, stages sum to the wall within "
+          f"1e-5 s at each (max |sum - wall| "
+          f"{max(abs(sum(d['stages'].values()) - d['wall_s']) for d in ds):.2e} s); stage p50 "
+          f"ms: " + ", ".join(f"{st} {v:.3f}" for st, v in p50.items())
+          + f"; dominant over the heights: {dominant}; per height "
+          + ", ".join(f"{d['height']} {d['critical_stage']}" for d in ds)
+          + f"; the gauge's last one-hot {gauge}")
+    return {"p50_ms": p50, "dominant": dominant,
+            "per_height": [(d["height"], d["wall_s"], d["critical_stage"]) for d in ds]}
 
 
 def consensus_launches(cons: dict, kname: str) -> int:
@@ -6388,11 +6843,13 @@ def run_all(torch) -> int:
             print(f"  metric {line}")
 
     def slice_launches(kname: str) -> dict:
-        """A kernel's launches on this slice's paths: (e2) the evidence
-        pool's check and its refused copy, (s) statesync1024."""
+        """A kernel's launches on the later slices' paths: (e2) the
+        evidence pool's check and its refused copy, (s) statesync1024,
+        (d) pex-wan1024."""
         return {"evidence_launches": light["evidence_add_launches"].get(kname, 0)
                 + light["evidence_refuse_launches"].get(kname, 0),
-                "statesync_launches": bsync["s"]["launches"].get(kname, 0)}
+                "statesync_launches": bsync["s"]["launches"].get(kname, 0),
+                "pex_wan_launches": bsync["d"]["launches"].get(kname, 0)}
 
     kernels = []
     for kname, key in (("fe_mul", ("fe_mul", 256)), ("fe_sq", ("fe_sq", 256, 1)),

@@ -7,9 +7,9 @@ Keeps up to 400 block requests in flight across peers
 hands the sync loop consecutive block pairs: block H is validated with
 block H+1's LastCommit before being applied.
 
-The pool locks with a ``threading.Lock`` (the reference's ``utils/sync``
-is not ported) and takes the ``random.Random`` its peer pick draws from
-as an optional constructor argument, so a test can seed it.
+The pool locks with ``utils/sync``'s ``Mutex()`` and takes the
+``random.Random`` its peer pick draws from as an optional constructor
+argument, so a test can seed it.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import time
 from cometbft_tpu_torch.types.block import Block
 from cometbft_tpu_torch.utils.flight import FLIGHT
 from cometbft_tpu_torch.utils.log import Logger, default_logger
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 REQUEST_WINDOW = 400          # pool.go:36 maxPendingRequests
 REQUEST_TIMEOUT = 15.0        # pool.go requestTimeout
@@ -80,7 +81,7 @@ class BlockPool:
 
         self.logger = logger or default_logger().with_fields(module="blockpool")
         self.metrics = metrics if metrics is not None else BlockSyncMetrics()
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self.height = start_height  # next height to pop
         self.start_height = start_height
         self._peers: dict[str, _BSPeer] = {}

@@ -23,7 +23,6 @@ Where the port departs from its reference:
   in the port it reaches ``_pool_routine``, which logs it and retries
   as the reference does, and also records it in ``FLIGHT`` and in
   ``pool_routine_errors``;
-- the reference's ``trustguard`` seam on ``receive`` is left out;
 - ``receive`` decodes in a ``blocksync/decode`` span (kind, bytes), and
   a block pair is validated and applied in a ``blocksync/sync_step``
   span (height) holding ``blocksync/part_set`` and
@@ -51,6 +50,7 @@ from cometbft_tpu_torch.utils.log import Logger, default_logger
 from cometbft_tpu_torch.utils.protoio import ProtoReader, ProtoWriter
 from cometbft_tpu_torch.utils.trace import TRACER
 from cometbft_tpu_torch.types.codec import as_bytes as _bz, as_int as _iv
+from cometbft_tpu_torch.utils import trustguard
 
 BLOCKSYNC_CHANNEL = 0x40
 
@@ -276,6 +276,7 @@ class BlocksyncReactor(Reactor):
 
     # -- receive ---------------------------------------------------------
 
+    @trustguard.guarded_seam("blocksync_reactor")
     def receive(self, env: Envelope) -> None:
         try:
             with TRACER.span("blocksync/decode", cat="blocksync",

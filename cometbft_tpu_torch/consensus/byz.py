@@ -40,8 +40,9 @@ The behaviors, honestly stated:
 
 from __future__ import annotations
 
-import threading
 from dataclasses import replace as dc_replace
+
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 BYZ_MODES = ("equivocate", "forge_stx", "corrupt_parts")
 
@@ -60,7 +61,7 @@ class Byz:
                 f"got {mode!r}"
             )
         self.mode = mode
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self._broadcast = None  # raw-bytes vote-channel broadcast
         self._equivocated_h = 0  # highest height already equivocated
         self._part_counter = 0

@@ -5,8 +5,7 @@ internal/consensus/types/height_vote_set.go).
 Keeps prevote/precommit VoteSets for every round at one height, plus
 per-peer "catchup" round tracking so a byzantine peer can't make us
 allocate unbounded VoteSets (SetPeerMaj23 limits each peer to one
-catchup round).  Its lock is a ``threading.Lock``: the reference's
-``utils/sync`` debug modes are not ported yet.
+catchup round).  Its lock is ``utils/sync``'s ``Mutex()``.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from cometbft_tpu_torch.types.validator import ValidatorSet
 from cometbft_tpu_torch.types.vote import Vote
 from cometbft_tpu_torch.types.vote_set import VoteSet
 from cometbft_tpu_torch.utils.bit_array import BitArray
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 
 class HeightVoteSetError(Exception):
@@ -37,7 +37,7 @@ class HeightVoteSet:
         self.height = height
         self.val_set = val_set
         self.extensions_enabled = extensions_enabled
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self._round = 0
         self._round_vote_sets: dict[int, tuple[VoteSet, VoteSet]] = {}
         self._peer_catchup_rounds: dict[str, list[int]] = {}

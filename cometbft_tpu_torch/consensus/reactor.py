@@ -27,9 +27,10 @@ Where the port departs from its reference:
 - the adversary hooks of ``consensus/byz.py`` reach the consensus
   state's ``Byz``, which is its executor's (unarmed unless a caller arms
   it), where the reference's reach a process-wide one armed by
-  ``CMT_TPU_BYZ``;
-- the locks are ``threading.Lock``s, and the ``trustguard`` seam is left
-  out.
+  ``CMT_TPU_BYZ``.
+
+Its lock is ``utils/sync``'s ``Mutex()``, and ``receive`` is the
+``consensus_reactor`` trust-guard seam, as in the reference.
 """
 
 from __future__ import annotations
@@ -83,6 +84,8 @@ from cometbft_tpu_torch.utils.bit_array import BitArray
 from cometbft_tpu_torch.utils.log import Logger, default_logger
 from cometbft_tpu_torch.utils.time import now_ns
 from cometbft_tpu_torch.utils.trace import TRACER
+from cometbft_tpu_torch.utils import sync as cmtsync
+from cometbft_tpu_torch.utils import trustguard
 
 #: envelope types that carry (and receivers hop-record) a trace
 #: context — the consensus-critical gossip the fleet plane stitches
@@ -167,7 +170,7 @@ class PeerState:
 
     def __init__(self, peer_id: str):
         self.peer_id = peer_id
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self.prs = PeerRoundState()
 
     def snapshot(self) -> PeerRoundState:
@@ -723,6 +726,7 @@ class ConsensusReactor(Reactor):
 
     # -- receive --------------------------------------------------------
 
+    @trustguard.guarded_seam("consensus_reactor")
     def receive(self, env: Envelope) -> None:
         try:
             msg, ctx = decode_message_traced(env.message)

@@ -29,11 +29,12 @@ Where the port departs from its reference:
   ``CMT_TPU_BYZ`` into a process-wide one;
 - a block part of another round that fails its proof check is dropped
   at debug level, as CometBFT's handleMsg drops it (the reference
-  raises, and its receive routine logs the input as an error);
-- the round state's lock is a ``threading.RLock`` (the reference's
-  ``utils/sync`` debug modes are not ported), and the ``trustguard``
-  seam and the critical-path budgets of ``utils/critpath.py`` are left
-  out.
+  raises, and its receive routine logs the input as an error).
+
+As in the reference, the round state's lock is ``utils/sync``'s
+``RMutex()`` and the class is ``@guarded``; ``_handle_msg`` is the
+``consensus_state`` trust-guard seam; and each committed height outside
+replay is decomposed by ``utils/critpath.observe_height``.
 """
 
 from __future__ import annotations
@@ -96,6 +97,8 @@ from cometbft_tpu_torch.wal import (
     WALRecord,
 )
 from cometbft_tpu_torch.utils.protoio import ProtoReader, ProtoWriter
+from cometbft_tpu_torch.utils import sync as cmtsync
+from cometbft_tpu_torch.utils import critpath, trustguard
 
 
 class ConsensusError(Exception):
@@ -150,6 +153,7 @@ def decode_timeout_info(data: bytes) -> TimeoutInfo:
     )
 
 
+@cmtsync.guarded
 class ConsensusState(BaseService):
     """(internal/consensus/state.go:72 State)
 
@@ -159,6 +163,36 @@ class ConsensusState(BaseService):
     paths, which take the lock too), read by gossip/RPC through the
     locked ``round_state()`` snapshot.  The transition methods carry
     ``# holds _rs_mtx`` caller-holds markers."""
+
+    _GUARDED_BY = {
+        "height": "_rs_mtx",
+        "round": "_rs_mtx",
+        "step": "_rs_mtx",
+        "_step_start": "_rs_mtx",
+        "_step_hr": "_rs_mtx",
+        "_height_t0": "_rs_mtx",
+        "_quorum_prevote_round": "_rs_mtx",
+        "start_time_ns": "_rs_mtx",
+        "commit_time_ns": "_rs_mtx",
+        "validators": "_rs_mtx",
+        "proposal": "_rs_mtx",
+        "proposal_block": "_rs_mtx",
+        "proposal_block_parts": "_rs_mtx",
+        "_proposal_recv_time_ns": "_rs_mtx",
+        "locked_round": "_rs_mtx",
+        "locked_block": "_rs_mtx",
+        "locked_block_parts": "_rs_mtx",
+        "valid_round": "_rs_mtx",
+        "valid_block": "_rs_mtx",
+        "valid_block_parts": "_rs_mtx",
+        "votes": "_rs_mtx",
+        "commit_round": "_rs_mtx",
+        "last_commit": "_rs_mtx",
+        "last_validators": "_rs_mtx",
+        "triggered_timeout_precommit": "_rs_mtx",
+        "_early_parts": "_rs_mtx",
+        "state": "_rs_mtx",
+    }
 
     def __init__(
         self,
@@ -199,7 +233,7 @@ class ConsensusState(BaseService):
 
         # round state (round_state.go RoundState) — guarded by _rs_mtx for
         # readers (gossip, RPC); written only by the receive routine.
-        self._rs_mtx = threading.RLock()
+        self._rs_mtx = cmtsync.RMutex()
         self.height = 0
         self.round = 0
         self.step = STEP_NEW_HEIGHT
@@ -455,6 +489,7 @@ class ConsensusState(BaseService):
                 )
                 self.logger.error(FLIGHT.format_tail(20))
 
+    @trustguard.guarded_seam("consensus_state")
     def _handle_msg(self, mi: MsgInfo) -> None:
         msg, peer_id = mi.msg, mi.peer_id
         with self._rs_mtx:
@@ -1324,6 +1359,10 @@ class ConsensusState(BaseService):
                 num_txs=len(block.data.txs),
                 hash=(block.hash() or b"").hex()[:12],
             )
+            # attribution plane: decompose the span tree just recorded
+            # into stage budgets (best-effort inside observe_height —
+            # the commit must not depend on the diagnostics plane)
+            critpath.observe_height(height, tracer=_tracer)
         self._schedule_round_0()
 
     # -- votes -----------------------------------------------------------

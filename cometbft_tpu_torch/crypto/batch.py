@@ -20,16 +20,16 @@ from __future__ import annotations
 
 import subprocess
 import sys
-import threading
 from typing import Callable
 
 from cometbft_tpu_torch.crypto import BatchVerifier, PubKey
 from cometbft_tpu_torch.crypto import ed25519 as _ed
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 #: how long the device probe's subprocess may take
 PROBE_TIMEOUT_S = 60.0
 
-_probe_lock = threading.Lock()
+_probe_lock = cmtsync.Mutex()
 _device_state = {"status": "unknown", "ndev": 0}
 
 

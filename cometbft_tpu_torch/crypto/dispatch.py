@@ -70,12 +70,12 @@ from __future__ import annotations
 
 import logging
 import random
-import threading
 import time
 from collections import deque
 
 from cometbft_tpu_torch.metrics import crypto_metrics as _crypto_metrics
 from cometbft_tpu_torch.utils.flight import FLIGHT
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 #: the full ladder, best tier first
 TIER_ORDER = ("keyed_mesh", "keyed", "generic_mesh", "generic", "host", "python")
@@ -257,12 +257,19 @@ class ChaosPlan:
         return None
 
 
+@cmtsync.guarded
 class Chaos:
     """The chaos injector: a no-op until a plan is loaded.  The plan's
     clock starts at the first injection check."""
 
+    _GUARDED_BY = {
+        "_epoch": "_mtx",
+        "_fired": "_mtx",
+        "_hits": "_mtx",
+    }
+
     def __init__(self) -> None:
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self._epoch: float | None = None
         self._fired: set[int] = set()
         self._hits: dict[str, int] = {}
@@ -516,17 +523,25 @@ class TierCostModel:
 # -- the ladder ----------------------------------------------------------
 
 
+@cmtsync.guarded
 class DispatchLadder:
     """The process-wide tier-availability state machine (module
     docstring).  Every verifier consults the one ``LADDER``, so a tier
     demoted under one caller's traffic is demoted for all."""
+
+    _GUARDED_BY = {
+        "_state": "_mtx",
+        "_known": "_mtx",
+        "_transitions": "_mtx",
+        "_gauge_set": "_mtx",
+    }
 
     def __init__(self, demote_after: int = DEFAULT_DEMOTE_AFTER,
                  promote_after: int = DEFAULT_PROMOTE_AFTER,
                  cooldown_s: float = DEFAULT_COOLDOWN_S,
                  cooldown_max_s: float = DEFAULT_COOLDOWN_MAX_S,
                  clock=time.monotonic, cost_model: TierCostModel | None = None) -> None:
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self._configure(demote_after, promote_after, cooldown_s, cooldown_max_s, clock,
                         cost_model)
 

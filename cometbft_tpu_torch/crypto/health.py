@@ -60,6 +60,7 @@ import time
 from cometbft_tpu_torch.metrics import health_metrics as _health_metrics
 from cometbft_tpu_torch.utils.flight import FLIGHT
 from cometbft_tpu_torch.utils.service import BaseService
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 DEFAULT_LAUNCH_BUDGET_S = 240.0
 DEFAULT_HEALTH_INTERVAL_S = 60.0
@@ -88,7 +89,7 @@ class LaunchWatchdog:
 
     def __init__(self, budget_s: float = DEFAULT_LAUNCH_BUDGET_S):
         self.budget_s = budget_s
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self._wake = threading.Event()
         # token -> {t0, deadline, tier, batch, fired}: ``arm`` inserts
         # without the lock (one dict store, atomic under the GIL); pops,
@@ -219,7 +220,7 @@ class DeviceUsage:
     thread, so concurrent verifiers do not charge each other's fetches."""
 
     def __init__(self):
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self._tl = threading.local()
         # guarded by _mtx: the high-water mark of wall time already
         # counted busy -- concurrent launches count the UNION of their
@@ -324,7 +325,7 @@ class HealthProber(BaseService):
         self._tiers = tiers
         self._watchdog = watchdog if watchdog is not None else WATCHDOG
         self._probe_timeout = probe_timeout_s
-        self._state_mtx = threading.Lock()
+        self._state_mtx = cmtsync.Mutex()
         self._state: dict[str, dict] = {}      # guarded by _state_mtx
         self.probes_total = 0                   # guarded by _state_mtx
         #: tier -> a canary worker still running past its timeout

@@ -56,6 +56,7 @@ from cometbft_tpu_torch.metrics import crypto_metrics as _crypto_metrics
 from cometbft_tpu_torch.metrics import health_metrics as _health_metrics
 from cometbft_tpu_torch.utils.service import BaseService
 from cometbft_tpu_torch.utils.trace import TRACER as _tracer
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 PRIORITY_CONSENSUS = "consensus"
 PRIORITY_PREFETCH = "prefetch"
@@ -132,14 +133,17 @@ def cache_key(pub: bytes, msg: bytes, sig: bytes) -> bytes:
     return h.digest()
 
 
+@cmtsync.guarded
 class SpeculativeCache:
     """Bounded LRU of cache_key -> True: proofs of validity only.  A
     negative verdict is never stored (a transient fault must cost one
     rejected attempt, not a poisoned entry)."""
 
+    _GUARDED_BY = {"_map": "_mtx"}
+
     def __init__(self, capacity: int = DEFAULT_SPEC_CACHE_CAP) -> None:
         self.capacity = capacity
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self._map: OrderedDict[bytes, bool] = OrderedDict()
 
     def lookup(self, key: bytes) -> bool | None:
@@ -220,6 +224,7 @@ class _Prepared:
         self.prep_seconds = 0.0
 
 
+@cmtsync.guarded
 class VerifyQueue(BaseService):
     """The double-buffered verify queue (module docstring).
 
@@ -229,6 +234,21 @@ class VerifyQueue(BaseService):
     (pub_key, msg, sig) tuples (tests gate it to pin the overlap).
     ``use_cache=False`` turns the speculative cache off.  A buffer of
     any lane holds at most ``max_batch`` requests."""
+
+    _GUARDED_BY = {
+        "_pending": "_qmtx",
+        "_prepared": "_qmtx",
+        "_preparing_lane": "_qmtx",
+        "_draining": "_qmtx",
+        "_launch_active": "_qmtx",
+        "_launch_t0": "_qmtx",
+        "_overlap_accum": "_qmtx",
+        "_prep_since": "_qmtx",
+        "_overlap_seconds": "_qmtx",
+        "_launch_wall_seconds": "_qmtx",
+        "_stats": "_qmtx",
+        "_last_overlap": "_qmtx",
+    }
 
     def __init__(self, verifier_factory=None, launch=None,
                  max_batch: int = DEFAULT_MAX_BATCH,
@@ -249,7 +269,7 @@ class VerifyQueue(BaseService):
             PRIORITY_LIGHT: _LaneBatcher(light_batch, light_wait_ms),
         }
         self.cache = (spec_cache or SpeculativeCache()) if use_cache else None
-        self._qmtx = threading.Lock()
+        self._qmtx = cmtsync.Mutex()
         self._collector_wake = threading.Event()
         self._launcher_wake = threading.Event()
         # everything below is guarded by _qmtx
@@ -629,7 +649,7 @@ class VerifyQueue(BaseService):
 
 # -- the process-wide queue and its helpers ---------------------------------
 
-_install_mtx = threading.Lock()
+_install_mtx = cmtsync.Mutex()
 _QUEUE: VerifyQueue | None = None
 
 

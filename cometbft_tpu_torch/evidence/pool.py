@@ -14,10 +14,11 @@ Where the port departs from its reference:
 - ``Pool`` takes a keyword ``device`` (``cuda`` unless the caller names
   another; without a card only ``device="cpu"`` runs), on which the
   light-client-attack check verifies the conflicting commit: every
-  signature, through the keyed tier of ``types/validation.py``;
-- its lock is a ``threading.Lock`` (the reference's ``utils/sync``
-  debug modes are not ported), and the reference's guard calls on
-  admission are left out, as ``types/validation.py`` leaves them out.
+  signature, through the keyed tier of ``types/validation.py``.
+
+As in the reference, its lock is ``utils/sync``'s ``Mutex()`` (the
+class ``@guarded``); ``verify`` and ``check_evidence`` note the trust
+guard's validators and ``add_evidence`` is a sink.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ from cometbft_tpu_torch.utils.env import resolve_device
 from cometbft_tpu_torch.utils.flight import FLIGHT
 from cometbft_tpu_torch.utils.log import Logger, default_logger
 from cometbft_tpu_torch.utils.time import now_ns
+from cometbft_tpu_torch.utils import sync as cmtsync
+from cometbft_tpu_torch.utils import trustguard
 
 _PREFIX_PENDING = b"evp/"
 _PREFIX_COMMITTED = b"evc/"
@@ -69,8 +72,11 @@ def _ev_type(ev) -> str:
     return "duplicate_vote"
 
 
+@cmtsync.guarded
 class Pool:
     """(internal/evidence/pool.go:24 Pool)"""
+
+    _GUARDED_BY = {"_consensus_buffer": "_mtx"}
 
     def __init__(
         self,
@@ -90,7 +96,7 @@ class Pool:
         self.block_store = block_store
         self.logger = logger or default_logger().with_fields(module="evidence")
         self.metrics = metrics if metrics is not None else EvidenceMetrics()
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         # conflicting vote pairs reported by consensus, turned into
         # evidence at the next Update when block time/val set are known
         self._consensus_buffer: list[tuple[Vote, Vote]] = []
@@ -154,6 +160,7 @@ class Pool:
                 f"evidence from height {ev.height} is too old "
                 f"({age_blocks} blocks, {age_ns // 1_000_000_000}s)"
             )
+        trustguard.note_validated("Pool.verify")
 
     def _verify_duplicate_vote(
         self, ev: DuplicateVoteEvidence, state: State
@@ -347,6 +354,7 @@ class Pool:
             if self._is_pending(ev) or self._is_committed(ev):
                 return
         self.verify(ev)
+        trustguard.check_sink("evidence.add")
         with self._mtx:
             self._add_pending_locked(ev)
             self._observe_pool_locked()
@@ -400,6 +408,7 @@ class Pool:
                 pending = self._is_pending(ev)
             if not pending:
                 self.verify(ev)
+        trustguard.note_validated("Pool.check_evidence")
 
     # -- post-commit update ----------------------------------------------
 

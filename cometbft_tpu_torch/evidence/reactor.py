@@ -6,8 +6,8 @@ Per peer, one broadcast thread streams all pending evidence and then
 waits for new arrivals; inbound evidence is verified by the pool
 before being stored or re-gossiped.
 
-Where the port departs from its reference: the ``trustguard`` seam on
-``receive`` is left out, and ``on_stop`` joins the broadcast threads
+``receive`` is the ``evidence_reactor`` trust-guard seam.  Where the
+port departs from its reference: ``on_stop`` joins the broadcast threads
 (bounded), so a stopped node leaves none behind.  ``receive`` keeps the
 peer only for the benign refusals (expired, already committed) and
 stops it for any other evidence error; an error that is not about the
@@ -33,6 +33,7 @@ from cometbft_tpu_torch.types.evidence import EvidenceError
 from cometbft_tpu_torch.types.codec import as_bytes
 from cometbft_tpu_torch.utils.log import Logger, default_logger
 from cometbft_tpu_torch.utils.protoio import ProtoReader, ProtoWriter
+from cometbft_tpu_torch.utils import trustguard
 
 EVIDENCE_CHANNEL = 0x38
 
@@ -92,6 +93,7 @@ class EvidenceReactor(Reactor):
         for t in threads:
             t.join(timeout=2.0)
 
+    @trustguard.guarded_seam("evidence_reactor")
     def receive(self, env: Envelope) -> None:
         try:
             ev_list = decode_evidence_list(env.message)

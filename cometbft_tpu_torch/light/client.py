@@ -20,7 +20,6 @@ Where the port departs from its reference:
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 from fractions import Fraction
 
@@ -39,6 +38,7 @@ from cometbft_tpu_torch.types.light_block import LightBlock
 from cometbft_tpu_torch.utils.env import resolve_device
 from cometbft_tpu_torch.utils.log import Logger, default_logger
 from cometbft_tpu_torch.utils.time import now_ns
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 SEQUENTIAL = "sequential"   # client.go:44
 SKIPPING = "skipping"       # client.go:50
@@ -115,7 +115,7 @@ class Client:
         self.max_clock_drift_ns = max_clock_drift_ns
         self.pruning_size = pruning_size
         self.logger = logger or default_logger().with_fields(module="light")
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self.device = resolve_device(device)
         self._initialize()
 

@@ -5,10 +5,10 @@ in order."""
 
 from __future__ import annotations
 
-import threading
 
 from cometbft_tpu_torch.types.light_block import LightBlock
 from cometbft_tpu_torch.utils.db import DB
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 _PREFIX = b"lb/"
 
@@ -22,7 +22,7 @@ class LightStore:
 
     def __init__(self, db: DB):
         self.db = db
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
 
     def save(self, lb: LightBlock) -> None:
         with self._mtx:

@@ -16,10 +16,11 @@ Where the port departs from its reference:
   signature to the host tier), where the reference calls
   ``verify_signature``;
 - the TxCache's shard count is the constant ``TXCACHE_SHARDS`` (the
-  reference reads ``CMT_TPU_TXCACHE_SHARDS``);
-- the locks are ``threading`` locks (the reference's ``utils/sync``
-  debug modes are not ported) and the ``trustguard`` calls are left
-  out.
+  reference reads ``CMT_TPU_TXCACHE_SHARDS``).
+
+The locks are ``utils/sync``'s, the cache shard and the mempool
+``@guarded``; ``_verify_tx_signature`` notes the trust guard's
+validator and ``check_tx`` is a sink, as in the reference.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from cometbft_tpu_torch.abci.types import (
     CheckTxResponse,
 )
 from cometbft_tpu_torch.types.block import tx_hash
+from cometbft_tpu_torch.utils import sync as cmtsync
+from cometbft_tpu_torch.utils import trustguard
 
 
 class MempoolError(Exception):
@@ -76,6 +79,7 @@ class _MempoolTx:
 TXCACHE_SHARDS = 8
 
 
+@cmtsync.guarded
 class _TxCacheShard:
     """One hash-partitioned shard: its own LRU map under its own
     mutex.  Keys land on a shard by their first hash byte, so the
@@ -83,9 +87,11 @@ class _TxCacheShard:
     cache lifetime (push/has/remove for one tx always contend on the
     same single mutex — never two)."""
 
+    _GUARDED_BY = {"_map": "_mtx"}
+
     def __init__(self, size: int):
         self._size = size
-        self._mtx = threading.Lock()  # guards _map
+        self._mtx = cmtsync.Mutex()  # guards _map
         self._map: OrderedDict[bytes, None] = OrderedDict()
 
     def push_key(self, key: bytes) -> bool:
@@ -208,6 +214,7 @@ def post_check_max_gas(max_gas: int) -> PostCheckFunc:
     return check
 
 
+@cmtsync.guarded
 class CListMempool:
     """The production mempool (mempool/clist_mempool.go:29).
 
@@ -215,6 +222,16 @@ class CListMempool:
     ``_notified_available``, ``pre_check`` and ``post_check``;
     pre_check/post_check are swapped under the lock in update() but read
     lock-free on the CheckTx hot path."""
+
+    _GUARDED_BY = {
+        "_txs": "_mtx",
+        "_txs_bytes": "_mtx",
+        "_seq": "_mtx",
+        "_height": "_mtx",
+        "_notified_available": "_mtx",
+        "pre_check": "_mtx",
+        "post_check": "_mtx",
+    }
 
     def __init__(
         self,
@@ -244,7 +261,7 @@ class CListMempool:
         self._recheck_enabled = recheck
         self.cache = TxCache(cache_size) if cache_size > 0 else NopTxCache()
 
-        self._mtx = threading.RLock()  # the consensus Lock()/Unlock()
+        self._mtx = cmtsync.RMutex()  # the consensus Lock()/Unlock()
         self._txs: OrderedDict[bytes, _MempoolTx] = OrderedDict()
         self._txs_bytes = 0
         self._seq = 0  # next arrival sequence number
@@ -365,6 +382,7 @@ class CListMempool:
         if parsed is None:
             # a plain (un-enveloped) tx: the admission *policy* ran —
             # there is simply no signature to check
+            trustguard.note_validated("CListMempool._verify_tx_signature")
             return
         pub, sig, payload = parsed
         t0 = time.perf_counter()
@@ -392,12 +410,14 @@ class CListMempool:
         )
         if not ok:
             raise TxSignatureError("invalid tx signature")
+        trustguard.note_validated("CListMempool._verify_tx_signature")
 
     def _handle_check_result(
         self, tx: bytes, res: CheckTxResponse, sender: str,
         key: bytes | None = None,
     ) -> None:
         """(clist_mempool.go:328 handleCheckTxResponse)"""
+        trustguard.check_sink("mempool.check_tx")
         post_err = None
         if self.post_check is not None:  # unguarded: callable ref, swapped atomically under lock in update()
             try:

@@ -7,10 +7,10 @@ via a sequence cursor — the idiomatic replacement for the reference's
 CList pointer-chasing — skipping txs the peer itself sent us, and
 waiting on the mempool's condition variable when caught up.
 
-Where the port departs from its reference: the lock is a
-``threading.Lock``, the ``trustguard`` seam on ``receive`` is left out,
-and ``on_stop`` joins the broadcast threads (bounded), so a stopped
-node leaves none behind.
+Its lock is ``utils/sync``'s ``Mutex()`` and ``receive`` is the
+``mempool_reactor`` trust-guard seam.  Where the port departs from its
+reference: ``on_stop`` joins the broadcast threads (bounded), so a
+stopped node leaves none behind.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ from cometbft_tpu_torch.utils.log import Logger, default_logger
 from cometbft_tpu_torch.utils.protoio import ProtoReader, ProtoWriter
 from cometbft_tpu_torch.types.codec import as_bytes
 from cometbft_tpu_torch.utils.flight import FLIGHT
+from cometbft_tpu_torch.utils import sync as cmtsync
+from cometbft_tpu_torch.utils import trustguard
 
 MEMPOOL_CHANNEL = 0x30
 
@@ -63,7 +65,7 @@ class MempoolReactor(Reactor):
         # cumulative txs submitted per peer, mirrored into the p2p
         # num_txs gauge (p2p/metrics.go NumTxs)
         self._peer_tx_counts: dict[str, int] = {}
-        self._peer_tx_mtx = threading.Lock()
+        self._peer_tx_mtx = cmtsync.Mutex()
         self._threads: list[threading.Thread] = []
 
     def enable_in_out_txs(self) -> None:
@@ -103,6 +105,7 @@ class MempoolReactor(Reactor):
         with self._peer_tx_mtx:
             self._peer_tx_counts.pop(peer.id, None)
 
+    @trustguard.guarded_seam("mempool_reactor")
     def receive(self, env: Envelope) -> None:
         """CheckTx every received tx, remembering the sender so we never
         echo a tx back (reactor.go:184 Receive)."""

@@ -811,3 +811,163 @@ def install_p2p_metrics(metrics: P2PMetrics | None) -> None:
     to the no-op)."""
     global _P2P
     _P2P = metrics if metrics is not None else P2PMetrics(None)
+
+
+class FleetMetrics:
+    """Fleet observability plane (utils/fleetobs.py) — what the
+    aggregating node learns about the nodes it scrapes (a copy of the
+    reference's family)."""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.scrapes = _NOP
+            self.scrape_seconds = _NOP
+            self.nodes = _NOP
+            self.height_skew = _NOP
+            self.height_lag = _NOP
+            return
+        s = "fleet"
+        self.scrapes = reg.counter(
+            s, "scrapes",
+            "Per-peer fleet scrapes (/metrics + /trace + "
+            "/debug/flight), by result (ok | error).",
+            labels=("node", "result"),
+        )
+        self.scrape_seconds = reg.histogram(
+            s, "scrape_seconds",
+            "Wall time of one full peer scrape (all three surfaces).",
+            buckets=DEFAULT_TIME_BUCKETS,
+        )
+        self.nodes = reg.gauge(
+            s, "nodes",
+            "Nodes (self included) covered by the last fleet rollup.",
+        )
+        self.height_skew = reg.gauge(
+            s, "height_skew",
+            "Max minus min committed height across the fleet at the "
+            "last rollup — the first number an operator reads.",
+        )
+        self.height_lag = reg.gauge(
+            s, "height_lag",
+            "Heights a node sits behind the fleet maximum at the last "
+            "rollup.",
+            labels=("node",),
+        )
+
+
+#: Process-wide sink for the fleet plane (its functions run with no node
+#: handle): no-op by default, the last struct installed wins.
+_FLEET = FleetMetrics(None)
+
+
+def fleet_metrics() -> FleetMetrics:
+    """The currently installed fleet-plane sink (never None)."""
+    return _FLEET
+
+
+def install_fleet_metrics(metrics: FleetMetrics | None) -> None:
+    """Install ``metrics`` as the process-wide fleet sink (None
+    resets to the no-op)."""
+    global _FLEET
+    _FLEET = metrics if metrics is not None else FleetMetrics(None)
+
+
+class NetemMetrics:
+    """WAN-emulation plane (p2p/conn/netem.py) — what the injected
+    link is doing to each peer, per frame (a copy of the reference's
+    family), with per-peer child retirement like P2PMetrics."""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.injected_delay_seconds = _NOP
+            self.dropped_frames_total = _NOP
+            self.active_profile = _NOP
+            return
+        s = "netem"
+        self.injected_delay_seconds = reg.histogram(
+            s, "injected_delay_seconds",
+            "Wall injected into one send frame (delay + jitter + loss "
+            "penalty + rate reservation) — the emulated-WAN share of "
+            "gossip wall; compare against p2p_gossip_hop_seconds for "
+            "the intrinsic share.",
+            buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.2, 0.5,
+                     1.0, 2.5),
+            labels=("peer_id",),
+        )
+        self.dropped_frames_total = reg.counter(
+            s, "dropped_frames_total",
+            "Frames the loss draw hit; each paid a TCP retransmit "
+            "penalty instead of vanishing (the transport is a "
+            "reliable stream — see p2p/conn/netem.py).",
+            labels=("peer_id",),
+        )
+        self.active_profile = reg.gauge(
+            s, "active_profile",
+            "Plan entries active on this peer's emulated link at the "
+            "last frame send (0 = inside no window, passthrough).",
+            labels=("peer_id",),
+        )
+
+
+_NETEM_SINK = NetemMetrics(None)
+
+
+def netem_metrics() -> NetemMetrics:
+    """The currently installed netem-plane sink (never None)."""
+    return _NETEM_SINK
+
+
+def install_netem_metrics(metrics: NetemMetrics | None) -> None:
+    """Install ``metrics`` as the process-wide netem sink (None
+    resets to the no-op)."""
+    global _NETEM_SINK
+    _NETEM_SINK = metrics if metrics is not None else NetemMetrics(None)
+
+
+class AttributionMetrics:
+    """Attribution plane (utils/critpath.py) — a committed height's
+    wall decomposed into the fixed stage taxonomy (a copy of the
+    reference's family)."""
+
+    def __init__(self, reg: Registry | None = None):
+        if reg is None:
+            self.height_stage_seconds = _NOP
+            self.height_critical_stage = _NOP
+            return
+        s = "attribution"
+        self.height_stage_seconds = reg.histogram(
+            s, "height_stage_seconds",
+            "Per-committed-height wall attributed to each critical-"
+            "path stage (utils/critpath.py taxonomy); stage budgets "
+            "sum (with residual) to the height wall by construction.",
+            labels=("stage",),
+            buckets=DEFAULT_TIME_BUCKETS,
+        )
+        self.height_critical_stage = reg.gauge(
+            s, "height_critical_stage",
+            "One-hot over the stage taxonomy: 1 on the stage that "
+            "owned the most wall in the last committed height, 0 "
+            "elsewhere — the first thing to read when height latency "
+            "regresses.",
+            labels=("stage",),
+        )
+
+
+#: Process-wide sink for the attribution plane: critpath's
+#: observe_height runs from the consensus commit path with no node
+#: handle.  No-op by default; the last struct installed wins.
+_ATTRIBUTION = AttributionMetrics(None)
+
+
+def attribution_metrics() -> AttributionMetrics:
+    """The currently installed attribution-plane sink (never None)."""
+    return _ATTRIBUTION
+
+
+def install_attribution_metrics(metrics: AttributionMetrics | None) -> None:
+    """Install ``metrics`` as the process-wide attribution sink (None
+    resets to the no-op)."""
+    global _ATTRIBUTION
+    _ATTRIBUTION = (
+        metrics if metrics is not None else AttributionMetrics(None)
+    )

@@ -54,6 +54,7 @@ from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import curve as C
 from cometbft_tpu_torch.ops import field as F
 from cometbft_tpu_torch.ops import jitguard as _jitguard
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 #: largest set that gets 8-bit per-key combs (3.25 MiB/key on device)
 KEY8_MAX = 256
@@ -71,7 +72,7 @@ def next_pow2(n: int) -> int:
 
 # -- fixed-base 8-bit comb (host-built, shared) ------------------------
 
-_B8_LOCK = threading.Lock()
+_B8_LOCK = cmtsync.Mutex()
 _B8: np.ndarray | None = None
 
 
@@ -293,7 +294,7 @@ class KeySetTables:
     #: cache's budget counts them (``placement_bytes``).  Guarded by
     #: ``_mtx``, which is always taken last (never around a cache call).
     placements: dict = field(default_factory=dict)
-    _mtx: threading.Lock = field(default_factory=threading.Lock, repr=False)
+    _mtx: object = field(default_factory=cmtsync.Mutex, repr=False)
 
     def key_ids(self, pubs: list[bytes]) -> np.ndarray:
         return np.fromiter(
@@ -499,7 +500,7 @@ class KeyTableCache:
     def __init__(self, device, cap_bytes: int = TABLE_CACHE_MB << 20) -> None:
         self.device = torch.device(device)
         self._cap = cap_bytes
-        self._lock = threading.Lock()
+        self._lock = cmtsync.Mutex()
         self._pools = {8: _KeyPool(8, self.device), 4: _KeyPool(4, self.device)}
         # per-key build latches: concurrent misses on overlapping keys
         # build each key once -- losers wait on the winner's latch

@@ -1,9 +1,11 @@
-"""p2p plane (a copy of cometbft_tpu/p2p/ but PEX; reference: p2p/).
+"""p2p plane (a copy of cometbft_tpu/p2p/; reference: p2p/).
 
 Stack, bottom-up: TCP → SecretConnection (X25519 + ChaCha20-Poly1305
 authenticated encryption) → MConnection (priority channel
 multiplexing, flow control) → Switch (reactor fan-out, peer
-lifecycle).  PEX and the address book come later.
+lifecycle) → PEX (``p2p/pex``: the address book and discovery).
+WAN emulation (``p2p/conn/netem.py``) holds frames at the MConnection
+frame pump when a switch is given a plan.
 """
 
 from cometbft_tpu_torch.p2p.base_reactor import Envelope, Reactor

@@ -1,6 +1,5 @@
-"""Multiplexed connection (a copy of cometbft_tpu/p2p/conn/connection.py
-without its WAN-emulation stage; reference: p2p/conn/connection.go:80
-MConnection).
+"""Multiplexed connection (a copy of cometbft_tpu/p2p/conn/connection.py;
+reference: p2p/conn/connection.go:80 MConnection).
 
 One send thread + one recv thread per connection.  Outbound messages
 are chunked into packets (max 1024-byte payload) and queued per
@@ -14,6 +13,14 @@ the capability set.
 Wire format: length-prefixed protobuf ``Packet`` envelopes
 (proto/cometbft/p2p/v1/conn.proto) — oneof ping/pong/msg{channel, eof,
 data}.
+
+Where the port departs from its reference: the WAN-emulation stage
+(p2p/conn/netem.py) comes from the switch, not the environment; the
+flush throttle counts from the end of a write, where the reference's
+counts from before the stage's hold (so a hold longer than the throttle
+sent every later packet as a frame of its own); and ``flush()`` drains
+the send queues for a caller (CometBFT's ``FlushStop`` without the
+stop).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from cometbft_tpu_torch.utils.protoio import (
 )
 from cometbft_tpu_torch.utils.service import BaseService
 from cometbft_tpu_torch.utils.trace import TRACER
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 MAX_PACKET_PAYLOAD = 1024          # connection.go defaultMaxPacketMsgPayloadSize
 FLUSH_THROTTLE = 0.010             # connection.go:43 flushThrottle 10ms
@@ -138,6 +146,7 @@ def decode_packet(data: bytes):
     raise MConnError("unknown packet")
 
 
+@cmtsync.guarded
 class _Channel:
     """(connection.go:640 channel) — send queue + recv reassembly.
 
@@ -146,6 +155,8 @@ class _Channel:
     per-(peer, channel) gauges — the backpressure signal the wire
     plane exposes on /metrics and /net_info.
     """
+
+    _GUARDED_BY = {"queued_bytes": "_qb_mtx"}
 
     def __init__(self, desc: ChannelDescriptor, metrics, peer_id: str):
         self.desc = desc
@@ -159,7 +170,7 @@ class _Channel:
         self.queued_bytes = 0
         # enqueue paths race the send routine on the byte ledger; the
         # qsize-only reads (fill_ratio, status) stay lock-free
-        self._qb_mtx = threading.Lock()
+        self._qb_mtx = cmtsync.Mutex()
         # label children resolved once: the hot path updates plain
         # counters/gauges, never a labels() dict lookup
         lbl = {"peer_id": peer_id, "chID": f"{desc.id:#x}"}
@@ -230,6 +241,7 @@ class MConnection(BaseService):
         metrics=None,
         peer_id: str = "",
         logger: Logger | None = None,
+        netem=None,
     ):
         super().__init__(
             name="mconn", logger=logger or default_logger().with_fields(module="mconn")
@@ -254,6 +266,9 @@ class MConnection(BaseService):
             peer_id=peer_id
         )
         self._send_signal = threading.Event()
+        # True from the moment the send routine takes a packet off a
+        # channel until the bytes it buffered are written (flush())
+        self._unflushed = False
         self._last_pong = time.monotonic()
         # FIFO of outstanding-ping send times: TCP ordering means the
         # nth pong answers the nth ping, so popping the OLDEST stamp
@@ -273,6 +288,11 @@ class MConnection(BaseService):
             peer_id=peer_id
         )
         self.last_error: str | None = None
+        # WAN emulation stage (p2p/conn/netem.py NetemStage), handed in
+        # by the switch — None without a plan, and then _flush pays
+        # exactly one `is None` test per frame (the zero-cost-off
+        # contract)
+        self._netem = netem
         self._send_monitor = Monitor()
         self._recv_monitor = Monitor()
         self._send_thread: threading.Thread | None = None
@@ -306,6 +326,8 @@ class MConnection(BaseService):
         for ch in self.channels.values():
             ch.m_send_queue_size.set(0)
             ch.m_send_queue_bytes.set(0)
+        if self._netem is not None:
+            self._netem.retire()
         self.conn.close()
 
     def _stop_for_error(self, err: Exception) -> None:
@@ -346,6 +368,23 @@ class MConnection(BaseService):
         self._update_pending_gauge()
         self._send_signal.set()
         return True
+
+    def flush(self, timeout: float = 2.0) -> bool:
+        """Wait, at most ``timeout`` seconds, until every queued message
+        is written to the connection (the drain of connection.go
+        FlushStop).  -> whether it drained."""
+        deadline = time.monotonic() + timeout
+        self._send_signal.set()
+        while time.monotonic() < deadline and self.is_running():
+            # the channels first: the send routine sets _unflushed before
+            # it takes a packet, so a packet taken between the two reads
+            # still shows as unflushed
+            if not any(
+                ch.is_send_pending() for ch in self.channels.values()
+            ) and not self._unflushed:
+                return True
+            time.sleep(0.005)
+        return False
 
     def try_send(self, ch_id: int, msg: bytes) -> bool:
         """Non-blocking send (connection.go:356 TrySend)."""
@@ -400,11 +439,13 @@ class MConnection(BaseService):
                     if buf:
                         self._flush(buf)
                         buf.clear()
+                    self._unflushed = False
                     fired = self._send_signal.wait(timeout=0.05)
                     if fired:
                         self._send_signal.clear()
                     self._decay_recently_sent()
                     continue
+                self._unflushed = True
                 eof, chunk = ch.next_packet(cfg.max_packet_msg_payload_size)
                 pkt = encode_packet_msg(ch.desc.id, eof, chunk)
                 framed = encode_uvarint(len(pkt)) + pkt
@@ -422,12 +463,17 @@ class MConnection(BaseService):
                 if now - last_flush >= cfg.flush_throttle or len(buf) >= 65536:
                     self._flush(buf)
                     buf.clear()
-                    last_flush = now
+                    # the throttle counts from the end of the write: a
+                    # netem hold longer than the throttle would otherwise
+                    # make every later packet a frame of its own
+                    last_flush = time.monotonic()
         except Exception as exc:  # noqa: BLE001 — any I/O error kills the conn
             self._stop_for_error(exc)
 
     def _flush(self, buf: bytearray) -> None:
         if buf:
+            if self._netem is not None:
+                self._netem.hold(len(buf))
             with TRACER.span("frame_pump", cat="p2p", bytes=len(buf)):
                 self.conn.write(bytes(buf))
 

@@ -31,7 +31,6 @@ import errno
 import select
 import socket
 import struct
-import threading
 import time
 
 from cometbft_tpu_torch.crypto.ed25519 import Ed25519PrivKey, Ed25519PubKey
@@ -44,6 +43,7 @@ from cometbft_tpu_torch.p2p.conn.handshake_crypto import (
     X25519PublicKey,
     hkdf_sha256,
 )
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 # Load (and if needed compile) the native frame pump at import time —
 # node startup, not inside a handshake: a first-use g++ build mid-
@@ -110,8 +110,8 @@ class SecretConnection:
     def __init__(self, sock, priv_key: Ed25519PrivKey):
         handshake_t0 = time.perf_counter()
         self._sock = sock
-        self._send_mtx = threading.Lock()
-        self._recv_mtx = threading.Lock()
+        self._send_mtx = cmtsync.Mutex()
+        self._recv_mtx = cmtsync.Mutex()
         self._recv_buf = b""
         self.remote_pubkey: Ed25519PubKey | None = None
 

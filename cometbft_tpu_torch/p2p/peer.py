@@ -9,7 +9,6 @@ to the owning reactor.  Reactors attach per-peer state via ``set``/
 
 from __future__ import annotations
 
-import threading
 
 from cometbft_tpu_torch.metrics import P2PMetrics
 from cometbft_tpu_torch.p2p.conn.connection import (
@@ -21,6 +20,7 @@ from cometbft_tpu_torch.p2p.netaddr import NetAddress
 from cometbft_tpu_torch.p2p.node_info import NodeInfo
 from cometbft_tpu_torch.utils.log import Logger, default_logger
 from cometbft_tpu_torch.utils.service import BaseService
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 
 class Peer(BaseService):
@@ -40,6 +40,7 @@ class Peer(BaseService):
         metrics=None,
         channel_names: dict[int, str] | None = None,
         logger: Logger | None = None,
+        netem=None,
     ):
         super().__init__(
             name=f"peer-{node_info.node_id[:8]}",
@@ -53,7 +54,7 @@ class Peer(BaseService):
         self.metrics = metrics if metrics is not None else P2PMetrics()
         self._channel_names = channel_names or {}
         self._data: dict[str, object] = {}
-        self._data_mtx = threading.Lock()
+        self._data_mtx = cmtsync.Mutex()
         self.mconn = MConnection(
             conn,
             channels,
@@ -63,6 +64,7 @@ class Peer(BaseService):
             metrics=self.metrics,
             peer_id=node_info.node_id,
             logger=self.logger,
+            netem=netem,
         )
 
     # -- identity -------------------------------------------------------
@@ -95,6 +97,11 @@ class Peer(BaseService):
         if ok:
             self._count_send(ch_id, len(msg))
         return ok
+
+    def flush(self, timeout: float = 2.0) -> bool:
+        """Wait (bounded) until the queued messages are written
+        (peer.go FlushStop's drain, without the stop)."""
+        return self.mconn.flush(timeout)
 
     def try_send(self, ch_id: int, msg: bytes) -> bool:
         if not self.is_running() or not self.node_info.has_channel(ch_id):
@@ -135,7 +142,7 @@ class PeerSet:
     """Thread-safe peer registry (p2p/peer_set.go)."""
 
     def __init__(self) -> None:
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self._by_id: dict[str, Peer] = {}
 
     def add(self, peer: Peer) -> None:

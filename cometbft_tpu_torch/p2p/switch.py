@@ -5,13 +5,16 @@ Owns the transport, the peer set, and all reactors.  Every upgraded
 connection becomes a Peer whose inbound messages are dispatched by
 channel id to the owning reactor (switch.go:269 Broadcast fan-out,
 switch.go:322 StopPeerForError, reconnect-with-backoff for persistent
-peers switch.go:389).  The address book stays None until PEX is
-ported.
+peers switch.go:389).  ``addr_book`` is set when a PEX reactor is
+added (p2p/pex); a completed outbound dial then marks its address good.
+A WAN-emulation plan (p2p/conn/netem.py), given as ``netem``, reaches
+every connection as its own seeded stage.
 
 Where the port departs from its reference: a stop that finds a peer
 between its add and its start (its receive thread made but not yet
 started) does not join that thread; the reference's join raises
-``RuntimeError`` out of ``stop()`` there.
+``RuntimeError`` out of ``stop()`` there.  The reference reads its
+netem plan from ``CMT_TPU_NETEM``; the port takes it as an argument.
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ import time
 from cometbft_tpu_torch.metrics import P2PMetrics
 from cometbft_tpu_torch.p2p.base_reactor import Envelope, Reactor
 from cometbft_tpu_torch.p2p.conn.connection import ChannelDescriptor, MConnConfig
+from cometbft_tpu_torch.p2p.conn.netem import NetemPlan, NetemStage
 from cometbft_tpu_torch.p2p.netaddr import NetAddress
 from cometbft_tpu_torch.p2p.peer import Peer, PeerSet
 from cometbft_tpu_torch.p2p.transport import MultiplexTransport
+from cometbft_tpu_torch.utils import sync as cmtsync
 from cometbft_tpu_torch.utils.flight import FLIGHT
 from cometbft_tpu_torch.utils.log import Logger, default_logger
 from cometbft_tpu_torch.utils.service import BaseService
@@ -39,11 +44,18 @@ class SwitchError(Exception):
     pass
 
 
+@cmtsync.guarded
 class Switch(BaseService):
     """(p2p/switch.go:72 Switch)
 
     ``_mtx`` guards ``_dialing``, ``_reconnecting`` and
     ``_persistent_addrs``."""
+
+    _GUARDED_BY = {
+        "_dialing": "_mtx",
+        "_reconnecting": "_mtx",
+        "_persistent_addrs": "_mtx",
+    }
 
     def __init__(
         self,
@@ -53,6 +65,7 @@ class Switch(BaseService):
         max_outbound: int = 10,
         metrics=None,
         logger: Logger | None = None,
+        netem: NetemPlan | None = None,
     ):
         super().__init__(
             name="switch",
@@ -74,9 +87,11 @@ class Switch(BaseService):
         self._dialing: set[str] = set()
         self._reconnecting: set[str] = set()
         self._persistent_addrs: dict[str, NetAddress] = {}
-        self._mtx = threading.Lock()
-        self.addr_book = None  # PEX's address book; None until PEX is ported
+        self._mtx = cmtsync.Mutex()
+        self.addr_book = None  # set when a PEX reactor is added
         self.metrics = metrics if metrics is not None else P2PMetrics()
+        self.netem = netem
+        self._netem_epoch: float | None = None  # the plan's windows start here
 
     # -- reactor registration (switch.go:134 AddReactor) ----------------
 
@@ -102,6 +117,8 @@ class Switch(BaseService):
     # -- lifecycle ------------------------------------------------------
 
     def on_start(self) -> None:
+        if self.netem is not None:
+            self._pin_netem_epoch()
         if not self.transport.is_running():
             self.transport.start()
         for reactor in self.reactors.values():
@@ -218,6 +235,20 @@ class Switch(BaseService):
 
         threading.Thread(target=attempt, daemon=True).start()
 
+    def _pin_netem_epoch(self) -> float:
+        """The plan's window epoch: the switch's start, or its first
+        connection if that comes first."""
+        with self._mtx:
+            if self._netem_epoch is None:
+                self._netem_epoch = time.monotonic()
+            return self._netem_epoch
+
+    def _netem_stage(self, peer_id: str) -> NetemStage | None:
+        """A fresh per-peer emulation stage, or None without a plan."""
+        if self.netem is None:
+            return None
+        return NetemStage(self.netem, peer_id, self._pin_netem_epoch())
+
     # -- peer lifecycle (switch.go:727 addPeer) -------------------------
 
     def _add_peer_conn(self, conn, ni, addr: NetAddress,
@@ -237,6 +268,7 @@ class Switch(BaseService):
             metrics=self.metrics,
             channel_names=self.channel_names,
             logger=self.logger.with_fields(peer=ni.node_id[:8]),
+            netem=self._netem_stage(ni.node_id),
         )
         for reactor in self.reactors.values():
             reactor.init_peer(peer)

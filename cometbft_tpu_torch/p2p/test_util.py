@@ -11,6 +11,7 @@ from __future__ import annotations
 import time
 
 from cometbft_tpu_torch.crypto.ed25519 import gen_priv_key
+from cometbft_tpu_torch.p2p.conn.netem import NetemPlan
 from cometbft_tpu_torch.p2p.key import NodeKey
 from cometbft_tpu_torch.p2p.netaddr import NetAddress
 from cometbft_tpu_torch.p2p.node_info import NodeInfo
@@ -23,8 +24,11 @@ def make_switch(
     moniker: str = "test",
     reactors: dict | None = None,
     channels: bytes | None = None,
+    netem: NetemPlan | None = None,
 ) -> Switch:
-    """Build a started transport + switch bound to 127.0.0.1:0."""
+    """Build a started transport + switch bound to 127.0.0.1:0.
+    ``netem``: a WAN-emulation plan every connection of the switch
+    sends through."""
     node_key = NodeKey(gen_priv_key())
     # channel byte-string advertised in NodeInfo; computed after reactors
     chs = channels
@@ -40,7 +44,7 @@ def make_switch(
         moniker=moniker,
     )
     transport = MultiplexTransport(ni, node_key)
-    sw = Switch(transport)
+    sw = Switch(transport, netem=netem)
     for name, reactor in (reactors or {}).items():
         sw.add_reactor(name, reactor)
     transport.listen(NetAddress(id="", host="127.0.0.1", port=0))

@@ -7,9 +7,8 @@ check is the node's *local* double-sign protection: it refuses to sign
 two different messages at the same (height, round, step), persisting
 state BEFORE releasing a signature so a crash can't forget a vote.
 
-Where the port departs from its reference: the lock is a
-``threading.Lock`` (the reference's ``utils/sync`` debug modes are not
-ported), and the remote signer (``privval/signer.py``) comes later.
+Its lock is ``utils/sync``'s ``Mutex()``.  Where the port departs from
+its reference: the remote signer (``privval/signer.py``) comes later.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ from cometbft_tpu_torch.crypto import PrivKey, PubKey
 from cometbft_tpu_torch.crypto import ed25519 as ed
 from cometbft_tpu_torch.types import canonical
 from cometbft_tpu_torch.types.vote import Proposal, Vote
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 # Sign-step ordering within a round (privval/file.go:47-51)
 STEP_PROPOSE = 1
@@ -73,7 +73,7 @@ class FilePV:
         self._priv_key = priv_key
         self._key_path = key_file_path
         self._state_path = state_file_path
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         # last sign state (privval/file.go:60 FilePVLastSignState)
         self.height = 0
         self.round = 0

@@ -14,8 +14,8 @@ Only the shared-lock local client is ported: ``RemoteClientCreator``,
 ``GrpcRemoteClientCreator``, ``default_client_creator``,
 ``unsync_local_client_creator`` and ``AppConns``' watcher for remote
 clients' errors come with ``abci/client.py`` and ``abci/grpc.py``.
-Locks are ``threading`` locks (the reference's ``utils/sync`` is not
-ported).
+Locks are ``utils/sync``'s ``RMutex()``/``Mutex()``, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from cometbft_tpu_torch.abci.types import Application
 from cometbft_tpu_torch.utils.flight import FLIGHT
 from cometbft_tpu_torch.utils.service import BaseService
 from cometbft_tpu_torch.utils.trace import TRACER
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 
 class AbciClientError(Exception):
@@ -201,7 +202,7 @@ class ClientCreator:
 
     def __init__(self, app: Application):
         self._app = app
-        self._lock = threading.RLock()
+        self._lock = cmtsync.RMutex()
         self._shared_error: list = []
         self._on_error = None
 
@@ -251,7 +252,7 @@ class AppConns(BaseService):
             creator.new_client(), "snapshot", self.metrics
         )
         self._on_error = None
-        self._fire_lock = threading.Lock()
+        self._fire_lock = cmtsync.Mutex()
 
     def set_on_error(self, cb) -> None:
         """``cb(exc)`` fires once on the first fatal client error

@@ -12,9 +12,9 @@ the set at any height.
 ``Store.save_finalize_block_response`` persists each height's
 ``FinalizeBlockResponse`` in ``abci/codec``'s bytes, under the
 reference's format marker, so a state DB reads the same in both
-packages.  The reference's ``trustguard.check_sink`` in ``Store.save``
-(its line 272) is left out; ``Store.save`` runs in a ``state/save``
-span (utils/trace.py), which the reference does not have.
+packages.  ``Store.save`` is a trust-guard sink, as in the reference,
+and runs in a ``state/save`` span (utils/trace.py), which the reference
+does not have.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from cometbft_tpu_torch.utils.db import DB
 from cometbft_tpu_torch.utils.protoio import ProtoReader, ProtoWriter
 from cometbft_tpu_torch.utils.trace import TRACER
 from cometbft_tpu_torch.version import BLOCK_PROTOCOL
+from cometbft_tpu_torch.utils import trustguard
 
 
 class StateError(Exception):
@@ -277,6 +278,7 @@ class Store:
     def save(self, state: State) -> None:
         """Persist the snapshot plus height-indexed validator/params
         lookups, in one atomic batch (state/store.go save)."""
+        trustguard.check_sink("state.save")
         with TRACER.span("state/save", cat="state", height=state.last_block_height):
             next_height = state.last_block_height + 1
             ops: list[tuple[bytes, bytes | None]] = []

@@ -18,9 +18,10 @@ Where the port departs from its reference:
   ``CMT_TPU_BYZ`` into a process-wide one;
 - the replay-determinism guard is an argument, ``determinism``, where
   the reference reads ``CMT_TPU_DETERMINISM``: with it on,
-  ``last_transition_digest`` is the digest of the last applied block;
-- the reference's ``trustguard`` calls are left out, as
-  ``types/validation.py`` leaves them out.
+  ``last_transition_digest`` is the digest of the last applied block.
+
+``validate_block`` notes the trust guard's validator and
+``apply_block`` is a sink, as in the reference.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from cometbft_tpu_torch.utils.log import Logger, default_logger
 from cometbft_tpu_torch.utils.time import now_ns
 from cometbft_tpu_torch.utils.trace import TRACER
 from cometbft_tpu_torch.version import BLOCK_PROTOCOL
+from cometbft_tpu_torch.utils import trustguard
 
 MAX_OVERHEAD_FOR_BLOCK = 11
 MAX_HEADER_BYTES = 626
@@ -518,6 +520,7 @@ class BlockExecutor:
     def validate_block(self, state: State, block: Block) -> None:
         validate_block(state, block, self.block_store, device=self.device)
         self.ev_pool.check_evidence(list(block.evidence))
+        trustguard.note_validated("validate_block")
 
     def apply_block(
         self,
@@ -543,6 +546,7 @@ class BlockExecutor:
         syncing_to_height: int = 0,
     ) -> State:
         self.validate_block(state, block)
+        trustguard.check_sink("apply_block")
 
         # duration clock, not wall clock: the measurement feeds metrics
         # only, and determcheck keeps wall-time reads off the apply path

@@ -7,8 +7,8 @@ advertisements and chunks into the Syncer, runs ``sync_any`` in a
 background thread, and hands the bootstrapped state to the node's
 completion callback (node/setup.go:557 startStateSync).
 
-Where the port departs from its reference: the ``trustguard`` seam on
-``receive`` is left out, and ``on_stop`` joins the sync thread
+``receive`` is the ``statesync_reactor`` trust-guard seam.  Where the
+port departs from its reference: ``on_stop`` joins the sync thread
 (bounded) once the sync has ended, so a stopped node leaves none behind.
 """
 
@@ -31,6 +31,7 @@ from cometbft_tpu_torch.statesync.messages import (
 )
 from cometbft_tpu_torch.statesync.syncer import Snapshot, Syncer
 from cometbft_tpu_torch.utils.log import Logger, default_logger
+from cometbft_tpu_torch.utils import trustguard
 
 _MAX_MSG_BYTES = 16 * 1024 * 1024 + 1024
 RECENT_SNAPSHOTS = 10  # reactor.go recentSnapshots
@@ -141,6 +142,7 @@ class StatesyncReactor(Reactor):
 
     # -- receive ----------------------------------------------------------
 
+    @trustguard.guarded_seam("statesync_reactor")
     def receive(self, env: Envelope) -> None:
         try:
             msg = decode_ss_message(env.message)

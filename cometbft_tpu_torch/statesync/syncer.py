@@ -8,9 +8,8 @@ peers that have them (chunkQueue, chunks.go) → ApplySnapshotChunk →
 verify the restored app hash against the light-client state provider →
 hand back the trusted state + commit for the node to bootstrap with.
 
-Where the port departs from its reference: the locks are
-``threading.Lock``s (the reference's ``utils/sync`` debug modes are not
-ported), and the ``trustguard`` seam on ``add_chunk`` is left out.
+The locks are ``utils/sync``'s ``Mutex()`` and ``add_chunk`` is the
+``statesync_chunk`` trust-guard seam, as in the reference.
 """
 
 from __future__ import annotations
@@ -34,6 +33,8 @@ from cometbft_tpu_torch.statesync.stateprovider import (
 from cometbft_tpu_torch.utils.flight import FLIGHT
 from cometbft_tpu_torch.utils.log import Logger, default_logger
 from cometbft_tpu_torch.utils.trace import TRACER
+from cometbft_tpu_torch.utils import sync as cmtsync
+from cometbft_tpu_torch.utils import trustguard
 
 CHUNK_TIMEOUT = 10.0        # config chunk_request_timeout
 RETRIES_PER_CHUNK = 3
@@ -72,7 +73,7 @@ class SnapshotPool:
     """Snapshots and which peers can serve them (snapshots.go:37)."""
 
     def __init__(self) -> None:
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self._snapshots: dict[tuple, Snapshot] = {}
         self._peers: dict[tuple, set[str]] = {}
         self._rejected: set[tuple] = set()
@@ -126,7 +127,7 @@ class ChunkQueue:
 
     def __init__(self, snapshot: Snapshot):
         self.snapshot = snapshot
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         self._chunks: dict[int, bytes] = {}
         self._arrived = threading.Condition(self._mtx)
 
@@ -184,7 +185,7 @@ class Syncer:
         self.metrics = metrics if metrics is not None else StateSyncMetrics()
         self.pool = SnapshotPool()
         self._chunk_queue: ChunkQueue | None = None
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
 
     # -- inbound from reactor --------------------------------------------
 
@@ -200,6 +201,7 @@ class Syncer:
                 fmt=snapshot.format, chunks=snapshot.chunks,
             )
 
+    @trustguard.guarded_seam("statesync_chunk")
     def add_chunk(self, height: int, fmt: int, index: int,
                   chunk: bytes) -> None:
         with self._mtx:

@@ -7,9 +7,9 @@ the canonical commit for height H (inside block H+1's storage path in
 the reference; here keyed directly), and the "seen commit" (the +2/3
 precommits this node itself observed, which may differ in round).
 
-The port locks with ``threading.RLock`` (the reference's ``utils/sync``
-race registry is not ported) and leaves out the reference's
-``trustguard.check_sink`` in ``save_block`` (its line 150).
+The store locks with ``utils/sync``'s ``RMutex()`` (the class is
+``@guarded``), and ``save_block`` is a trust-guard sink, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ from cometbft_tpu_torch.types.block_meta import BlockMeta
 from cometbft_tpu_torch.types.part_set import Part, PartSet
 from cometbft_tpu_torch.utils.db import DB
 from cometbft_tpu_torch.utils.protoio import ProtoReader, ProtoWriter
+from cometbft_tpu_torch.utils import sync as cmtsync
+from cometbft_tpu_torch.utils import trustguard
 
 # Key layout (store/db_key_layout.go v1): prefix + big-endian height so
 # range iteration walks heights in order.
@@ -51,16 +53,19 @@ class BlockStoreError(Exception):
     pass
 
 
+@cmtsync.guarded
 class BlockStore:
     """Contiguous range [base, height] of blocks (store/store.go:37-46).
     ``_base`` and ``_height`` are read and written under ``_mtx``."""
+
+    _GUARDED_BY = {"_base": "_mtx", "_height": "_mtx"}
 
     def __init__(self, db: DB, metrics=None):
         from cometbft_tpu_torch.metrics import StoreMetrics
 
         self._db = db
         self.metrics = metrics if metrics is not None else StoreMetrics()
-        self._mtx = threading.RLock()
+        self._mtx = cmtsync.RMutex()
         self._base, self._height = self._load_state()
 
     # -- range ---------------------------------------------------------
@@ -147,6 +152,7 @@ class BlockStore:
         needs)."""
         if block is None or not part_set.is_complete():
             raise BlockStoreError("cannot save incomplete block")
+        trustguard.check_sink("store.save_block")
         height = block.header.height
         with self._mtx, TRACER.span(
             "store/save_block", cat="store", height=height

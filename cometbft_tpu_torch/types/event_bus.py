@@ -7,14 +7,12 @@ and the tx/block indexers are the consumers.  ABCI events are flattened
 into composite keys (``{type}.{attr_key}``) so the query DSL can filter
 on app-defined attributes.
 
-The bus locks with ``threading`` locks and logs through
-``utils.log`` (the reference's ``utils/sync`` race registry,
-``@guarded``, is not ported).
+The bus locks through ``utils/sync`` (``Mutex()``, ``@guarded``) and
+logs through ``utils.log``.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from dataclasses import dataclass
 from typing import Any
@@ -22,6 +20,7 @@ from typing import Any
 from cometbft_tpu_torch.utils.log import default_logger
 from cometbft_tpu_torch.utils.pubsub import Query, Server, Subscription
 from cometbft_tpu_torch.utils.service import BaseService
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 # Event type values (types/events.go)
 EVENT_NEW_BLOCK = "NewBlock"
@@ -130,8 +129,11 @@ class EventDataEvidence:
     height: int
 
 
+@cmtsync.guarded
 class EventBus(BaseService):
     """(types/event_bus.go:34)"""
+
+    _GUARDED_BY = {"_gauged_clients": "_gauged_mtx"}
 
     def __init__(self, capacity: int = 1000, metrics=None):
         super().__init__(name="EventBus",
@@ -148,7 +150,7 @@ class EventBus(BaseService):
         #: or a race could re-mint a child after its retirement and
         #: leak the series forever (per-connection ids never return)
         self._gauged_clients: set[str] = set()
-        self._gauged_mtx = threading.Lock()
+        self._gauged_mtx = cmtsync.Mutex()
 
     def _on_drop(self, client_id: str) -> None:
         # per-client attribution lives in the log (client ids are

@@ -7,9 +7,8 @@ parallel: every part carries an inclusion proof against the PartSetHeader
 hash, letting peers verify chunks independently before the whole block
 arrives — the reference's answer to "long context" scaling (SURVEY.md §5).
 
-The reference notes each validated part and each admitted one with
-``utils/trustguard`` (its lines 48 and 96); the port has no trust guard
-yet, so those two calls are left out.
+``Part.validate_basic`` is a trust-guard validator and
+``PartSet.add_part`` a sink (``utils/trustguard``), as in the reference.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from dataclasses import dataclass
 from cometbft_tpu_torch.crypto import merkle
 from cometbft_tpu_torch.types.block import PartSetHeader
 from cometbft_tpu_torch.utils.bit_array import BitArray
+from cometbft_tpu_torch.utils import trustguard
 
 BLOCK_PART_SIZE_BYTES = 65536  # types/params.go:23
 
@@ -49,6 +49,7 @@ class Part:
             raise PartSetError("part proof index mismatch")
         if len(self.bytes) > BLOCK_PART_SIZE_BYTES:
             raise PartSetError("part too large")
+        trustguard.note_validated("Part.validate_basic")
 
 
 class PartSet:
@@ -96,6 +97,7 @@ class PartSet:
             raise PartSetError("invalid part proof")
         if part.proof.total != self.header.total:
             raise PartSetError("part proof total mismatch")
+        trustguard.check_sink("part_set.add_part")
         self.parts[part.index] = part
         self.parts_bit_array.set_index(part.index, True)
         self.count += 1

@@ -24,8 +24,9 @@ Where the port departs from its reference:
   has no BLS tier (the reference's ``crypto/bls_dispatch``), so it keeps
   none of the reference's aggregate-signer bookkeeping either
   (``signer_vals``);
-- the group lock is a ``threading.Lock`` (the reference's ``utils/sync``
-  debug modes are not ported).
+- the group lock is ``utils/sync``'s ``Mutex()`` and the three
+  ``verify_commit*`` functions note the trust guard's validators, as in
+  the reference.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ from cometbft_tpu_torch.types.block import BlockID, Commit
 from cometbft_tpu_torch.types.validator import ValidatorSet
 from cometbft_tpu_torch.utils.flight import FLIGHT
 from cometbft_tpu_torch.utils.trace import TRACER as _tracer
+from cometbft_tpu_torch.utils import sync as cmtsync
+from cometbft_tpu_torch.utils import trustguard
 
 
 class CommitError(Exception):
@@ -197,7 +200,7 @@ def _verify(
     # blocksync prefetch skip the launch entirely — a fully speculated
     # commit performs ZERO new launches.  Fall-back is strict: cache
     # misses run the exact batch/serial verify below.
-    spec_mtx = threading.Lock()
+    spec_mtx = cmtsync.Mutex()
     spec = {"hits": 0, "misses": 0, "tier": None}
     # serving-plane lane (crypto/verify_queue.submission_lane):
     # captured ONCE here because groups may run on executor threads
@@ -398,6 +401,7 @@ def verify_commit(
         lookup_by_address=False,
         device=device,
     )
+    trustguard.note_validated("verify_commit")
 
 
 def verify_commit_light(
@@ -428,6 +432,7 @@ def verify_commit_light(
         lookup_by_address=False,
         device=device,
     )
+    trustguard.note_validated("verify_commit_light")
 
 
 def check_trust_level(trust_level: Fraction) -> None:
@@ -470,3 +475,4 @@ def verify_commit_light_trusting(
         lookup_by_address=True,
         device=device,
     )
+    trustguard.note_validated("verify_commit_light_trusting")

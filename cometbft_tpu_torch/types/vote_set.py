@@ -4,9 +4,10 @@ cometbft_tpu/types/vote_set.py; reference types/vote_set.go).
 Tracks which validators voted for which BlockID, detects +2/3
 majorities, and surfaces conflicting votes as equivocation evidence.
 Thread-safe: the consensus state machine and gossip goroutines both
-read it.  Its lock is a ``threading.Lock``: the reference's
-``utils/sync`` debug modes (lock-order, deadlock and race checks) are
-not ported yet.
+read it.  Its lock is ``utils/sync``'s ``Mutex()`` and the class is
+``@guarded`` (the lock-order, deadlock and race modes, armed by
+``sync.configure``); ``add_vote`` is a trust-guard sink and ``_verify``
+a validator (``utils/trustguard``), as in the reference.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from cometbft_tpu_torch.types.canonical import PRECOMMIT_TYPE, PREVOTE_TYPE
 from cometbft_tpu_torch.types.validator import ValidatorSet
 from cometbft_tpu_torch.types.vote import Vote
 from cometbft_tpu_torch.utils.bit_array import BitArray
+from cometbft_tpu_torch.utils import sync as cmtsync
+from cometbft_tpu_torch.utils import trustguard
 
 
 class VoteSetError(Exception):
@@ -49,7 +52,17 @@ class _BlockVotes:
     sum: int
 
 
+@cmtsync.guarded
 class VoteSet:
+
+    _GUARDED_BY = {
+        "_votes_bit_array": "_mtx",
+        "_votes": "_mtx",
+        "_sum": "_mtx",
+        "_maj23": "_mtx",
+        "_votes_by_block": "_mtx",
+        "_peer_maj23s": "_mtx",
+    }
     def __init__(
         self,
         chain_id: str,
@@ -69,7 +82,7 @@ class VoteSet:
         self.extensions_enabled = extensions_enabled
         # guards _votes_bit_array, _votes, _sum, _maj23, _votes_by_block
         # and _peer_maj23s
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         n = len(val_set)
         self._votes_bit_array = BitArray(n)
         self._votes: list[Vote | None] = [None] * n
@@ -121,6 +134,7 @@ class VoteSet:
                 raise ConflictingVoteError(existing, vote)
 
         self._verify(vote, val.pub_key)
+        trustguard.check_sink("vote_set.add_vote")
 
         if existing is None:
             self._votes[val_idx] = vote
@@ -191,11 +205,13 @@ class VoteSet:
                 raise VoteSetError(
                     "vote extension on a nil vote or prevote"
                 )
+            trustguard.note_validated("VoteSet._verify")
             return
         if not vote.extension_signature:
             raise VoteSetError("missing vote extension signature")
         if not results[1]:
             raise VoteSetError("invalid vote extension signature")
+        trustguard.note_validated("VoteSet._verify")
 
     def set_peer_maj23(self, peer_id: str, block_id: BlockID) -> None:
         """A peer claims +2/3 for block_id (anti-entropy, vote_set.go:

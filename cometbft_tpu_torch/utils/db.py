@@ -24,6 +24,8 @@ import sqlite3
 import threading
 from typing import Iterator
 
+from cometbft_tpu_torch.utils import sync as cmtsync
+
 
 class DBError(Exception):
     pass
@@ -87,7 +89,7 @@ class MemDB(DB):
     """Sorted in-memory backend (cometbft-db memdb)."""
 
     def __init__(self):
-        self._mtx = threading.RLock()
+        self._mtx = cmtsync.RMutex()
         self._keys: list[bytes] = []
         self._data: dict[bytes, bytes] = {}
 
@@ -156,7 +158,7 @@ class SQLiteDB(DB):
         self._path = path
         self._local = threading.local()
         self._conns: list[sqlite3.Connection] = []
-        self._conns_mtx = threading.Lock()
+        self._conns_mtx = cmtsync.Mutex()
         conn = self._conn()
         with conn:
             conn.execute(

@@ -6,8 +6,7 @@ tx.height > 5"); published messages carry a map of composite-keyed
 event attributes the queries match against.  Feeds WebSocket
 subscribers and the tx/block indexers.
 
-The server locks with ``threading.RLock`` (the reference's
-``utils/sync`` debug modes are not ported).
+The server locks with ``utils/sync``'s ``RMutex()``.
 """
 
 from __future__ import annotations
@@ -17,6 +16,8 @@ import re
 import threading
 from dataclasses import dataclass, field
 from typing import Any
+
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 
 class PubSubError(Exception):
@@ -225,7 +226,7 @@ class Server:
     this module depending on the metrics plane."""
 
     def __init__(self, capacity: int = 100, on_drop=None):
-        self._mtx = threading.RLock()
+        self._mtx = cmtsync.RMutex()
         self._capacity = capacity
         self._on_drop = on_drop
         self._subs: dict[tuple[str, Query], Subscription] = {}

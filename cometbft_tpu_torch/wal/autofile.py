@@ -6,10 +6,7 @@ The WAL sits on a ``Group``: an append head file plus rotated chunks
 rotation renames it to the next index.  Readers iterate chunks in index
 order then the head, so a record stream spans rotations transparently.
 A total-size limit prunes the oldest chunks (group.go checkTotalSizeLimit).
-
-Where the port departs from its reference: the lock is a
-``threading.Lock`` (the reference's ``utils/sync`` debug modes are not
-ported).
+Its lock is ``utils/sync``'s ``Mutex()``.
 """
 
 from __future__ import annotations
@@ -17,6 +14,7 @@ from __future__ import annotations
 import os
 import re
 import threading
+from cometbft_tpu_torch.utils import sync as cmtsync
 
 DEFAULT_HEAD_SIZE_LIMIT = 10 * 1024 * 1024  # group.go:26
 DEFAULT_TOTAL_SIZE_LIMIT = 1024 * 1024 * 1024  # group.go:27
@@ -32,7 +30,7 @@ class Group:
         self.head_path = head_path
         self.head_size_limit = head_size_limit
         self.total_size_limit = total_size_limit
-        self._mtx = threading.Lock()
+        self._mtx = cmtsync.Mutex()
         os.makedirs(os.path.dirname(head_path) or ".", exist_ok=True)
         self._head = open(head_path, "ab")
         self._min_index, self._max_index = self._scan_indexes()

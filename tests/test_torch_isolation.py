@@ -59,7 +59,9 @@ _CHILD = textwrap.dedent(
                  "consensus.reactor", "mempool.reactor", "evidence", "evidence.pool",
                  "evidence.reactor", "consensus.byz", "wal.autofile", "state.determinism",
                  "statesync", "statesync.messages", "statesync.reactor",
-                 "statesync.stateprovider", "statesync.syncer"):
+                 "statesync.stateprovider", "statesync.syncer", "utils.sync",
+                 "utils.trustguard", "utils.critpath", "utils.fleetobs", "p2p.conn.netem",
+                 "p2p.pex", "p2p.pex.addrbook", "p2p.pex.reactor"):
         assert "cometbft_tpu_torch." + name in sys.modules, name
     leaked = sorted(m for m in sys.modules
                     if m == "cometbft_tpu" or m.startswith("cometbft_tpu."))

@@ -488,7 +488,9 @@ def test_blocksync_on_the_card(dev, monkeypatch):
     build_tables, sha512_keyed and verify_keyed, and verify_keyed at a
     prefetch batch's shape against its plain version; then statesync: a
     fresh node restores the chain from the source app's snapshot at 18
-    and blocksyncs the last 6 heights."""
+    and blocksyncs the last 6 heights; then pex-wan at 12 heights (half
+    the chain): a node given only a seed's address syncs over the
+    emulated WAN link with the lock modes and the trust guard armed."""
     import chip_smoke
     from cometbft_tpu_torch import metrics as M
     from cometbft_tpu_torch.crypto import dispatch as D
@@ -508,6 +510,7 @@ def test_blocksync_on_the_card(dev, monkeypatch):
     assert res["prefetch_check"]["err"] == 0
     assert res["s"]["snapshot"] == 18 and res["s"]["backfilled"] == 6
     assert res["s"]["restore_launches"]["verify_keyed"] >= 1
+    assert res["d"]["launches"]["verify_keyed"] >= 1 and not res["d"]["raised"]
 
 
 def test_mesh_on_repeated_shards_equals_keyed(dev, monkeypatch):

@@ -714,6 +714,89 @@ def test_mconnection_refuses_an_unknown_channel_and_dies_on_eof():
     s2.close()
 
 
+@pytest.mark.parametrize("n", [1, 40])
+def test_flush_then_stop_delivers_every_byte(n):
+    """A port MConnection's channel holds ``n`` queued messages; after
+    flush() returns True the connection is stopped at once, and the
+    reference peer has still received every byte."""
+    s1, s2 = socket.socketpair()
+    got = []
+    m1, m2 = _mconn(PORT, s1, [(0x01, 1)], []), _mconn(REF, s2, [(0x01, 1)], got)
+    g = rng(17)
+    msgs = [g.bytes(3000) for _ in range(n)]
+    m2.start()
+    m1.start()
+    try:
+        for msg in msgs:
+            assert m1.send(0x01, msg)
+        assert m1.flush(WAIT)
+        m1.stop()
+        assert wait_for(lambda: len(got) == n)
+        assert got == [(0x01, msg) for msg in msgs]
+    finally:
+        if m1.is_running():
+            m1.stop()
+        m2.stop()
+
+
+def test_flush_sees_a_packet_taken_between_its_reads():
+    """The send routine takes the last packet while flush() looks at the
+    channels, and its write is held: flush() must not report the bytes
+    written while they sit in the routine's buffer.  The connection is
+    stopped as soon as flush() returns, and the peer must hold the
+    message."""
+    s1, s2 = socket.socketpair()
+    got = []
+    m1, m2 = _mconn(PORT, s1, [(0x01, 1)], []), _mconn(REF, s2, [(0x01, 1)], got)
+    ch = m1.channels[0x01]
+    release, taken, write_ok = threading.Event(), threading.Event(), threading.Event()
+    select, take, write, real_pending = (m1._select_channel, ch.next_packet, m1.conn.write,
+                                         ch.is_send_pending)
+    flusher = threading.current_thread()
+    looks = []
+
+    def gated_select():
+        release.wait(WAIT)
+        return select()
+
+    def took(max_payload):
+        out = take(max_payload)
+        taken.set()
+        return out
+
+    def held_write(b):
+        write_ok.wait(WAIT)
+        return write(b)
+
+    def pending():
+        if threading.current_thread() is flusher:
+            looks.append(1)
+            if len(looks) == 1:
+                release.set()       # the routine takes the packet now
+                assert taken.wait(WAIT)
+            else:
+                write_ok.set()      # flush() looked again: let the bytes out
+        return real_pending()
+
+    m1._select_channel, ch.next_packet, m1.conn.write = gated_select, took, held_write
+    ch.is_send_pending = pending
+    msg = rng(18).bytes(100)
+    m2.start()
+    m1.start()
+    try:
+        assert m1.send(0x01, msg)
+        assert m1.flush(WAIT)
+        m1.stop()
+        write_ok.set()
+        assert wait_for(lambda: got, timeout=2.0)
+        assert got == [(0x01, msg)] and len(looks) >= 2
+    finally:
+        write_ok.set()
+        if m1.is_running():
+            m1.stop()
+        m2.stop()
+
+
 # -- switches over TCP ---------------------------------------------------------
 
 def _echo_reactor(side):
@@ -803,7 +886,14 @@ def test_disconnect_is_seen_on_both_sides(stopped):
     (sa, ra), (sb, rb) = _switch(PORT), _switch(REF)
     try:
         ptest_util.connect_switches(sa, sb)
-        assert wait_for(lambda: all(p.is_running() for p in sa.peers.copy() + sb.peers.copy()))
+        # running, and past the add->start window: a service reads as
+        # running before its on_start has started the connection's
+        # threads, and the reference's stop() raises in that window (its
+        # switch.py:353-355; test_stop_with_a_peer_between_add_and_start)
+        assert wait_for(lambda: all(
+            p.is_running() and p.mconn._recv_thread is not None
+            and p.mconn._recv_thread.ident is not None
+            for p in sa.peers.copy() + sb.peers.copy()))
         gone, stays, r_stays = (sa, sb, rb) if stopped == "port" else (sb, sa, ra)
         gone_id = gone.node_info().node_id
         gone.stop()
