@@ -216,7 +216,25 @@ Phases, each of which fails the run (non-zero exit) on any mismatch:
    verify_commit; the launches, keys built, spec-cache hits and misses,
    tiers and busy share; (b2) must launch sha512_keyed and verify_keyed
    at every height from 2 on and build_tables, all on the keyed tier,
-   (b1) must hit the cache and launch no verify;
+   (b1) must hit the cache and launch no verify; (w), a crash and the
+   WAL's replay; (r) commit150-remote, (b2)'s configuration with the
+   app and the signer out of process: the port's KVStoreApp behind
+   ``abci.grammar.RecordingApp`` in a child served by the port's
+   SocketServer (its Commit retaining the last CS_RETAIN heights), the
+   validator's key in a second child, ``python -m
+   cometbft_tpu_torch.privval.signer``, dialling the node's
+   ``SignerListenerEndpoint``; the node reaches the app through
+   ``proxy.default_client_creator`` (four sockets) and signs through a
+   ``SignerClient``, runs the IndexerService and a Pruner with the
+   trust guard armed, and takes CS_REMOTE_TXS signed txs before height
+   2; per height the wall and add_vote's p50 beside (b2)'s, each ABCI
+   method's and each signing round trip's p50/max; it must commit
+   every tx once, find each by hash and by ``tx.height``, match the
+   app's Info, pass ``check_grammar`` on the app's record, leave
+   nothing below the pruner's retain height, count no trust-guard trip
+   and the same signatures on both ends, and, once the app is killed,
+   fire ``on_error`` within CS_APP_ERROR_S and stop consensus; then the
+   same over gRPC for CS_GRPC_HEIGHTS heights;
 18. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -5528,7 +5546,7 @@ def bs_print(name: str, depth: int, cold: bool, r: dict, heights: int, nval: int
 CS_CHAIN_ID = "chip-smoke-consensus"
 CS_T0 = 1_760_000_000_000_000_000
 CS_NODES = 4                # localnet4: validators at power 10, fully meshed
-CS_TXS = 1024               # localnet4: signed txs sent to node 0
+CS_TXS = 512                # localnet4: signed txs sent to node 0
 CS_CLIENTS = 32             # localnet4: client threads sending them
 CS_MIN_HEIGHTS = 12         # localnet4: at least this many heights
 CS_STUBS = 149              # commit150-consensus: stub validators beside the node
@@ -5539,6 +5557,67 @@ CS_WAL_CRASH_AT = 3         # (w): the height the node is stopped in
 CS_WAL_COMMIT_NS = 100 * 10**6  # (w): its commit timeout
 CS_STEP_NAMES = ("NewHeight", "NewRound", "Propose", "Prevote", "PrevoteWait", "Precommit",
                  "PrecommitWait", "Commit")
+CS_REMOTE_TXS = 256         # (r): signed txs sent to the node's mempool before height 2
+CS_RETAIN = 4               # (r): the app's Commit asks to retain the last CS_RETAIN heights
+CS_PRUNE_S = 0.2            # (r): the pruner's interval
+CS_GRPC_HEIGHTS = 3         # (r) over gRPC: heights
+CS_CHILD_S = 60.0           # (r): bound on a child's start and on the signer's dial-in
+CS_APP_ERROR_S = 5.0        # (r): bound on on_error after the app child is killed
+
+#: (r)'s app process: ``python -c APP_CHILD TRANSPORT ADDR RECORD RETAIN``.
+#: The port's KVStoreApp behind ``abci.grammar.RecordingApp``, served by
+#: the port's SocketServer ("socket") or GrpcServer ("grpc"); its Commit
+#: asks to retain the last RETAIN heights, as the retain_blocks setting
+#: of CometBFT's e2e app does.  It prints {"addr": ...} once it listens,
+#: writes the recorded calls to RECORD at every Commit and on SIGTERM,
+#: and then prints its height and app hash.  It is host code: it never
+#: imports torch, so it cannot touch the card.
+APP_CHILD = """
+import json, os, signal, sys, threading
+from cometbft_tpu_torch.abci.grammar import RecordingApp
+from cometbft_tpu_torch.abci.kvstore import KVStoreApp
+from cometbft_tpu_torch.abci.types import CommitResponse
+
+transport, addr, record, retain = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+
+
+def dump():
+    with rec._mtx:
+        calls = list(rec.calls)
+    with open(record + ".tmp", "w") as f:
+        json.dump(calls, f)
+    os.replace(record + ".tmp", record)
+
+
+class RetainApp(KVStoreApp):
+    def commit(self):
+        super().commit()
+        dump()
+        return CommitResponse(retain_height=max(self.height - retain, 0))
+
+
+rec = RecordingApp(RetainApp())
+if transport == "grpc":
+    from cometbft_tpu_torch.abci.grpc import GrpcServer
+    srv = GrpcServer(rec, addr)
+    listen = "grpc://127.0.0.1:%d" % srv.port
+else:
+    from cometbft_tpu_torch.abci.server import SocketServer
+    srv = SocketServer(addr, rec)
+srv.start()
+if transport != "grpc":
+    listen = srv.listen_addr
+if "torch" in sys.modules:
+    raise SystemExit("the app process imported torch")
+stop = threading.Event()
+signal.signal(signal.SIGTERM, lambda *a: stop.set())
+print(json.dumps({"addr": listen}), flush=True)
+while not stop.wait(0.5):
+    pass
+srv.stop()
+dump()
+print(json.dumps({"height": rec.inner.height, "app_hash": rec.inner.app_hash.hex()}), flush=True)
+"""
 
 
 class ErrorLines:
@@ -5592,9 +5671,187 @@ def cs_txs(n: int, rs) -> list[bytes]:
             in zip(keys, payloads)]
 
 
+def spawn_child(args: list, log_path: str) -> subprocess.Popen:
+    """A child process running ``python`` with ``args`` from the repo's
+    root, in a session of its own (so a signal reaches all of it), its
+    stdout piped back and its stderr to ``log_path``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with open(log_path, "w") as err:
+        return subprocess.Popen([sys.executable, *args], cwd=root, env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=err, start_new_session=True)
+
+
+def child_line(p: subprocess.Popen, timeout: float, what: str) -> dict:
+    """The next line a child prints, as JSON, within ``timeout`` s."""
+    import select
+
+    ready, _, _ = select.select([p.stdout], [], [], timeout)
+    line = p.stdout.readline() if ready else ""
+    if not line:
+        raise AssertionError(f"{what}: no line within {timeout} s (exit code {p.poll()})")
+    return json.loads(line)
+
+
+def stop_child(p: subprocess.Popen, what: str, sig: int = signal.SIGTERM) -> str:
+    """Sends ``sig`` to the child's session, waits (bounded), then
+    SIGKILL; -> what it printed.  Fails if it is still alive."""
+    if p.poll() is None:
+        os.killpg(p.pid, sig)
+    try:
+        out, _ = p.communicate(timeout=10)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, _ = p.communicate(timeout=5)
+    if p.poll() is None:
+        raise AssertionError(f"{what}: still alive after SIGKILL")
+    return out or ""
+
+
+class TimedSigner:
+    """(r)'s priv_validator: a ``privval.signer.SignerClient`` whose
+    sign_vote and sign_proposal round trips are counted and timed (s)."""
+
+    def __init__(self, client) -> None:
+        self.client, self.votes, self.proposals = client, [], []
+
+    @property
+    def pub_key(self):
+        return self.client.pub_key
+
+    @property
+    def address(self) -> bytes:
+        return self.client.address
+
+    def get_pub_key(self):
+        return self.client.pub_key
+
+    def sign_vote(self, chain_id: str, vote, with_extension: bool = False):
+        t = time.perf_counter()
+        out = self.client.sign_vote(chain_id, vote, with_extension=with_extension)
+        self.votes.append(time.perf_counter() - t)
+        return out
+
+    def sign_proposal(self, chain_id: str, proposal):
+        t = time.perf_counter()
+        out = self.client.sign_proposal(chain_id, proposal)
+        self.proposals.append(time.perf_counter() - t)
+        return out
+
+
+def first_proposer_key(stub_pubs: list):
+    """A validator key whose address is below every stub's: at equal
+    power the lowest address proposes height 1 (types/validator.py), so
+    (r)'s node signs a proposal through its signer."""
+    from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey, priv_key_from_secret
+
+    low = min(Ed25519PubKey(p).address() for p in stub_pubs)
+    for i in range(100000):
+        key = priv_key_from_secret(b"smoke-remote-node-%d" % i)
+        if key.pub_key().address() < low:
+            return key
+    raise AssertionError("no key below the stubs' addresses")
+
+
+def index_checker(node: dict, stop: threading.Event, out: dict) -> threading.Thread:
+    """(r)'s index check, on a thread of its own: for each NewBlock on
+    the node's bus, waits (bounded) until the IndexerService has indexed
+    the block, then every tx is found by hash with its height, index and
+    FinalizeBlock result, and ``tx.height=H`` finds exactly block H's
+    txs.  Records (height, txs) in ``out["checked"]``, each failure in
+    ``out["failed"]``, block H's tx hashes in ``out["txs"][H]`` and the
+    signatures present and round of its LastCommit in
+    ``out["last_commits"][H - 1]`` (the pruner removes the stored
+    commits below its retain height while the run goes on)."""
+    from cometbft_tpu_torch.types.block import tx_hash
+    from cometbft_tpu_torch.types.event_bus import EVENT_QUERY_NEW_BLOCK
+
+    sub = node["bus"].subscribe("smoke-index-check", EVENT_QUERY_NEW_BLOCK, capacity=1000)
+    txi, db = node["tx_indexer"], node["index_db"]
+
+    def check(data) -> None:
+        h, txs = data.block.header.height, list(data.block.data.txs)
+        results = data.result_finalize_block.tx_results
+        hashes = [tx_hash(tx) for tx in txs]
+        deadline = time.perf_counter() + 10.0
+        while (db.get(b"blk/height/" + h.to_bytes(8, "big")) is None
+               or any(txi.get(x) is None for x in hashes)):
+            if time.perf_counter() > deadline:
+                out["failed"].append((h, "not indexed within 10 s"))
+                return
+            time.sleep(0.005)
+        for i, (tx, x, want) in enumerate(zip(txs, hashes, results)):
+            got = txi.get(x)
+            r = got["result"]
+            if (got["height"], got["index"], got["tx"]) != (h, i, tx) or (
+                    r.code, r.data, r.log, r.gas_wanted, r.gas_used, r.events) != (
+                    want.code, want.data, want.log, want.gas_wanted, want.gas_used,
+                    tuple(want.events)):
+                out["failed"].append((h, f"tx {i} indexed as {got['height']}/{got['index']}"))
+        found = {tx_hash(e["tx"]) for e in txi.search(f"tx.height = {h}", limit=1 << 20)}
+        if found != set(hashes):
+            out["failed"].append((h, f"tx.height={h} found {len(found)} of {len(hashes)}"))
+        out["checked"].append((h, len(txs)))
+        out["txs"][h] = hashes
+        if h > 1:
+            lc = data.block.last_commit
+            out["last_commits"][h - 1] = (sum(1 for c in lc.signatures if not c.is_absent()),
+                                          lc.round)
+
+    def run() -> None:
+        while not stop.is_set():
+            try:
+                msg = sub.next(timeout=0.05)
+            except TimeoutError:
+                continue
+            check(msg.data)
+
+    t = threading.Thread(target=run, name="smoke-index-check")
+    t.start()
+    return t
+
+
+def check_pruned(name: str, node: dict, retain: int, dev) -> dict:
+    """(r)'s pruning check after the pruner's last run: nothing below
+    ``retain`` in the block store, the state store's sets, params and
+    FinalizeBlock responses, or either index; the top commit verifies.
+    -> the counts pruned."""
+    from cometbft_tpu_torch.state import _ABCI_RESP, _PARAMS, _VALS, _hkey
+    from cometbft_tpu_torch.types.validation import verify_commit
+
+    blocks, states, db = node["block_store"], node["state_store"], node["index_db"]
+    deadline = time.perf_counter() + 10.0
+    while blocks.base() < retain and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    node["pruner"].stop()
+    left = []
+    if retain > 1 and blocks.base() != retain:
+        left.append(f"block store base {blocks.base()}")
+    left += [f"block {h}" for h in range(1, retain)
+             if blocks.load_block_meta(h) is not None or blocks.load_seen_commit(h) is not None]
+    for prefix in (_VALS, _PARAMS, _ABCI_RESP):
+        left += [repr(k) for k, _ in states._db.iterator(prefix, _hkey(prefix, retain))]
+    # the indexes' keys end in the height (8 bytes), then a tx's index (4)
+    txi, below = node["tx_indexer"], lambda k, end: int.from_bytes(k[end - 8:end], "big") < retain
+    left += [f"tx index row {k!r}" for k, _ in db.prefix_iterator(b"txh/") if below(k, 12)]
+    left += [f"tx event key {k!r}" for k, _ in db.prefix_iterator(b"txk/") if below(k, len(k) - 4)]
+    left += [f"block event key {k!r}" for k, _ in db.prefix_iterator(b"blk/") if below(k, len(k))]
+    left += [f"tx result {k[3:].hex()}" for k, _ in db.prefix_iterator(b"tx/")
+             if txi.get(k[3:])["height"] < retain]
+    if left:
+        raise AssertionError(f"{name}: below the retain height {retain}: {left[:8]}")
+    top = blocks.height()
+    verify_commit(node["cs"].state.chain_id, node["cs"].state.last_validators,
+                  blocks.load_block_meta(top).block_id, top, blocks.load_seen_commit(top),
+                  device=dev)
+    return dict(retain=retain, base=blocks.base(), top=top,
+                pruned_blocks=plain_value(node["registry"], "cometbft_state_pruned_blocks"))
+
+
 def cs_node(dev, gen, pv, config, dirname: str | None, logger, switch: bool = True,
             moniker: str = "node", wal=None, determinism: bool = False,
-            evidence: bool = False) -> dict:
+            evidence: bool = False, proxy_app: str | None = None,
+            prune_s: float | None = None) -> dict:
     """A consensus node as the reference's Node assembles one: block and
     state stores (sqlite in ``dirname``, else MemDBs), a KVStoreApp over a
     MemDB through the local proxy, an EventBus, a CListMempool with the
@@ -5606,7 +5863,15 @@ def cs_node(dev, gen, pv, config, dirname: str | None, logger, switch: bool = Tr
     ``wal``: the consensus WAL (a started ``wal.WAL``; else the NopWAL),
     ``determinism``: the executor's and Handshaker's digest guard,
     ``evidence``: an evidence ``Pool`` over a MemDB in the executor, and
-    the app's FinalizeBlock misbehavior types kept in ``misbehavior``."""
+    the app's FinalizeBlock misbehavior types kept in ``misbehavior``.
+    ``proxy_app``: an external app's address (``tcp://``, ``unix://`` or
+    ``grpc://``) for ``proxy.default_client_creator`` in place of the
+    in-process KVStoreApp (``app`` None); the first app error is kept in
+    ``app_error`` as (perf_counter s, error) and stops consensus, as the
+    reference node's ``_stop_for_app_error`` stops the node.
+    ``prune_s``: an ``IndexerService`` with a ``TxIndexer`` and a
+    ``BlockIndexer`` over one MemDB (``index_db``) on the bus, and a
+    ``Pruner`` with that interval wired as the executor's ``pruner``."""
     from cometbft_tpu_torch import metrics as M
     from cometbft_tpu_torch.abci.kvstore import KVStoreApp
     from cometbft_tpu_torch.consensus import ConsensusState, Handshaker
@@ -5614,7 +5879,8 @@ def cs_node(dev, gen, pv, config, dirname: str | None, logger, switch: bool = Tr
     from cometbft_tpu_torch.mempool import CListMempool, post_check_max_gas, pre_check_max_bytes
     from cometbft_tpu_torch.mempool.reactor import MempoolReactor
     from cometbft_tpu_torch.p2p.test_util import make_switch
-    from cometbft_tpu_torch.proxy import local_client_creator, new_app_conns
+    from cometbft_tpu_torch.proxy import (default_client_creator, local_client_creator,
+                                          new_app_conns)
     from cometbft_tpu_torch.state import Store, load_state_from_db_or_genesis
     from cometbft_tpu_torch.state.execution import BlockExecutor
     from cometbft_tpu_torch.store import BlockStore
@@ -5629,7 +5895,8 @@ def cs_node(dev, gen, pv, config, dirname: str | None, logger, switch: bool = Tr
         dbs = (MemDB(), MemDB())
         block_store, state_store = BlockStore(dbs[0]), Store(dbs[1])
     n = dict(block_store=block_store, state_store=state_store, dbs=dbs, registry=Registry(),
-             app=KVStoreApp(MemDB()), bus=EventBus(), services=[], misbehavior=[], pool=None)
+             app=None if proxy_app else KVStoreApp(MemDB()), bus=EventBus(), services=[],
+             misbehavior=[], pool=None, app_error=None)
     if evidence:
         from cometbft_tpu_torch.evidence import Pool
 
@@ -5642,11 +5909,32 @@ def cs_node(dev, gen, pv, config, dirname: str | None, logger, switch: bool = Tr
             return finalize(req)
 
         n["app"].finalize_block = finalize_block
-    n["conns"] = new_app_conns(local_client_creator(n["app"]))
+    if proxy_app:
+        n["conns"] = new_app_conns(default_client_creator(proxy_app),
+                                   metrics=M.ProxyMetrics(n["registry"]))
+
+        def stop_for_app_error(exc) -> None:
+            n["app_error"] = (time.perf_counter(), exc)
+            if "cs" in n and n["cs"].is_running():
+                n["cs"].stop()
+
+        n["conns"].set_on_error(stop_for_app_error)
+    else:
+        n["conns"] = new_app_conns(local_client_creator(n["app"]))
     try:
         for svc in (n["conns"], n["bus"]):
             svc.start()
             n["services"].append(svc)
+        if prune_s is not None:
+            from cometbft_tpu_torch.state.txindex import BlockIndexer, IndexerService, TxIndexer
+
+            n["index_db"] = MemDB()
+            n["tx_indexer"], n["block_indexer"] = TxIndexer(n["index_db"]), BlockIndexer(
+                n["index_db"])
+            indexer = IndexerService(n["tx_indexer"], n["block_indexer"], n["bus"],
+                                     logger=NopLogger())
+            indexer.start()
+            n["services"].append(indexer)
         state = load_state_from_db_or_genesis(state_store, gen)
         mc = config.mempool
         n["mempool"] = CListMempool(
@@ -5661,6 +5949,15 @@ def cs_node(dev, gen, pv, config, dirname: str | None, logger, switch: bool = Tr
                                   device=dev, determinism=determinism)
         n["state"] = Handshaker(state_store, state, block_store, gen, logger=NopLogger(),
                                 device=dev, determinism=determinism).handshake(n["conns"])
+        if prune_s is not None:
+            from cometbft_tpu_torch.state.pruner import Pruner
+
+            n["pruner"] = Pruner(state_store, block_store, n["tx_indexer"], n["block_indexer"],
+                                 interval_s=prune_s, metrics=n["exec"].metrics,
+                                 logger=NopLogger())
+            n["exec"].pruner = n["pruner"]
+            n["pruner"].start()
+            n["services"].append(n["pruner"])
         max_bytes = n["state"].consensus_params.block.max_bytes
         n["mempool"].pre_check = pre_check_max_bytes(max_bytes if max_bytes > 0 else 104857600)
         n["mempool"].post_check = post_check_max_gas(n["state"].consensus_params.block.max_gas)
@@ -5738,6 +6035,15 @@ def cs_steps(events: list) -> dict:
         d = [e["dur"] / 1e6 for e in events if e["name"] == f"consensus/{step}"]
         if d:
             out[step] = (pct(d, 50), max(d), len(d))
+    return out
+
+
+def spans_by_name(events: list, prefix: str) -> dict:
+    """name -> the seconds of each span whose name starts with ``prefix``."""
+    out: dict = {}
+    for e in events:
+        if e["name"].startswith(prefix):
+            out.setdefault(e["name"], []).append(e["dur"] / 1e6)
     return out
 
 
@@ -5936,9 +6242,129 @@ def cs_localnet(dev, smi: str, registry, nodes: int = CS_NODES, ntx: int = CS_TX
     return res
 
 
+def start_remote(rem: dict, transport: str, work: str, chain: str, key_path: str,
+                 state_path: str) -> None:
+    """(r)'s two children, recorded in ``rem`` as they start (the caller
+    stops them whatever happens): the app (``APP_CHILD``, on a
+    ``unix://`` socket in ``work`` or a ``grpc://`` port it picks) and,
+    once the node's ``SignerListenerEndpoint`` listens on 127.0.0.1, the
+    signer (``python -m cometbft_tpu_torch.privval.signer``) dialling it
+    with the validator's key and state files.  Fills ``addr`` (the app's),
+    ``endpoint`` (started, the signer connected), ``record`` (the app's
+    call record) and ``start_s``."""
+    from cometbft_tpu_torch.privval.signer import SignerListenerEndpoint
+
+    t0 = time.perf_counter()
+    rem["record"] = os.path.join(work, "app_calls.json")
+    # a unix socket in ``work`` unless its path is too long for one
+    sock = os.path.join(work, "app.sock")
+    listen = ("127.0.0.1:0" if transport == "grpc" else
+              "unix://" + sock if len(sock) < 100 else "tcp://127.0.0.1:0")
+    rem["app"] = spawn_child(["-c", APP_CHILD, transport, listen, rem["record"], str(CS_RETAIN)],
+                             os.path.join(work, "app.log"))
+    rem["addr"] = child_line(rem["app"], CS_CHILD_S, "the app process")["addr"]
+    rem["endpoint"] = SignerListenerEndpoint("tcp://127.0.0.1:0", chain,
+                                             accept_timeout=CS_CHILD_S)
+    rem["endpoint"].start()
+    rem["signer"] = spawn_child(
+        ["-m", "cometbft_tpu_torch.privval.signer", "--key", key_path, "--state", state_path,
+         "--addr", rem["endpoint"].listen_addr, "--chain-id", chain],
+        os.path.join(work, "signer.log"))
+    if not rem["endpoint"].wait_for_signer(CS_CHILD_S):
+        raise AssertionError(f"the signer did not dial in within {CS_CHILD_S} s "
+                             f"(exit code {rem['signer'].poll()})")
+    rem["start_s"] = time.perf_counter() - t0
+
+
+def stop_remote(rem: dict) -> None:
+    """Stops whatever of ``rem``'s children and endpoint is still up."""
+    for key in ("app", "signer"):
+        if key in rem and rem[key].poll() is None:
+            stop_child(rem[key], f"the {key} process")
+    if "endpoint" in rem:
+        rem["endpoint"].stop()
+
+
+def end_remote(name: str, node: dict, rem: dict, pv: TimedSigner, checked: dict,
+               sent: list, errors: ErrorLines, dev) -> dict:
+    """(r)'s end, with consensus still running: the node's app hash
+    against the app's Info; the app killed with SIGKILL and one CheckTx
+    sent, so ``on_error`` must fire within CS_APP_ERROR_S and stop
+    consensus; the app's recorded calls through ``check_grammar``; each
+    sent tx committed once and found in the index (``index_checker``);
+    the pruned stores and indexes (``check_pruned``); the signer's own
+    counts against the node's.  -> the figures it printed from."""
+    from cometbft_tpu_torch.abci.grammar import check_grammar
+    from cometbft_tpu_torch.abci.types import InfoRequest
+    from cometbft_tpu_torch.types.block import tx_hash
+
+    cs = node["cs"]
+    info = node["conns"].query.info(InfoRequest())
+    if (info.last_block_height, info.last_block_app_hash) != (cs.state.last_block_height,
+                                                             cs.state.app_hash):
+        raise AssertionError(f"{name}: the app's Info {info.last_block_height} "
+                             f"{info.last_block_app_hash.hex()} != the node's "
+                             f"{cs.state.last_block_height} {cs.state.app_hash.hex()}")
+    if errors.lines:
+        raise AssertionError(f"{name}: consensus errors logged: {errors.lines[:5]}")
+    t_kill = time.perf_counter()
+    stop_child(rem["app"], "the app process", signal.SIGKILL)
+    try:
+        node["mempool"].check_tx(b"smoke-after-kill=1")
+        probe = "accepted"
+    except Exception as exc:  # noqa: BLE001 -- the dead app's error, recorded
+        probe = type(exc).__name__
+    deadline = t_kill + CS_APP_ERROR_S
+    while (node["app_error"] is None or cs.is_running()) and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    if node["app_error"] is None or cs.is_running():
+        raise AssertionError(f"{name}: on_error {node['app_error']}, consensus running "
+                             f"{cs.is_running()} {CS_APP_ERROR_S} s after the app was killed")
+    out = dict(on_error_s=node["app_error"][0] - t_kill, app_error=repr(node["app_error"][1]),
+               probe=probe, errors_after_kill=len(errors.lines))
+    errors.lines.clear()
+    with open(rem["record"]) as f:
+        calls = [tuple(c) for c in json.load(f)]
+    check_grammar(calls, clean_start=True)
+    out["calls"] = len(calls)
+    committed = [x for h in sorted(checked["txs"]) for x in checked["txs"][h]]
+    want = sorted(tx_hash(tx) for tx in sent)
+    if sorted(committed) != want:
+        raise AssertionError(f"{name}: {len(committed)} txs committed ({len(set(committed))} "
+                             f"distinct) of the {len(sent)} sent; heights checked "
+                             f"{checked['checked']}, failed {checked['failed'][:3]}")
+    top = cs.state.last_block_height
+    if checked["failed"] or sorted(h for h, _ in checked["checked"]) != list(range(1, top + 1)):
+        raise AssertionError(f"{name}: index checks failed {checked['failed'][:5]}, heights "
+                             f"checked {sorted(h for h, _ in checked['checked'])}")
+    out["pruned"] = check_pruned(name, node, node["pruner"].effective_retain_height(), dev)
+    out["pruned"]["txs_unindexed"] = sum(len(checked["txs"][h]) for h in checked["txs"]
+                                         if h < out["pruned"]["retain"])
+    served = child_line_text(stop_child(rem["signer"], "the signer process"))["signer_served"]
+    want = {"vote": len(pv.votes), "proposal": len(pv.proposals)}
+    if {k: served.get(k, 0) for k in want} != want or served.get("refused"):
+        raise AssertionError(f"{name}: the signer served {served}, the node signed {want}")
+    out["served"] = served
+    out["trips"] = sum(float(line.rsplit(" ", 1)[1])
+                       for line in node["registry"].expose().splitlines()
+                       if line.startswith("cometbft_consensus_trust_guard_trips_total{"))
+    if out["trips"]:
+        raise AssertionError(f"{name}: {out['trips']} trust guard trips")
+    return out
+
+
+def child_line_text(text: str) -> dict:
+    """The last JSON line of a child's stdout."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError(f"no JSON line in the child's output {text[-500:]!r}")
+    return json.loads(lines[-1])
+
+
 def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
                 config=None, verifier_factory=None, timeout_s: float = 120.0,
-                equivocate_at: int | None = None) -> dict:
+                equivocate_at: int | None = None, remote: str | None = None,
+                work: str | None = None, ntx: int = CS_REMOTE_TXS) -> dict:
     """Run (b), commit-N through consensus: one port validator (a
     ``cs_node`` without a switch) and ``nstub`` stub validators at power
     10, driven by the reference's validator-stub pattern
@@ -5957,7 +6383,16 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
     (the stubs' come from the node's executor) carries it and the app is
     told of it; fails unless exactly one block carries it, the app gets
     exactly one MISBEHAVIOR_DUPLICATE_VOTE, and the pool's
-    ``committed_total`` reads 1."""
+    ``committed_total`` reads 1.
+
+    ``remote`` (r): the app and the signer run out of process
+    (``start_remote``, transport "socket" or "grpc", files in ``work``):
+    the node reaches the app through ``default_client_creator`` and signs
+    through a ``SignerClient`` (``TimedSigner``), whose key is chosen to
+    propose height 1; it runs the ``IndexerService`` and a ``Pruner``
+    (``cs_node(prune_s=CS_PRUNE_S)``) with the trust guard armed, and
+    ``ntx`` signed txs go to its mempool before it starts.  The run then
+    ends with ``end_remote``'s checks."""
     from dataclasses import replace as dc_replace
 
     from cometbft_tpu_torch import config as C
@@ -5966,6 +6401,7 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
     from cometbft_tpu_torch.crypto.ed25519 import Ed25519PubKey, priv_key_from_secret
     from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.privval import FilePV
+    from cometbft_tpu_torch.privval.signer import SignerClient
     from cometbft_tpu_torch.types import PRECOMMIT_TYPE, PREVOTE_TYPE, BlockID, Vote
     from cometbft_tpu_torch.types.event_bus import (EVENT_COMPLETE_PROPOSAL, EVENT_NEW_ROUND,
                                                     query_for_event)
@@ -5973,6 +6409,7 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
     from cometbft_tpu_torch.types.part_set import BLOCK_PART_SIZE_BYTES
     from cometbft_tpu_torch.types.vote import Proposal
     from cometbft_tpu_torch.utils import critpath as CP
+    from cometbft_tpu_torch.utils import trustguard
     from cometbft_tpu_torch.utils.log import Logger
     from cometbft_tpu_torch.utils.time import now_ns
     from cometbft_tpu_torch.utils.trace import TRACER
@@ -5981,11 +6418,24 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
     rs = np.random.RandomState(SEED + 2 * nstub + 1)
     signer = FastSigner(int.from_bytes(rs.bytes(32), "little"))
     stubs = scalar_keys(int.from_bytes(rs.bytes(32), "little"), nstub)
-    pv = FilePV(priv_key_from_secret(b"smoke-consensus-node"))
     chain = f"{CS_CHAIN_ID}-{nstub + 1}"
+    rem: dict = {}
+    if remote is None:
+        pv = FilePV(priv_key_from_secret(b"smoke-consensus-node"))
+        node_pub = pv.pub_key
+    else:
+        # the key's files are written here and read only by the signer
+        chain += f"-{remote}"
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        key = first_proposer_key([pub for _, pub in stubs])
+        key_files = (os.path.join(work, "pv_key.json"), os.path.join(work, "pv_state.json"))
+        FilePV(key, *key_files).save()
+        node_pub = key.pub_key()
+        sent = cs_txs(ntx, rs)
     gen = GenesisDoc(chain_id=chain, genesis_time_ns=CS_T0, validators=tuple(
         [GenesisValidator(Ed25519PubKey(pub), 10) for _, pub in stubs]
-        + [GenesisValidator(pv.pub_key, 10)]))
+        + [GenesisValidator(node_pub, 10)]))
     threads = live_threads()
     errors = ErrorLines()
     q = None
@@ -6006,10 +6456,27 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
         return d
 
     CP.observe_height = observed
+    checker, checked, checker_stop = None, None, threading.Event()
     try:
+        if remote is not None:
+            start_remote(rem, remote, work, chain, *key_files)
+            pv = TimedSigner(SignerClient(rem["endpoint"]))
+            trustguard.enable()
         node = cs_node(dev, gen, pv, config, None, Logger(sink=errors, level="error"),
-                       switch=False, evidence=equivocate_at is not None)
+                       switch=False, evidence=equivocate_at is not None,
+                       proxy_app=rem.get("addr"), prune_s=None if remote is None else CS_PRUNE_S)
         cs, ex, bus, blocks = node["cs"], node["exec"], node["bus"], node["block_store"]
+        if remote is not None:
+            trustguard.install_metrics(cs.metrics)
+            t = time.perf_counter()
+            for tx in sent:
+                resp = node["mempool"].check_tx(tx)
+                if resp.code != 0:
+                    raise AssertionError(f"{name}: CheckTx refused a sent tx: {resp}")
+            res.update(remote_start_s=rem["start_s"], admit_s=time.perf_counter() - t,
+                       ntx=len(sent))
+            checked = dict(checked=[], failed=[], txs={}, last_commits={})
+            checker = index_checker(node, checker_stop, checked)
         vals = cs.state.validators
         stub_idx = {}
         for a, pub in stubs:
@@ -6105,6 +6572,14 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
         res["tiers"] = delta(tier_counts(registry), tiers0)
         res["busy"] = busy_seconds(registry) - busy0
         res["stats"] = q.stats() if q is not None else None
+        if remote is not None:
+            checker_stop.set()
+            checker.join(15)
+            res["abci"] = {k[5:]: (pct(d, 50), max(d), len(d)) for k, d in spans_by_name(
+                events, "abci/").items()}
+            res["sign"] = {k: (pct(d, 50), max(d), len(d)) for k, d in (
+                ("sign_vote", pv.votes), ("sign_proposal", pv.proposals)) if d}
+            res["remote"] = end_remote(name, node, rem, pv, checked, sent, errors, dev)
         cs.stop()
         if equivocate_at is not None:
             res["evidence"] = cs_check_evidence(name, node, equivocate_at)
@@ -6117,19 +6592,30 @@ def cs_stub_run(dev, name: str, registry, nstub: int, heights: int, queue: bool,
               if e["name"] == "verify_commit" and e["args"].get("parent") == "exec/apply_block"}
         per: list = []
         for h in range(1, heights + 1):
-            commit = blocks.load_seen_commit(h)
-            present = sum(1 for s in commit.signatures if not s.is_absent())
+            if checked is not None and h in checked["last_commits"]:
+                present, rnd = checked["last_commits"][h]
+            else:
+                commit = blocks.load_seen_commit(h)
+                present, rnd = sum(1 for s in commit.signatures if not s.is_absent()), commit.round
             if present < need:
                 raise AssertionError(f"{name}: the commit of height {h} carries {present} "
                                      f"signatures, fewer than {need}")
             adds = [d for hh, d in add_vote_s if hh == h]
-            per.append(dict(height=h, sigs=present, round=commit.round, wall=pipe.get(h),
+            per.append(dict(height=h, sigs=present, round=rnd, wall=pipe.get(h),
                             add_vote_p50=pct(adds, 50) if adds else None, adds=len(adds),
                             apply=apply.get(h), verify_commit=vc.get(h)))
     finally:
         CP.observe_height = observe
+        checker_stop.set()
+        if checker is not None:
+            checker.join(15)
         if node is not None:
             cs_close(node)
+        stop_remote(rem)
+        if remote is not None:
+            trustguard.reset(enable=False)
+            trustguard.install_metrics(None)
+            shutil.rmtree(work, ignore_errors=True)
         if q is not None:
             q.stop()
         TRACER.set_capacity(ring)
@@ -6466,7 +6952,8 @@ def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS
     committed (``cs_stub_run``).  Then (w), crash and WAL replay
     (``cs_wal_run``): the same validators with a file WAL and the
     determinism guard, a 100 ms commit timeout, ``CS_WAL_HEIGHTS`` heights,
-    the node stopped in height ``CS_WAL_CRASH_AT``."""
+    the node stopped in height ``CS_WAL_CRASH_AT``.  Last, (r): the app
+    and the signer out of process (``remote_runs``)."""
     from dataclasses import replace
 
     from cometbft_tpu_torch import config as C
@@ -6554,9 +7041,76 @@ def consensus_phase(dev, smi: str, registry, stub_heights: int = CS_STUB_HEIGHTS
           f"FilePV refusals {crash['refusals']}), {crash['wall']:.3f} s; block ids and app "
           f"hashes equal at every height; WAL digests checked {plain['digests_verified']} / "
           f"{crash['digests_verified']}; launches {plain['launches']} / {crash['launches']}")
-    res.update(b1=b1, b2=b2, w=w, seconds=time.perf_counter() - t0)
+    res.update(b1=b1, b2=b2, w=w)
+    res.update(remote_runs(dev, smi, registry, nstub, stub_heights, b2,
+                           os.path.join(root, "cs_remote")))
+    res["seconds"] = time.perf_counter() - t0
     print(f"consensus phase: {res['seconds']:.1f} s")
     return res
+
+
+def remote_runs(dev, smi: str, registry, nstub: int, stub_heights: int, b2: dict,
+                work: str) -> dict:
+    """(r), commit150-remote: (b2)'s configuration with the app and the
+    signer in processes of their own (``cs_stub_run(remote=...)``), over
+    the ABCI socket protocol for ``stub_heights`` + 1 heights, then over
+    gRPC for CS_GRPC_HEIGHTS.  Prints each run beside (b2)'s heights and
+    fails on a run's own checks, on a height from 2 on without its keyed
+    verify (``sha512_keyed`` and ``verify_keyed``), on a generic or host
+    verify, or on the socket run without a ``build_tables`` launch (its
+    node key is new to the table cache).  -> {"r": ..., "r_grpc": ...}."""
+    from cometbft_tpu_torch.abci import grpc as G
+    from cometbft_tpu_torch.ops import precompute as PR
+
+    print(f"(r): grpc {G.grpc.__version__} on this machine")
+    out = {}
+    for key, transport, heights in (("r", "socket", stub_heights + 1),
+                                    ("r_grpc", "grpc", CS_GRPC_HEIGHTS)):
+        name = f"commit{nstub + 1}-remote ({key}: {transport})"
+        keys0 = PR.table_cache(dev).stats["keys_built"]
+        r = cs_stub_run(dev, name, registry, nstub, heights, False, remote=transport,
+                        work=work)
+        r["keys_built"] = PR.table_cache(dev).stats["keys_built"] - keys0
+        out[key] = r
+        e = r["remote"]
+        print(f"{name} [{smi}]: the app ({transport}) and the signer in processes of their own "
+              f"(started in {r['remote_start_s']:.3f} s), {r['ntx']} signed txs admitted in "
+              f"{r['admit_s']:.3f} s; {heights} heights in {r['wall']:.3f} s, launches "
+              f"{r['launches']}, keys built {r['keys_built']}, tiers {r['tiers']}, busy share "
+              f"{r['busy'] / r['wall']:.4f} ({r['busy']:.4f} s)")
+        by_h = {row["height"]: row for row in b2["per_height"]}
+        for row in r["per_height"]:
+            o = by_h.get(row["height"], {})
+            print(f"  height {row['height']}: {row['sigs']} signatures (round {row['round']}), "
+                  f"wall {fmt_s(row['wall'])} s (b2: {fmt_s(o.get('wall'))}), add_vote p50 "
+                  f"{fmt_s(row['add_vote_p50'], 1e3)} ms (b2: {fmt_s(o.get('add_vote_p50'), 1e3)}),"
+                  f" apply_block {fmt_s(row['apply'], 1e3)} ms, its verify_commit "
+                  f"{fmt_s(row['verify_commit'], 1e3)} ms")
+        print("  ABCI round trips ms p50 / max (count): " + "; ".join(
+            f"{k} {p * 1e3:.3f} / {m * 1e3:.3f} ({n})" for k, (p, m, n) in sorted(
+                r["abci"].items())))
+        print("  through the signer ms p50 / max (count): " + "; ".join(
+            f"{k} {p * 1e3:.3f} / {m * 1e3:.3f} ({n})" for k, (p, m, n) in r["sign"].items())
+              + f"; the signer served {e['served']}")
+        pr = e["pruned"]
+        print(f"  index and pruner: every tx committed once and found by hash and by "
+              f"tx.height; retain height {pr['retain']}, block store base {pr['base']} of "
+              f"{pr['top']}, {pr['pruned_blocks']:.0f} blocks pruned, {pr['txs_unindexed']} "
+              f"txs' index rows pruned, nothing left below it; the top commit verifies")
+        print(f"  the app killed: on_error after {e['on_error_s']:.3f} s ({e['app_error'][:80]}; "
+              f"the CheckTx sent after the kill: {e['probe']}), consensus stopped, "
+              f"{e['errors_after_kill']} consensus errors logged after it; the app's "
+              f"{e['calls']} recorded calls pass check_grammar; trust guard trips "
+              f"{e['trips']:.0f}")
+        keyed = min(r["launches"].get("sha512_keyed", 0), r["launches"].get("verify_keyed", 0))
+        if keyed < heights - 1 or (key == "r" and r["launches"].get("build_tables", 0) < 1):
+            raise AssertionError(f"{name}: launches {r['launches']}, wanted sha512_keyed and "
+                                 f"verify_keyed at every height from 2 on and build_tables")
+        if r["tiers"].get("generic") or r["tiers"].get("host") or r["launches"].get(
+                "verify_generic"):
+            raise AssertionError(f"{name}: a commit off the keyed tier: {r['tiers']}, "
+                                 f"{r['launches']}")
+    return out
 
 
 def check_critpath(name: str, observed: list, heights: int, registry) -> dict:
@@ -6595,9 +7149,10 @@ def check_critpath(name: str, observed: list, heights: int, registry) -> dict:
 
 
 def consensus_launches(cons: dict, kname: str) -> int:
-    """A kernel's launches over consensus_phase's runs (a), (b1), (b2) and
-    (w)'s two."""
-    return sum(cons[k]["launches"].get(kname, 0) for k in ("a", "b1", "b2")) + sum(
+    """A kernel's launches over consensus_phase's runs (a), (b1), (b2),
+    (r), (r) over gRPC and (w)'s two."""
+    return sum(cons[k]["launches"].get(kname, 0)
+               for k in ("a", "b1", "b2", "r", "r_grpc")) + sum(
         cons["w"][k]["launches"].get(kname, 0) for k in ("plain", "crash"))
 
 
@@ -6845,11 +7400,13 @@ def run_all(torch) -> int:
     def slice_launches(kname: str) -> dict:
         """A kernel's launches on the later slices' paths: (e2) the
         evidence pool's check and its refused copy, (s) statesync1024,
-        (d) pex-wan1024."""
+        (d) pex-wan1024, (r) commit150-remote and its gRPC run."""
         return {"evidence_launches": light["evidence_add_launches"].get(kname, 0)
                 + light["evidence_refuse_launches"].get(kname, 0),
                 "statesync_launches": bsync["s"]["launches"].get(kname, 0),
-                "pex_wan_launches": bsync["d"]["launches"].get(kname, 0)}
+                "pex_wan_launches": bsync["d"]["launches"].get(kname, 0),
+                "remote_launches": sum(cons[k]["launches"].get(kname, 0)
+                                       for k in ("r", "r_grpc"))}
 
     kernels = []
     for kname, key in (("fe_mul", ("fe_mul", 256)), ("fe_sq", ("fe_sq", 256, 1)),

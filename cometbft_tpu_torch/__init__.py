@@ -57,6 +57,11 @@ Layout mirrors the reference:
   types/light_block.py  SignedHeader, LightBlock and their encodings
   store/__init__.py     BlockStore: blocks as parts, metas and commits
   state/__init__.py     State, its codecs, the state Store
+  state/execution.py    BlockExecutor: proposals, validate_block, apply_block
+  state/txindex.py      TxIndexer, BlockIndexer, NullIndexer and the
+                        IndexerService on the event bus
+  state/pruner.py       Pruner: the app's and the companion's retain
+                        heights, pruning the stores and indexes below them
   light/verifier.py     verify, verify_adjacent, verify_non_adjacent
   light/store.py        LightStore, the client's trusted blocks
   light/provider.py     Provider, NodeProvider (a node's stores)
@@ -87,6 +92,19 @@ Layout mirrors the reference:
                         messages and their codec, the Handshaker
   privval/, wal/, config/  FilePV; the WAL's record kinds and NopWAL;
                         ConsensusConfig, MempoolConfig, test_config
+  privval/signer.py     the remote signer: SignerClient and
+                        SignerListenerEndpoint (the node), SignerServer
+                        and ``python -m ...privval.signer`` (the key's
+                        process)
+  abci/                 the Application types, the codec of its messages
+                        and envelopes, the kvstore app; server.py
+                        (SocketServer, ``python -m ...abci.server``),
+                        client.py (SocketClient), grpc.py (GrpcServer,
+                        GrpcClient; the one module importing grpc),
+                        grammar.py (check_grammar, RecordingApp)
+  proxy/                AppConns: four logical connections over a local,
+                        socket or gRPC client creator
+                        (default_client_creator), the error watcher
   mempool/              CListMempool (signed txs on the ingest lane) and
                         its reactor; NopMempool
 

@@ -128,7 +128,11 @@ class Switch(BaseService):
         ).start()
 
     def on_stop(self) -> None:
-        for peer in self.peers.copy():
+        # copied under the lock _add_peer_conn adds under: a peer added
+        # before the copy is stopped here, one after it is refused there
+        with self._mtx:
+            peers = self.peers.copy()
+        for peer in peers:
             self.stop_peer_gracefully(peer)
         for reactor in self.reactors.values():
             if reactor.is_running():
@@ -272,10 +276,19 @@ class Switch(BaseService):
         )
         for reactor in self.reactors.values():
             reactor.init_peer(peer)
-        try:
-            self.peers.add(peer)
-        except KeyError:
-            self.logger.debug("duplicate peer", peer=ni.node_id[:10])
+        with self._mtx:
+            # (switch.go addPeer: "Won't start a peer - switch is not
+            # running") a dial or an accept whose handshake ends as the
+            # switch stops would otherwise start a peer after on_stop has
+            # stopped the set, and leave its connection's threads running
+            refused = "switch stopped" if self._quit.is_set() else None
+            if refused is None:
+                try:
+                    self.peers.add(peer)
+                except KeyError:
+                    refused = "duplicate peer"
+        if refused is not None:
+            self.logger.debug(refused, peer=ni.node_id[:10])
             conn.close()
             return False
         peer.start()

@@ -1,6 +1,6 @@
-"""Proxy — four typed application connections over one app (a part of
+"""Proxy — four typed application connections over one app (a copy of
 cometbft_tpu/proxy/__init__.py; reference: proxy/multi_app_conn.go:42-58,
-proxy/app_conn.go).
+proxy/app_conn.go, proxy/client.go).
 
 The reference multiplexes the ABCI app behind four logical connections
 (consensus, mempool, query, snapshot) so a slow CheckTx can never block
@@ -10,12 +10,14 @@ reference's local client), while the unsync creator leaves
 synchronization to the application (the reference's unsync-local
 client, used by apps that do their own locking).
 
-Only the shared-lock local client is ported: ``RemoteClientCreator``,
-``GrpcRemoteClientCreator``, ``default_client_creator``,
-``unsync_local_client_creator`` and ``AppConns``' watcher for remote
-clients' errors come with ``abci/client.py`` and ``abci/grpc.py``.
-Locks are ``utils/sync``'s ``RMutex()``/``Mutex()``, as in the
-reference.
+An external app is reached over the ABCI socket protocol
+(``RemoteClientCreator``, ``abci/client.py``) or gRPC
+(``GrpcRemoteClientCreator``, ``abci/grpc.py``, imported only for a
+``grpc://`` address): one client, and so one socket or channel, per
+logical connection.  ``AppConns`` connects each at its start and, for
+clients without an in-call hook, polls their latched ``error()`` from
+a watcher thread that fires ``on_error`` once.  Locks are
+``utils/sync``'s ``RMutex()``/``Mutex()``, as in the reference.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ from typing import Callable
 from cometbft_tpu_torch.abci.types import Application
 from cometbft_tpu_torch.utils.flight import FLIGHT
 from cometbft_tpu_torch.utils.service import BaseService
-from cometbft_tpu_torch.utils.trace import TRACER
 from cometbft_tpu_torch.utils import sync as cmtsync
+from cometbft_tpu_torch.utils.trace import TRACER
 
 
 class AbciClientError(Exception):
@@ -130,6 +132,14 @@ class _LocalClient:
         return self._call(self._app.apply_snapshot_chunk, req)
 
 
+class _NopLock:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
 #: the ABCI method surface timed at the proxy seam — every call on any
 #: of the four logical connections lands in
 #: abci_method_timing_seconds{method,connection} (proxy/metrics.go
@@ -200,9 +210,9 @@ class _TimedConn:
 class ClientCreator:
     """Builds one client per logical connection (proxy/client.go)."""
 
-    def __init__(self, app: Application):
+    def __init__(self, app: Application, sync: bool = True):
         self._app = app
-        self._lock = cmtsync.RMutex()
+        self._lock = cmtsync.RMutex() if sync else _NopLock()
         self._shared_error: list = []
         self._on_error = None
 
@@ -227,7 +237,65 @@ class ClientCreator:
 
 def local_client_creator(app: Application) -> ClientCreator:
     """Shared-mutex local client (proxy/client.go NewLocalClientCreator)."""
-    return ClientCreator(app)
+    return ClientCreator(app, sync=True)
+
+
+def unsync_local_client_creator(app: Application) -> ClientCreator:
+    """App-managed locking (NewUnsyncLocalClientCreator) — lets CheckTx
+    run concurrently with FinalizeBlock, the 4-connection point."""
+    return ClientCreator(app, sync=False)
+
+
+class RemoteClientCreator:
+    """Clients for an external app over the ABCI socket protocol —
+    one fresh socket per logical connection (proxy/client.go
+    NewRemoteClientCreator + abci/client/socket_client.go)."""
+
+    def __init__(self, addr: str, connect_timeout: float = 10.0):
+        self._addr = addr
+        self._connect_timeout = connect_timeout
+
+    def new_client(self):
+        from cometbft_tpu_torch.abci.client import SocketClient
+
+        return SocketClient(
+            self._addr, connect_timeout=self._connect_timeout
+        )
+
+
+def remote_client_creator(
+    addr: str, connect_timeout: float = 10.0
+) -> RemoteClientCreator:
+    return RemoteClientCreator(addr, connect_timeout)
+
+
+class GrpcRemoteClientCreator:
+    """Clients for an external app over ABCI gRPC — one channel-backed
+    client per logical connection (proxy/client.go NewRemoteClientCreator
+    with transport "grpc" + abci/client/grpc_client.go)."""
+
+    def __init__(self, addr: str, connect_timeout: float = 10.0):
+        self._addr = addr
+        self._connect_timeout = connect_timeout
+
+    def new_client(self):
+        from cometbft_tpu_torch.abci.grpc import GrpcClient
+
+        return GrpcClient(self._addr, connect_timeout=self._connect_timeout)
+
+
+def default_client_creator(proxy_app: str, app: Application | None = None):
+    """config.proxy_app -> creator (proxy/client.go DefaultClientCreator):
+    tcp:// and unix:// addresses mean an external app over the socket
+    protocol, grpc:// over gRPC; anything else is a builtin served
+    in-process."""
+    if proxy_app.startswith("grpc://"):
+        return GrpcRemoteClientCreator(proxy_app)
+    if proxy_app.startswith(("tcp://", "unix://")):
+        return remote_client_creator(proxy_app)
+    if app is None:
+        raise ValueError(f"builtin app {proxy_app!r} requires an instance")
+    return local_client_creator(app)
 
 
 class AppConns(BaseService):
@@ -253,13 +321,21 @@ class AppConns(BaseService):
         )
         self._on_error = None
         self._fire_lock = cmtsync.Mutex()
+        self._sync_hook = False
+        self._watch_stop = threading.Event()
+        self._watcher: threading.Thread | None = None
 
     def set_on_error(self, cb) -> None:
         """``cb(exc)`` fires once on the first fatal client error
-        (multiAppConn startWatchersForClientErrors): in-process apps
-        report synchronously through the creator."""
+        (multiAppConn startWatchersForClientErrors).  In-process apps
+        report synchronously through the creator; remote (socket/grpc)
+        clients latch their error and are polled by a watcher thread
+        started in on_start."""
         self._on_error = cb
-        self._creator.set_on_error(self._fire)
+        setter = getattr(self._creator, "set_on_error", None)
+        self._sync_hook = setter is not None
+        if setter is not None:
+            setter(self._fire)
 
     def _fire(self, exc) -> None:
         # once-delivery is the documented contract: the latch swap must
@@ -270,6 +346,51 @@ class AppConns(BaseService):
         if cb is not None:
             cb(exc)
 
+    def _watch_errors(self) -> None:
+        clients = (self.consensus, self.mempool, self.query, self.snapshot)
+        while not self._watch_stop.wait(1.0):
+            for c in clients:
+                err_fn = getattr(c, "error", None)
+                err = err_fn() if err_fn is not None else None
+                if err is not None:
+                    self._fire(err)
+                    return
+
+    def on_start(self) -> None:
+        # Remote clients connect lazily; surface connection failures at
+        # service start (node.OnStart) rather than first use.
+        for client in (
+            self.consensus,
+            self.mempool,
+            self.query,
+            self.snapshot,
+        ):
+            connect = getattr(client, "ensure_connected", None)
+            if connect is not None:
+                connect()
+        if self._on_error is not None and not self._sync_hook:
+            # no synchronous in-call hook wired: poll client errors
+            self._watcher = threading.Thread(
+                target=self._watch_errors, name="proxy-err-watch",
+                daemon=True,
+            )
+            self._watcher.start()
+
+    def on_stop(self) -> None:
+        self._watch_stop.set()
+        for client in (
+            self.consensus,
+            self.mempool,
+            self.query,
+            self.snapshot,
+        ):
+            close = getattr(client, "close", None)
+            if close is not None:
+                try:
+                    close()
+                except Exception:  # noqa: BLE001 — best-effort teardown
+                    pass
+
 
 def new_app_conns(creator: ClientCreator, metrics=None) -> AppConns:
     return AppConns(creator, metrics=metrics)
@@ -279,6 +400,11 @@ __all__ = [
     "AbciClientError",
     "AppConns",
     "ClientCreator",
+    "GrpcRemoteClientCreator",
+    "RemoteClientCreator",
+    "default_client_creator",
     "local_client_creator",
     "new_app_conns",
+    "remote_client_creator",
+    "unsync_local_client_creator",
 ]

@@ -12,7 +12,6 @@ Where the port departs from its reference:
 - ``validate_block`` and ``BlockExecutor`` take a keyword ``device``
   (``cuda`` unless the caller names another; without a card only
   ``device="cpu"`` runs) and pass it to every ``verify_commit``;
-- the pruner's hook (``pruner``) comes with the node;
 - the node's adversary is an argument, ``byz`` (``consensus/byz.py``;
   unarmed unless the caller arms it), where the reference reads
   ``CMT_TPU_BYZ`` into a process-wide one;
@@ -20,7 +19,9 @@ Where the port departs from its reference:
   the reference reads ``CMT_TPU_DETERMINISM``: with it on,
   ``last_transition_digest`` is the digest of the last applied block.
 
-``validate_block`` notes the trust guard's validator and
+After each commit the app's positive retain height goes to ``pruner``
+(``state/pruner.py``) when the caller has wired one, as in the
+reference.  ``validate_block`` notes the trust guard's validator and
 ``apply_block`` is a sink, as in the reference.
 """
 
@@ -420,6 +421,7 @@ class BlockExecutor:
         self.metrics = metrics if metrics is not None else StateMetrics()
         self.logger = logger or default_logger().with_fields(module="executor")
         self.retain_height = 0  # last app-requested retain height
+        self.pruner = None  # wired by the node (state/pruner.py)
         # TransitionDigest of the last apply_block with the
         # determinism guard on (state/determinism.py); None otherwise
         self.last_transition_digest = None
@@ -613,6 +615,13 @@ class BlockExecutor:
         self._fire_events(block, block_id, resp)
         # advisory for the background pruner (node/node.go createPruner)
         self.retain_height = max(retain_height, 0)
+        if self.pruner is not None and retain_height > 0:
+            try:
+                self.pruner.set_application_retain_height(retain_height)
+            except Exception as exc:  # noqa: BLE001 — never block commit
+                self.logger.error(
+                    "failed to record retain height", err=repr(exc)
+                )
         return new_state
 
     def _commit(

@@ -25,8 +25,9 @@ chain.  Contexts are thread-local, so work handed to another thread
 Zero-cost when off: every entry point returns at once on the cached
 flag.  Where the port departs from its reference: the reference arms
 the guard from ``CMT_TPU_TRUSTGUARD`` at import; the port reads no
-environment variable and is armed by :func:`enable`.  The RPC and
-ABCI-client seams are not ported yet.
+environment variable and is armed by :func:`enable`.  The port has 9
+seams, every one of the reference's but RPC's three (``rpc_tx``,
+``rpc_tx_async``, ``rpc_evidence``), which come with the RPC server.
 """
 
 from __future__ import annotations

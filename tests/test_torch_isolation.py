@@ -61,7 +61,9 @@ _CHILD = textwrap.dedent(
                  "statesync", "statesync.messages", "statesync.reactor",
                  "statesync.stateprovider", "statesync.syncer", "utils.sync",
                  "utils.trustguard", "utils.critpath", "utils.fleetobs", "p2p.conn.netem",
-                 "p2p.pex", "p2p.pex.addrbook", "p2p.pex.reactor"):
+                 "p2p.pex", "p2p.pex.addrbook", "p2p.pex.reactor", "abci.server",
+                 "abci.client", "abci.grpc", "abci.grammar", "privval.signer",
+                 "state.txindex", "state.pruner"):
         assert "cometbft_tpu_torch." + name in sys.modules, name
     leaked = sorted(m for m in sys.modules
                     if m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
@@ -80,6 +82,38 @@ def test_port_imports_neither_jax_nor_reference():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ISOLATED-OK" in proc.stdout
+
+
+def _imports(path: str) -> set:
+    """The top-level package names a source file imports, anywhere in it."""
+    import ast
+
+    out = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            out.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            out.add(node.module.split(".")[0])
+    return out
+
+
+def test_only_the_grpc_transport_imports_grpc():
+    """abci/grpc.py is the one port module that imports grpc (the proxy
+    imports it only for a grpc:// app); the app and the signer processes
+    import no torch."""
+    root = os.path.join(REPO, "cometbft_tpu_torch")
+    users = sorted(os.path.relpath(os.path.join(d, f), root)
+                   for d, _, files in os.walk(root) for f in files
+                   if f.endswith(".py") and "grpc" in _imports(os.path.join(d, f)))
+    assert users == ["abci/grpc.py"]
+    child = ("import sys, cometbft_tpu_torch.abci.server, cometbft_tpu_torch.abci.kvstore, "
+             "cometbft_tpu_torch.abci.grammar, cometbft_tpu_torch.privval.signer; "
+             "print(sorted(m for m in ('torch', 'numpy', 'jax', 'grpc') if m in sys.modules))")
+    proc = subprocess.run([sys.executable, "-c", child], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip() == "[]"
 
 
 def test_no_silent_cpu_fallback(monkeypatch):

@@ -621,3 +621,31 @@ def test_consensus_stub_run_on_the_card(dev):
                                    queue, config=C.test_config(), timeout_s=120)
         assert [row["height"] for row in r["per_height"]] == [1, 2]
         assert all(row["sigs"] >= 3 for row in r["per_height"])
+
+
+def test_remote_run_on_the_card(dev, tmp_path):
+    """chip_smoke's (r), commit150-remote, at 3 heights: the kvstore app
+    and the signer in processes of their own, 149 stubs, the indexer,
+    the pruner and the trust guard; every commit carries 2/3 + 1 of the
+    signatures, the LastCommit checks of heights 2 and 3 launch
+    ``sha512_keyed`` and ``verify_keyed`` on the keyed tier, and the run's
+    end checks hold (the app's Info, its call grammar, the index, the
+    signer's counts, on_error after the kill)."""
+    import chip_smoke
+    from cometbft_tpu_torch import metrics as M
+    from cometbft_tpu_torch.utils.metrics import Registry
+
+    reg = Registry()
+    M.install_crypto_metrics(M.CryptoMetrics(reg))
+    try:
+        r = chip_smoke.cs_stub_run(dev, "commit150-remote on the card", reg, 149, 3, False,
+                                   remote="socket", work=str(tmp_path / "r"), timeout_s=180)
+    finally:
+        M.install_crypto_metrics(None)
+    assert [row["height"] for row in r["per_height"]] == [1, 2, 3]
+    assert all(row["sigs"] >= 101 for row in r["per_height"])
+    assert min(r["launches"].get("sha512_keyed", 0), r["launches"].get("verify_keyed", 0)) >= 2
+    assert set(r["tiers"]) == {"keyed"} and not r["launches"].get("verify_generic")
+    e = r["remote"]
+    assert e["on_error_s"] < chip_smoke.CS_APP_ERROR_S and e["trips"] == 0
+    assert e["served"]["vote"] >= 6 and e["served"]["proposal"] >= 1

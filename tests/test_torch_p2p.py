@@ -923,6 +923,28 @@ def test_stop_peer_for_error_records_and_closes():
         _stop(sa, sb)
 
 
+def test_a_handshake_that_ends_after_the_stop_starts_no_peer():
+    """A dial whose handshake ends as the switch stops: the switch refuses
+    the connection and starts no peer, whose connection's threads nobody
+    would stop (the port's switch; the reference's starts it)."""
+    (sa, _), (sb, _) = _switch(PORT), _switch(PORT)
+    try:
+        conn, ni = sa.transport.dial(sb.transport.listen_addr)
+        # the acceptor's peer started first: its threads are not the dialler's
+        assert wait_for(lambda: sb.peers.size() == 1 and all(
+            p.is_running() and p.mconn._ping_thread is not None     # started last
+            and p.mconn._ping_thread.ident is not None for p in sb.peers.copy()))
+        mconn_threads = lambda: {t.ident for t in threading.enumerate()  # noqa: E731
+                                 if t.name.startswith("mconn")}
+        before = mconn_threads()
+        sa.stop()
+        assert sa._add_peer_conn(conn, ni, sb.transport.listen_addr, outbound=True) is False
+        assert sa.peers.size() == 0 and mconn_threads() <= before
+        assert wait_for(lambda: sb.peers.size() == 0)
+    finally:
+        _stop(sa, sb)
+
+
 def test_broadcast_reaches_every_peer():
     hub, hub_r = _switch(PORT, moniker="hub")
     spokes = [_switch(s, moniker=f"s{i}") for i, s in enumerate((REF, PORT, REF))]

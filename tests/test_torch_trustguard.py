@@ -1,7 +1,7 @@
 """utils/trustguard: the port's wire-provenance guard against the
 reference's — the same planted seam -> validator -> sink sequences trip
 or pass alike, and the port's seams, validators and sinks are the
-reference's (less the RPC and ABCI-client ones, not ported yet).
+reference's (less the RPC ones, not ported yet).
 
 The reference reads its flag at import; it is armed here as its own
 tests arm it (``trustguard.reset(enable=True)``), the port's by
@@ -18,9 +18,9 @@ from cometbft_tpu_torch.utils import trustguard as port_tg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: the reference's seams the port has no module for yet (RPC, ABCI client)
+#: the reference's seams the port has no module for yet (RPC)
 NOT_PORTED = {
-    "seam": {"rpc_tx", "rpc_evidence", "abci_response"},
+    "seam": {"rpc_tx", "rpc_evidence"},
     "context": {"rpc_tx_async"},
     "validator": set(),
     "sink": set(),
@@ -63,7 +63,8 @@ def test_port_seams_validators_and_sinks_are_the_references():
         assert ref[kind] - port[kind] == NOT_PORTED[kind], kind
     assert port["seam"] == {
         "consensus_state", "consensus_reactor", "blocksync_reactor", "mempool_reactor",
-        "evidence_reactor", "statesync_reactor", "statesync_chunk", "pex_reactor"}
+        "evidence_reactor", "statesync_reactor", "statesync_chunk", "pex_reactor",
+        "abci_response"}
     assert port["validator"] == {
         "VoteSet._verify", "Part.validate_basic", "verify_commit", "verify_commit_light",
         "verify_commit_light_trusting", "CListMempool._verify_tx_signature",
@@ -82,10 +83,12 @@ def test_the_seam_methods_are_wrapped():
     from cometbft_tpu_torch.p2p.pex import PexReactor
     from cometbft_tpu_torch.statesync.reactor import StatesyncReactor
     from cometbft_tpu_torch.statesync.syncer import Syncer
+    from cometbft_tpu_torch.abci.client import SocketClient
 
     for fn in (ConsensusState._handle_msg, ConsensusReactor.receive,
                BlocksyncReactor.receive, MempoolReactor.receive, EvidenceReactor.receive,
-               StatesyncReactor.receive, Syncer.add_chunk, PexReactor.receive):
+               StatesyncReactor.receive, Syncer.add_chunk, PexReactor.receive,
+               SocketClient._read_response):
         assert hasattr(fn, "__wrapped__"), fn.__qualname__
 
 
